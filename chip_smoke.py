@@ -9,17 +9,31 @@ Run from the root of a checkout. Phases, in order:
 2. build: every CUDA kernel built with nvcc from ``flashinfer_tpu_torch/csrc``
    (one process per source, all at once);
 3. kernel checks: each kernel against its plain PyTorch version on the card
-   at the shapes the Llama-3-8B engine gives it, with its time (CUDA
-   events), its bound and the plain version's time;
-4. tiny reference: the f32 tiny engine on the card (every kernel on) emits
-   the greedy tokens of the same engine on the CPU (every plain version);
+   with its time (CUDA events), its bound, the plain version's time and,
+   where one PyTorch call computes the same function, that call's time:
+   paged attention, the sampler and RMSNorm at the shapes the Llama-3-8B
+   engine gives them; MLA attention at DeepSeek-V2-Lite shapes (decode and
+   causal prefill, bf16/e4m3/int8 caches); the grouped GEMM (both MoE GEMMs,
+   bf16 and e4m3 weights) at the V2-Lite decode and prefill routings and a
+   Mixtral-8x7B layer;
+4. tiny references: the f32 tiny Llama engine and the f32 tiny DeepSeek
+   decode loop on the card (every kernel on) emit the greedy tokens of the
+   same model on the CPU (every plain version);
 5. engine: ``LlamaServingEngine`` at Llama-3-8B widths and depth in bf16,
    random weights from a seeded CUDA generator, 12 requests of 64-512
    prompt tokens and 32 new tokens on 8 slots, sampled (the engine's
-   default, the main path: kernel launch counts are read from this run)
-   and then greedy, then greedy again with the HND layout and the e4m3
+   default, the Llama path: its kernel launch counts are read from this
+   run) and then greedy, then greedy again with the HND layout and the e4m3
    and int8 KV caches;
-6. one ``{"kernels": [...]}`` line, then the result line.
+6. DeepSeek: ``deepseek_decode_step`` at DeepSeek-V2-Lite widths and full
+   depth (27 layers) in bf16, random weights from a seeded CUDA generator,
+   8 requests of 32-128 prompt tokens prefilled token by token and 32 new
+   tokens each, one MLA plan per step: sampled (top-k 40, top-p 0.9: the
+   DeepSeek path, whose launch counts are read from this run), greedy,
+   then a short greedy run on e4m3 caches and the e4m3 witness (one step
+   on bf16, e4m3 and bf16-fed-e4m3-values caches: the last two must
+   agree);
+7. one ``{"kernels": [...]}`` line, then the result line.
 
 The script exits non-zero, and prints no result line, when the machine has
 no CUDA device, when it is not run from a checkout, or when any phase fails.
@@ -29,6 +43,7 @@ no CUDA device, when it is not run from a checkout, or when any phase fails.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -38,7 +53,9 @@ import traceback
 
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}  # dense, no sparsity
+# dense, no sparsity (NVIDIA data sheet, SXM part)
+PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12, "fp8": 1979e12,
+                  "int8": 1979e12}
 SOURCE_DIR = "flashinfer_tpu_torch"
 
 # o: two bf16 steps of |ref| (each side rounds its output once), plus one
@@ -48,6 +65,33 @@ ATTN_RTOL_O, ATTN_ATOL_O = 2.0 ** -6, 2.0 ** -8
 ATTN_TOL_LSE = 1e-3  # f32 sums in other orders
 NORM_TOL = 2.0 ** -7  # one bf16 rounding step, relative to the output
 SAMPLER_RENORM_TOL = 1e-6
+# grouped GEMM, against the plain f32 loop: one bf16 rounding step of the
+# output (2^-7 relative), or 1e-3 relative for an f32 output; both plus
+# 1e-3 of the output's rms, since the f32 sums run in other orders and
+# their error scales with the sum of |products|, not with the result
+GG_RTOL = {"bf16": 2.0 ** -7, "f32": 1e-3}
+GG_ATOL_RMS = 1e-3
+
+# DeepSeek-V2-Lite's published config (huggingface.co/deepseek-ai/
+# DeepSeek-V2-Lite, config.json) as DeepSeekConfig fields: vocab_size,
+# hidden_size, num_hidden_layers, num_attention_heads, kv_lora_rank,
+# qk_rope_head_dim, qk_nope_head_dim (= v_head_dim), n_routed_experts,
+# num_experts_per_tok, n_shared_experts, moe_intermediate_size, n_group,
+# topk_group, rope_theta, rms_norm_eps
+V2_LITE = dict(vocab_size=102400, hidden_size=2048, num_layers=27,
+               num_heads=16, head_dim_ckv=512, head_dim_kpe=64,
+               head_dim_qk_nope=128, num_experts=64, top_k=6,
+               num_shared_experts=2, moe_inter_size=1408, n_group=1,
+               topk_group=1, rope_theta=1e4, rms_eps=1e-6)
+MLA_PAGE = 16
+# grouped-GEMM check routings: (name, tokens, experts, top_k, hidden, inter)
+GG_CASES = (
+    ("v2lite_decode", 8, 64, 6, 2048, 1408),
+    ("v2lite_prefill", 2048, 64, 6, 2048, 1408),
+    # the JAX bench's Mixtral-8x7B layer (benchmarks/
+    # flashinfer_tpu_benchmark.py:559-566)
+    ("mixtral_layer", 4096, 8, 2, 4096, 14336),
+)
 
 
 def log(*args):
@@ -307,7 +351,9 @@ def check_paged_attention(torch, np, lens_decode, lens_prefill):
     return rows
 
 
-def check_sampler(torch, vocab=128256, batch=8):
+def check_sampler(torch, vocabs=(128256, 102400), batch=8):
+    """The sampler at the two main paths' shapes: [8, 128256] (Llama-3-8B)
+    and [8, 102400] (DeepSeek-V2-Lite)."""
     from flashinfer_tpu_torch.ops.sampling import (
         family_call,
         family_plain,
@@ -316,46 +362,55 @@ def check_sampler(torch, vocab=128256, batch=8):
 
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(3)
-    probs = softmax(torch.randn(batch, vocab, device=dev, generator=gen) * 4)
-    k = torch.full((batch, 1), 40, dtype=torch.int32, device=dev)
-    p = torch.full((batch, 1), 0.9, device=dev)
-    mismatches = 0
-    for seed in (12345, 2**31 - 2, 7):
-        got = family_call(probs, seed, k, p, filt="top_k_top_p_seq",
-                          out_mode="sample")
-        want = family_plain(probs, seed, k, p, filt="top_k_top_p_seq",
-                            out_mode="sample")
-        mismatches += int((got != want).sum())
-        log(f"sampler seed={seed} kernel={got.tolist()} plain={want.tolist()}")
-    got = family_call(probs, 0, k, p, filt="top_k_top_p_seq",
-                      out_mode="renorm")
-    want = family_plain(probs, 0, k, p, filt="top_k_top_p_seq",
-                        out_mode="renorm")
-    err = float((got - want).abs().max())
+    out = []
+    for vocab in vocabs:
+        probs = softmax(torch.randn(batch, vocab, device=dev, generator=gen)
+                        * 4)
+        k = torch.full((batch, 1), 40, dtype=torch.int32, device=dev)
+        p = torch.full((batch, 1), 0.9, device=dev)
+        mismatches = 0
+        for seed in (12345, 2**31 - 2, 7):
+            got = family_call(probs, seed, k, p, filt="top_k_top_p_seq",
+                              out_mode="sample")
+            want = family_plain(probs, seed, k, p, filt="top_k_top_p_seq",
+                                out_mode="sample")
+            mismatches += int((got != want).sum())
+            log(f"sampler vocab={vocab} seed={seed} kernel={got.tolist()} "
+                f"plain={want.tolist()}")
+        got = family_call(probs, 0, k, p, filt="top_k_top_p_seq",
+                          out_mode="renorm")
+        want = family_plain(probs, 0, k, p, filt="top_k_top_p_seq",
+                            out_mode="renorm")
+        err = float((got - want).abs().max())
 
-    def run(fn):
-        return lambda: fn(probs, 12345, k, p, filt="top_k_top_p_seq",
-                          out_mode="sample")
+        def run(fn):
+            return lambda: fn(probs, 12345, k, p, filt="top_k_top_p_seq",
+                              out_mode="sample")
 
-    ms = cuda_ms(torch, run(family_call), 20, graph=True)
-    call_ms = cuda_ms(torch, run(family_call), 20)
-    plain_ms = cuda_ms(torch, run(family_plain), 3, warmup=1)
-    nbytes = probs.numel() * 4 + k.numel() * 4 + p.numel() * 4 + batch * 4
-    b_ms, b_by = bound_ms(nbytes, 0)
-    ok = mismatches == 0 and err <= SAMPLER_RENORM_TOL
-    log(f"sampler_family batch={batch} vocab={vocab} token_mismatches="
-        f"{mismatches} renorm_err={err:.2e} ms={ms:.4f} call_ms="
-        f"{call_ms:.4f} plain_ms="
-        f"{plain_ms:.3f} bound_ms={b_ms:.5f} ({b_by}) "
-        f"{'ok' if ok else 'MISMATCH'}")
-    if not ok:
-        raise AssertionError("sampler kernel disagrees with its plain version")
-    return dict(err=err, mismatches=mismatches, ms=ms, call_ms=call_ms,
-                plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by)
+        ms = cuda_ms(torch, run(family_call), 20, graph=True)
+        call_ms = cuda_ms(torch, run(family_call), 20)
+        plain_ms = cuda_ms(torch, run(family_plain), 3, warmup=1)
+        nbytes = probs.numel() * 4 + k.numel() * 4 + p.numel() * 4 + batch * 4
+        b_ms, b_by = bound_ms(nbytes, 0)
+        ok = mismatches == 0 and err <= SAMPLER_RENORM_TOL
+        log(f"sampler_family batch={batch} vocab={vocab} token_mismatches="
+            f"{mismatches} renorm_err={err:.2e} ms={ms:.4f} call_ms="
+            f"{call_ms:.4f} plain_ms="
+            f"{plain_ms:.3f} bound_ms={b_ms:.5f} ({b_by}) "
+            f"{'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            raise AssertionError(f"sampler kernel disagrees with its plain "
+                                 f"version at vocab {vocab}")
+        out.append(dict(batch=batch, vocab=vocab, err=err,
+                        mismatches=mismatches, ms=ms, call_ms=call_ms,
+                        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by))
+    return out
 
 
-def check_rmsnorm(torch, rows_list=(8, 4096), hidden=4096):
+def check_rmsnorm(torch, shapes=((8, 4096, 1e-5), (4096, 4096, 1e-5),
+                                 (8, 2048, 1e-6))):
+    """RMSNorm at the main paths' shapes (rows, hidden, eps): Llama-3-8B
+    decode and prefill rows, DeepSeek-V2-Lite decode rows."""
     import torch.nn.functional as F
 
     from flashinfer_tpu_torch.ops.norm import rmsnorm, rmsnorm_plain
@@ -363,20 +418,20 @@ def check_rmsnorm(torch, rows_list=(8, 4096), hidden=4096):
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(5)
     out = []
-    for rows in rows_list:
+    for rows, hidden, eps in shapes:
         x = torch.randn(rows, hidden, device=dev, generator=gen,
                         dtype=torch.bfloat16)
         w = (1 + 0.1 * torch.randn(hidden, device=dev, generator=gen)).to(
             torch.bfloat16)
-        got = rmsnorm(x, w, 1e-5)
-        want = rmsnorm_plain(x, w, 1e-5)
+        got = rmsnorm(x, w, eps)
+        want = rmsnorm_plain(x, w, eps)
         diff = (got.float() - want.float()).abs()
         err = float(diff.max())
         ok = bool((diff <= NORM_TOL * want.float().abs() + 1e-6).all())
-        ms = cuda_ms(torch, lambda: rmsnorm(x, w, 1e-5), 50, graph=True)
-        call_ms = cuda_ms(torch, lambda: rmsnorm(x, w, 1e-5), 50)
-        plain_ms = cuda_ms(torch, lambda: rmsnorm_plain(x, w, 1e-5), 20)
-        lib_ms = cuda_ms(torch, lambda: F.rms_norm(x, (hidden,), w, 1e-5),
+        ms = cuda_ms(torch, lambda: rmsnorm(x, w, eps), 50, graph=True)
+        call_ms = cuda_ms(torch, lambda: rmsnorm(x, w, eps), 50)
+        plain_ms = cuda_ms(torch, lambda: rmsnorm_plain(x, w, eps), 20)
+        lib_ms = cuda_ms(torch, lambda: F.rms_norm(x, (hidden,), w, eps),
                          50, graph=True)
         nbytes = 2 * x.numel() * 2 + hidden * 2
         b_ms, b_by = bound_ms(nbytes, 4 * x.numel())
@@ -385,12 +440,264 @@ def check_rmsnorm(torch, rows_list=(8, 4096), hidden=4096):
             f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
             f"bound_ms={b_ms:.5f} ({b_by}) {'ok' if ok else 'MISMATCH'}")
         if not ok:
-            raise AssertionError("rmsnorm kernel disagrees with its plain "
-                                 "version")
-        out.append(dict(rows=rows, err=err, ms=ms, call_ms=call_ms,
-                        plain_ms=plain_ms,
+            raise AssertionError(f"rmsnorm kernel disagrees with its plain "
+                                 f"version at [{rows}, {hidden}]")
+        out.append(dict(rows=rows, hidden=hidden, err=err, ms=ms,
+                        call_ms=call_ms, plain_ms=plain_ms,
                         library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
     return out
+
+
+def _mla_plan(np, qo_lens, kv_lens, causal, chunk, page_rng):
+    """An MLA plan at V2-Lite heads, page 16, with a page table drawn from
+    ``page_rng``. Returns (wrapper, pages)."""
+    from flashinfer_tpu_torch.ops.attention.mla import (
+        BatchMLAPagedAttentionWrapper,
+    )
+
+    c = V2_LITE
+    npages = -(-np.asarray(kv_lens) // MLA_PAGE)
+    indptr = np.concatenate([[0], np.cumsum(npages)])
+    pages = int(indptr[-1])
+    indices = page_rng.permutation(pages)
+    w = BatchMLAPagedAttentionWrapper(device=DEVICE)
+    w.plan(np.concatenate([[0], np.cumsum(qo_lens)]), indptr, indices,
+           np.asarray(kv_lens), c["num_heads"], c["head_dim_ckv"],
+           c["head_dim_kpe"], MLA_PAGE, causal=causal, kv_chunk_size=chunk,
+           sm_scale=(c["head_dim_qk_nope"] + c["head_dim_kpe"]) ** -0.5)
+    return w, pages
+
+
+def _mla_bytes(plan, kv_lens, tile_q, d_ckv, d_kpe, kv_itemsize, pages):
+    """Bytes the MLA work list must move: the ckv and kpe of every key once,
+    the q tiles and partial outputs of the items that have keys, the plan
+    and the page-table entries in use."""
+    p = plan.reshape(12, -1).cpu().numpy()
+    real = (p[0] >= 0) & (p[6] > p[5])
+    q_tiles = len(set(p[3][real].tolist()))
+    kv = int(sum(kv_lens)) * (d_ckv + d_kpe) * kv_itemsize
+    q = q_tiles * tile_q * (d_ckv + d_kpe) * 2
+    out = int(real.sum()) * tile_q * (d_ckv * 2 + 4)
+    return kv + q + out + p.size * 4 + pages * 4
+
+
+def check_mla(torch, np):
+    """MLA at DeepSeek-V2-Lite shapes (16 heads, ckv 512, kpe 64, page 16):
+    decode of 8 requests of 512-4096 keys (KV chunk 256, so split-KV
+    partials merge) and causal prefill of 8 prompts of 64-512 tokens (KV
+    chunk 512), each on bf16, e4m3 and linear int8 caches."""
+    from flashinfer_tpu_torch.ops.attention.mla import (
+        mla_paged_plain,
+        mla_paged_run,
+    )
+
+    c = V2_LITE
+    d_ckv, d_kpe, heads = c["head_dim_ckv"], c["head_dim_kpe"], c["num_heads"]
+    rng = np.random.default_rng(4)
+    kv_dec = rng.integers(512, 4097, 8)
+    qo_pre = rng.integers(64, 513, 8)
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    rows = []
+    for mode, qo, kv, causal, chunk in (
+            ("decode", np.ones(8, np.int64), kv_dec, False, 256),
+            ("prefill", qo_pre, qo_pre, True, 512)):
+        w, pages = _mla_plan(np, qo, kv, causal, chunk, rng)
+        dp = w.device_plan
+        m = dp.meta
+        q_ckv = torch.randn(m.bucket_rows, d_ckv, device=dev, generator=gen,
+                            dtype=torch.bfloat16)
+        q_pe = torch.randn(m.bucket_rows, d_kpe, device=dev, generator=gen,
+                           dtype=torch.bfloat16)
+        plan, kv_idx = dp.segment("plan"), dp.segment("kv_indices")
+        for kv_dtype in ("bf16", "e4m3", "int8"):
+            caches = []
+            for d in (d_ckv, d_kpe):
+                x = torch.randn(LAYERS_ROTATED, pages, MLA_PAGE, d,
+                                device=dev, generator=gen,
+                                dtype=torch.bfloat16)
+                if kv_dtype == "int8":
+                    x = (x * 25).round().clamp(-127, 127).to(torch.int8)
+                elif kv_dtype == "e4m3":
+                    x = (x * 4).to(torch.float8_e4m3fn)
+                caches.append(x)
+            ckv, kpe = caches
+            deq = {"bf16": 1.0, "int8": 0.04, "e4m3": 0.25}[kv_dtype]
+            kw = dict(tile_q=m.tile_q, group=m.gqa_group, causal=m.causal,
+                      sm_scale=m.sm_scale * deq, v_scale=deq)
+            layer = [0]
+
+            def call(fn, rotate=True):
+                li = layer[0] % LAYERS_ROTATED
+                if rotate:
+                    layer[0] += 1
+                return fn(q_ckv, q_pe, ckv[li], kpe[li], kv_idx, plan, **kw)
+
+            o, lse = call(mla_paged_run, rotate=False)
+            ref_o, ref_lse = call(mla_paged_plain, rotate=False)
+            torch.cuda.synchronize()
+            diff_o = (o.float() - ref_o.float()).abs()
+            err_o = float(diff_o.max())
+            o_ratio = float((diff_o / (ATTN_RTOL_O * ref_o.float().abs()
+                                       + ATTN_ATOL_O)).max())
+            finite = torch.isfinite(ref_lse)
+            same_inf = bool(torch.equal(finite, torch.isfinite(lse)))
+            err_lse = (float((lse[finite] - ref_lse[finite]).abs().max())
+                       if bool(finite.any()) else 0.0)
+            iters = 20 if mode == "decode" else 5
+            ms = cuda_ms(torch, lambda: call(mla_paged_run), iters,
+                         graph=True)
+            plain_ms = cuda_ms(torch, lambda: call(mla_paged_plain), 3,
+                               warmup=1)
+            nbytes = _mla_bytes(plan, kv, m.tile_q, d_ckv, d_kpe,
+                                ckv.element_size(), pages)
+            # QK over ckv + kpe and P.V over ckv, 2 operations a product
+            ops = 2 * (2 * d_ckv + d_kpe) * _attention_work(kv, qo, heads)
+            kind = {"bf16": "bf16", "e4m3": "fp8", "int8": "int8"}[kv_dtype]
+            b_ms, b_by = bound_ms(nbytes, ops, kind)
+            ok = o_ratio <= 1.0 and err_lse <= ATTN_TOL_LSE and same_inf
+            row = dict(mode=mode, kv=kv_dtype, q_rows=m.bucket_rows,
+                       kv_tokens=int(kv.sum()), T=m.num_work_items,
+                       tile_q=m.tile_q, splits=m.max_splits, err_o=err_o,
+                       o_ratio=o_ratio, err_lse=err_lse, ms=ms,
+                       plain_ms=plain_ms, bound_bytes=nbytes, bound_ops=ops,
+                       bound_ms=b_ms, bound_by=b_by, ok=ok)
+            rows.append(row)
+            log(f"mla_attention {mode:7s} {kv_dtype:4s} q_rows={m.bucket_rows}"
+                f" kv_tokens={int(kv.sum())} T={m.num_work_items} tile_q="
+                f"{m.tile_q} splits={m.max_splits} err_o={err_o:.2e} (limit "
+                f"ratio {o_ratio:.3f}) err_lse={err_lse:.2e} ms={ms:.4f} "
+                f"plain_ms={plain_ms:.3f} bound_ms={b_ms:.5f} ({b_by}) "
+                f"{'ok' if ok else 'MISMATCH'}")
+            del ckv, kpe, caches
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"MLA kernel disagrees with its plain version: "
+                             f"{bad}")
+    return rows
+
+
+def _library_grouped_mm(torch, x_sorted, w_nk, group_sizes):
+    """One PyTorch call that computes the same grouped product on the
+    unpadded sorted rows (bf16 only): torch._grouped_mm with offsets, or
+    None where this PyTorch has no such call."""
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None:
+        return None
+    offs = torch.cumsum(group_sizes, 0).to(torch.int32)
+    w_kn = w_nk.transpose(1, 2)  # [E, K, N], column-major as it wants
+    return lambda: fn(x_sorted, w_kn, offs=offs)
+
+
+def check_grouped_gemm(torch, np):
+    """Both MoE GEMMs (gate/up with bf16 output, down with f32 output) on
+    bf16 and e4m3 weights in the models' [E, N, K] layout, at three
+    routings: V2-Lite decode (8 tokens, top-6 of 64 experts, 2048 -> 2816
+    and 1408 -> 2048), a 2048-token V2-Lite prefill, and the JAX bench's
+    Mixtral-8x7B layer (4096 tokens, top-2 of 8, 4096 <-> 14336)."""
+    from flashinfer_tpu_torch.ops.fused_moe import (
+        RoutingMethodType,
+        _permute_by_expert,
+        route_tokens,
+        select_moe_tm,
+    )
+    from flashinfer_tpu_torch.ops.gemm_grouped import (
+        grouped_gemm_padded,
+        grouped_gemm_padded_plain,
+        make_group_layout,
+    )
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    rows = []
+    for name, m, e, top_k, hidden, inter in GG_CASES:
+        logits = torch.randn(m, e, device=dev, generator=gen)
+        if name.startswith("v2lite"):
+            ids, _ = route_tokens(logits, top_k, RoutingMethodType.DeepSeekV3,
+                                  n_group=1, topk_group=1)
+        else:
+            ids, _ = route_tokens(logits, top_k, RoutingMethodType.Renormalize)
+        order, group_sizes = _permute_by_expert(ids, e)
+        tm = select_moe_tm(m * top_k, e)
+        lay = make_group_layout(group_sizes, m * top_k, tm)
+        used = lay.expert_of_tile >= 0
+        used_rows = int(used.sum()) * tm
+        n_experts = int((group_sizes > 0).sum())
+        for gemm, k, n, out_dt in (("gemm1", hidden, 2 * inter,
+                                    torch.bfloat16),
+                                   ("gemm2", inter, hidden, torch.float32)):
+            x = torch.randn(lay.m_pad, k, device=dev, generator=gen,
+                            dtype=torch.bfloat16)
+            x = torch.where(lay.src_valid[:, None], x, 0)
+            x_sorted = x[lay.padded_pos]
+            for wdt in ("bf16", "e4m3"):
+                w = torch.randn(e, n, k, device=dev, generator=gen,
+                                dtype=torch.bfloat16).mul_(k ** -0.5)
+                scales = None
+                if wdt == "e4m3":
+                    w = (w * 64).to(torch.float8_e4m3fn)
+                    scales = torch.full((e,), 1 / 64, device=dev)
+
+                def run(f):
+                    return f(x, w, lay.expert_of_tile, scales,
+                             out_dtype=out_dt, rhs_nk=True)
+
+                got = run(grouped_gemm_padded)
+                want = run(grouped_gemm_padded_plain)
+                torch.cuda.synchronize()
+                otype = "bf16" if out_dt == torch.bfloat16 else "f32"
+                diff = (got.float() - want.float()).abs()
+                rms = float(want.float().pow(2).mean().sqrt())
+                limit = GG_RTOL[otype] * want.float().abs() + GG_ATOL_RMS * rms
+                ratio = float((diff / limit).max())
+                pad_zero = not bool(got[~lay.src_valid].any())
+                big = m >= 2048
+                ms = cuda_ms(torch, lambda: run(grouped_gemm_padded),
+                             5 if big else 20, warmup=1 if big else 2,
+                             graph=True)
+                plain_ms = cuda_ms(torch, lambda: run(
+                    grouped_gemm_padded_plain), 2, warmup=1)
+                lib_ms = None
+                lib = (_library_grouped_mm(torch, x_sorted, w, group_sizes)
+                       if wdt == "bf16" else None)
+                if lib is not None:
+                    try:  # an eager call first: a refusal must not happen
+                        lib()  # inside a graph capture
+                        torch.cuda.synchronize()
+                    except (RuntimeError, TypeError) as err:
+                        log(f"  torch._grouped_mm refused: {err}"[:300])
+                        lib = None
+                if lib is not None:
+                    lib_ms = cuda_ms(torch, lib, 5 if big else 20,
+                                     graph=True)
+                nbytes = (used_rows * k * 2
+                          + n_experts * k * n * w.element_size()
+                          + lay.m_pad * n * got.element_size())
+                ops = 2 * m * top_k * k * n
+                b_ms, b_by = bound_ms(nbytes, ops, "bf16")
+                ok = ratio <= 1.0 and pad_zero
+                row = dict(case=name, gemm=gemm, w=wdt, out=otype, tm=tm,
+                           m_pad=lay.m_pad, rows=m * top_k, K=k, N=n,
+                           experts_used=n_experts, err=float(diff.max()),
+                           limit_ratio=ratio, pad_zero=pad_zero, ms=ms,
+                           plain_ms=plain_ms, library_ms=lib_ms,
+                           bound_bytes=nbytes, bound_ops=ops, bound_ms=b_ms,
+                           bound_by=b_by, ok=ok)
+                rows.append(row)
+                log(f"grouped_gemm {name:14s} {gemm} w={wdt:4s} out={otype} "
+                    f"tm={tm} m_pad={lay.m_pad} rows={m * top_k} K={k} N={n} "
+                    f"experts={n_experts} err={row['err']:.2e} (limit ratio "
+                    f"{ratio:.3f}) pad_zero={pad_zero} ms={ms:.4f} plain_ms="
+                    f"{plain_ms:.3f} library_ms={lib_ms} bound_ms={b_ms:.5f} "
+                    f"({b_by}) {'ok' if ok else 'MISMATCH'}")
+                del w, got, want, diff, limit
+            del x, x_sorted
+        torch.cuda.empty_cache()
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"grouped GEMM kernel disagrees with its plain "
+                             f"version: {bad}")
+    return rows
 
 
 # ------------------------------------------------------------------ engines
@@ -431,21 +738,34 @@ def phase_tiny_reference(torch, np):
 
 
 def _reset_counts():
+    """Set every kernel's launch count to 0; returns name -> wrapper."""
     from flashinfer_tpu_torch.ops.attention.kernels.paged import (
         batch_paged_attention_run,
     )
+    from flashinfer_tpu_torch.ops.attention.mla import mla_paged_run
+    from flashinfer_tpu_torch.ops.gemm_grouped import grouped_gemm_padded
     from flashinfer_tpu_torch.ops.norm import rmsnorm
     from flashinfer_tpu_torch.ops.sampling import family_call
 
-    for fn in (batch_paged_attention_run, family_call, rmsnorm):
+    fns = {"paged_attention": batch_paged_attention_run,
+           "sampler_family": family_call, "rmsnorm": rmsnorm,
+           "mla_attention": mla_paged_run,
+           "grouped_gemm": grouped_gemm_padded}
+    for fn in fns.values():
         fn.launches = 0
-    return {"paged_attention": batch_paged_attention_run,
-            "sampler_family": family_call, "rmsnorm": rmsnorm}
+    return fns
+
+
+LLAMA_PATH = ("paged_attention", "sampler_family", "rmsnorm")
+DEEPSEEK_PATH = ("mla_attention", "grouped_gemm", "rmsnorm",
+                 "sampler_family")
 
 
 def _family(name):
     name = name.lower()
     for fam, keys in (("paged_attention", ("paged_attention",)),
+                      ("mla_attention", ("mla_attention",)),
+                      ("grouped_gemm", ("grouped_gemm",)),
                       ("sampler_family", ("family_kernel",)),
                       ("rmsnorm", ("rmsnorm",)),
                       ("matmul", ("gemm", "gemv", "xmma", "cutlass", "nvjet",
@@ -456,31 +776,29 @@ def _family(name):
     return "other"
 
 
-def _profile_decode(torch, eng, prompts, steps=3):
-    """Device time by kernel family, the top kernels and the top host ops
-    over ``steps`` decode steps at a full batch, from torch.profiler; None
-    where the profiler records no device time. Leaves the engine idle."""
+def _profile_steps(torch, step, steps):
+    """Device time by kernel family, the device ops, the top kernels and
+    the top host ops over ``steps`` calls of ``step`` (one decode step
+    each), from torch.profiler; None where the profiler records no device
+    time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for p in prompts[: eng.cfg.max_batch]:
-        eng.add_request(p, steps + 2)
-    eng.step()  # admission and prefill
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            eng.step()
+            step()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / steps
-    eng.run_to_completion()
-    fams, kernels, host = {}, [], []
+    fams, kernels, host, ops = {}, [], [], 0
     for ev in prof.key_averages():
         if ev.device_type == DeviceType.CUDA:  # a kernel, memcpy or memset
             ms = ev.self_device_time_total / 1e3 / steps
             fams[_family(ev.key)] = fams.get(_family(ev.key), 0.0) + ms
             kernels.append((ms, ev.count // steps, ev.key[:90]))
+            ops += ev.count
         elif ev.self_cpu_time_total:
             host.append((ev.self_cpu_time_total / 1e3 / steps,
                          ev.count // steps, ev.key[:60]))
@@ -488,9 +806,21 @@ def _profile_decode(torch, eng, prompts, steps=3):
     if total == 0.0:
         return None
     return dict(profiled_wall_ms_per_step=wall, device_ms_per_step=total,
+                device_ops_per_step=ops // steps,
                 ms_per_step=dict(sorted(fams.items(), key=lambda kv: -kv[1])),
                 top_kernels=sorted(kernels, reverse=True)[:12],
                 top_host_ops=sorted(host, reverse=True)[:12])
+
+
+def _profile_decode(torch, eng, prompts, steps=3):
+    """``_profile_steps`` over ``steps`` engine decode steps at a full
+    batch. Leaves the engine idle."""
+    for p in prompts[: eng.cfg.max_batch]:
+        eng.add_request(p, steps + 2)
+    eng.step()  # admission and prefill
+    prof = _profile_steps(torch, eng.step, steps)
+    eng.run_to_completion()
+    return prof
 
 
 def tail_pct(samples):
@@ -544,7 +874,7 @@ def phase_engine(torch, np, card):
         params = eng.params  # the fused QKV weights, shared by the next run
         counters = _reset_counts()
         reqs, wall, dec, pre, batch_at = _serve(torch, eng, prompts, n_new)
-        counts = {k: fn.launches for k, fn in counters.items()}
+        counts = {k: counters[k].launches for k in LLAMA_PATH}
         steps = eng.steps
         prof = _profile_decode(torch, eng, prompts)
         outs = [r.output for r in reqs]
@@ -647,6 +977,333 @@ def _engine_variants(torch, np, mc, params, prompts, greedy_outs, n_new=8):
     return out
 
 
+# ----------------------------------------------------------------- DeepSeek
+
+def deepseek_serve(torch, np, cfg, params, prompts, n_new, *, device,
+                   sampled, kv="model", kv_scale=0.25, chunk=64, seed=0,
+                   profile_at=None):
+    """Serve ``prompts`` through ``deepseek_decode_step``: every step feeds
+    each unfinished request its next prompt token (prefill token by token)
+    or its last generated token, under one MLA plan, and a request emits a
+    token from its last prompt position on, until it has ``n_new``.
+    Sampled: top-k 40, top-p 0.9 on the sampler kernel; else greedy. The
+    caches are bf16 (``kv="model"``) or e4m3 with ``kv_scale``. With
+    ``profile_at``, the three steps from that one are traced (and left out
+    of the step times). Request i takes pages from the bottom of the pool
+    in turn (request i's first page is page i). Returns a dict: ``outs``
+    (the tokens of each request), ``wall_s``, ``step_ms``, ``profile``, the
+    first and the last step's logits (``logits0``, ``logits``) and the
+    caches (``ckv``, ``kpe``)."""
+    from flashinfer_tpu_torch.models.deepseek import deepseek_decode_step
+    from flashinfer_tpu_torch.ops.attention.mla import (
+        BatchMLAPagedAttentionWrapper,
+    )
+    from flashinfer_tpu_torch.ops.rope import rope_cos_sin_cache
+    from flashinfer_tpu_torch.ops.sampling import (
+        draw_seed,
+        softmax,
+        top_k_top_p_sampling_from_probs,
+    )
+    from flashinfer_tpu_torch.scheduler.page_pool import PagePool
+
+    B, L = len(prompts), cfg.num_layers
+    total = max(len(p) for p in prompts) + n_new
+    per_req = -(-total // MLA_PAGE)
+    pool = PagePool(B * per_req, MLA_PAGE)
+    seqs = [pool.create() for _ in prompts]
+    dt = torch.float8_e4m3fn if kv == "e4m3" else cfg.dtype
+    shape = (L, B * per_req, MLA_PAGE)
+    ckv = torch.zeros(*shape, cfg.head_dim_ckv, device=device).to(dt)
+    kpe = torch.zeros(*shape, cfg.head_dim_kpe, device=device).to(dt)
+    cos_sin = (rope_cos_sin_cache(total, cfg.head_dim_kpe,
+                                  rope_theta=cfg.rope_theta, device=device)
+               if kv == "e4m3" else None)
+    sm_scale = (cfg.head_dim_qk_nope + cfg.head_dim_kpe) ** -0.5
+    gen = torch.Generator().manual_seed(seed)
+    outs = [[] for _ in prompts]
+    step_ms, prof, logits = [], None, {}
+    t = 0
+
+    def step():
+        nonlocal t
+        live = [i for i in range(B) if len(outs[i]) < n_new]
+        for i in live:
+            pool.extend(seqs[i], t + 1)
+        indptr, indices, last = pool.batch_export([seqs[i] for i in live])
+        w = BatchMLAPagedAttentionWrapper(device=device)
+        w.plan(np.arange(len(live) + 1), indptr, indices,
+               np.full(len(live), t + 1), cfg.num_heads, cfg.head_dim_ckv,
+               cfg.head_dim_kpe, MLA_PAGE, sm_scale=sm_scale,
+               kv_chunk_size=chunk)
+        toks = [prompts[i][t] if t < len(prompts[i]) else outs[i][-1]
+                for i in live]
+        host = np.concatenate([toks, indices, indptr, last]).astype(np.int64)
+        dev = torch.from_numpy(host).to(device)
+        n, ni = len(live), len(indices)
+        tabs = (dev[n: n + ni].int(), dev[n + ni: 2 * n + ni + 1].int(),
+                dev[2 * n + ni + 1:].int())
+        lg, _, _ = deepseek_decode_step(
+            params, cfg, dev[:n], torch.full((n,), t, device=device), ckv,
+            kpe, *tabs, w, kv_scale=kv_scale if kv == "e4m3" else 1.0,
+            cos_sin_cache=cos_sin)
+        logits.setdefault("logits0", lg)
+        logits["logits"] = lg
+        emit = [j for j, i in enumerate(live) if t >= len(prompts[i]) - 1]
+        if emit:
+            lg = lg[emit]
+            if sampled:
+                new = top_k_top_p_sampling_from_probs(
+                    softmax(lg), 40, 0.9, seed=draw_seed(gen))
+            else:
+                new = lg.argmax(dim=-1)
+            for j, tok in zip(emit, new.tolist()):
+                outs[live[j]].append(int(tok))
+        t += 1
+
+    sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    while any(len(o) < n_new for o in outs):
+        if profile_at is not None and t == profile_at:
+            prof = _profile_steps(torch, step, 3)
+            continue
+        ts = time.perf_counter()
+        step()
+        sync()
+        step_ms.append((time.perf_counter() - ts) * 1e3)
+    sync()
+    return dict(outs=outs, wall_s=time.perf_counter() - t0, step_ms=step_ms,
+                profile=prof, ckv=ckv, kpe=kpe, **logits)
+
+
+@contextlib.contextmanager
+def _step_recorder(torch, fake_e4m3_scale=None):
+    """While open, ``deepseek_decode_step`` records the residual stream
+    that enters each rmsnorm (two a layer, then the final norm) and the
+    experts each layer's routing picks. With ``fake_e4m3_scale`` s, the new
+    c_kv and k_pe are rounded as an e4m3 cache of scale s holds them
+    (e4m3(v / s) * s) before they are appended to a bf16 cache."""
+    from flashinfer_tpu_torch.models import deepseek as mod
+
+    orig = {n: getattr(mod, n) for n in ("rmsnorm", "route_tokens",
+                                         "append_paged_mla_kv_cache")}
+    rec = dict(x=[], ids=[])
+
+    def rmsnorm(x, *args, **kw):
+        rec["x"].append(x.float())
+        return orig["rmsnorm"](x, *args, **kw)
+
+    def route_tokens(*args, **kw):
+        ids, scales = orig["route_tokens"](*args, **kw)
+        rec["ids"].append(ids)
+        return ids, scales
+
+    def append_paged_mla_kv_cache(c_kv, k_pe, *args, **kw):
+        if fake_e4m3_scale is not None:
+            s = fake_e4m3_scale
+            c_kv, k_pe = ((v.float() / s).to(torch.float8_e4m3fn).float()
+                          .mul(s).to(v.dtype) for v in (c_kv, k_pe))
+        return orig["append_paged_mla_kv_cache"](c_kv, k_pe, *args, **kw)
+
+    for name, fn in (("rmsnorm", rmsnorm), ("route_tokens", route_tokens),
+                     ("append_paged_mla_kv_cache", append_paged_mla_kv_cache)):
+        setattr(mod, name, fn)
+    try:
+        yield rec
+    finally:
+        for name, fn in orig.items():
+            setattr(mod, name, fn)
+
+
+E4M3_WITNESS_TOL = 0.02  # B vs C logits, in units of the logits' std
+
+
+def deepseek_e4m3_witness(torch, np, cfg, params, prompts, kv_scale=0.25,
+                          device=None):
+    """One decode step of every request's first token, three ways: on bf16
+    caches (A), on e4m3 caches (B) and on bf16 caches fed the values an
+    e4m3 cache holds (C). With one cached key, attention returns that key's
+    c_kv, so B and C compute the same values: their agreement holds the
+    e4m3 rope + quantize prologue, the append and the MLA kernel's e4m3
+    read at full width, and fails the phase otherwise. A against B shows,
+    layer by layer, how far the e4m3 rounding of c_kv alone moves the
+    residual stream and the routing."""
+    runs = []
+    for kv, fake in (("model", None), ("e4m3", None), ("model", kv_scale)):
+        with _step_recorder(torch, fake) as rec:
+            res = deepseek_serve(torch, np, cfg, params,
+                                 [p[:1] for p in prompts], 1,
+                                 device=device or DEVICE, sampled=False,
+                                 kv=kv, kv_scale=kv_scale)
+        runs.append((rec, res["logits0"]))
+    (ra, la), (rb, lb), (rc, lc) = runs
+
+    def rel(x, ref):  # the largest relative L2 distance over the tokens
+        return float(((x - ref).norm(dim=-1) / ref.norm(dim=-1)).max())
+
+    def changed(ids, ref):  # routed (token, expert) picks not in ref
+        return int(sum(len(set(a) - set(b))
+                       for a, b in zip(ids.tolist(), ref.tolist())))
+
+    L, std = cfg.num_layers, float(la.std())
+    layers = [dict(layer=i,
+                   attn_in_rel_ab=rel(rb["x"][2 * i], ra["x"][2 * i]),
+                   ffn_in_rel_ab=rel(rb["x"][2 * i + 1], ra["x"][2 * i + 1]),
+                   routing_changed_ab=changed(rb["ids"][i], ra["ids"][i]),
+                   ffn_in_rel_bc=rel(rb["x"][2 * i + 1], rc["x"][2 * i + 1]),
+                   routing_changed_bc=changed(rb["ids"][i], rc["ids"][i]))
+              for i in range(L)]
+    out = dict(
+        layers=layers, logit_std=std,
+        picks_per_layer=int(ra["ids"][0].numel()),
+        final_rel_ab=rel(rb["x"][2 * L], ra["x"][2 * L]),
+        logits_max_abs_ab=float((lb - la).abs().max()),
+        argmax_shared_ab=int((lb.argmax(-1) == la.argmax(-1)).sum()),
+        final_rel_bc=rel(rb["x"][2 * L], rc["x"][2 * L]),
+        logits_max_abs_bc=float((lb - lc).abs().max()),
+        argmax_shared_bc=int((lb.argmax(-1) == lc.argmax(-1)).sum()))
+    for r in layers:
+        if r["layer"] in (0, 1, 2, 4, 8, 16, L - 1):
+            log(f"  e4m3 witness layer {r['layer']:2d}: residual into "
+                f"attention {r['attn_in_rel_ab']:.4f}, into the MoE "
+                f"{r['ffn_in_rel_ab']:.4f} (A vs B, relative L2); routed "
+                f"picks changed {r['routing_changed_ab']} of "
+                f"{out['picks_per_layer']} (A vs B), "
+                f"{r['routing_changed_bc']} (B vs C)")
+    log(f"deepseek e4m3 witness, first step: A (bf16) vs B (e4m3): final "
+        f"residual {out['final_rel_ab']:.4f}, max |logit diff| "
+        f"{out['logits_max_abs_ab']:.4f} (logit std {std:.4f}), argmax shared "
+        f"{out['argmax_shared_ab']} of {len(prompts)}, routed picks changed "
+        f"{sum(r['routing_changed_ab'] for r in layers)} of "
+        f"{L * out['picks_per_layer']}; B vs C (bf16 fed the e4m3 values): "
+        f"final residual {out['final_rel_bc']:.2e}, max |logit diff| "
+        f"{out['logits_max_abs_bc']:.2e}, routed picks changed "
+        f"{sum(r['routing_changed_bc'] for r in layers)}")
+    if out["logits_max_abs_bc"] > E4M3_WITNESS_TOL * std:
+        raise AssertionError(f"the e4m3 path disagrees with the bf16 path fed "
+                             f"the same e4m3 values: {out}")
+    return out
+
+
+def phase_tiny_deepseek(torch, np):
+    """Greedy tokens of the f32 tiny DeepSeek model, card vs CPU, on f32
+    and e4m3 caches."""
+    from flashinfer_tpu_torch.models.deepseek import (
+        DeepSeekConfig,
+        deepseek_init_weights,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = DeepSeekConfig.tiny()
+    params = deepseek_init_weights(torch.Generator().manual_seed(0), cfg,
+                                   "cpu")
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (7, 3,
+                                                                     12)]
+    bad = []
+    for kv in ("model", "e4m3"):
+        outs = []
+        for device in ("cpu", DEVICE):
+            p = {k: v.to(device) for k, v in params.items()}
+            outs.append(deepseek_serve(torch, np, cfg, p, prompts, 8,
+                                       device=device, sampled=False, kv=kv,
+                                       chunk=8)["outs"])
+        same = outs[0] == outs[1]
+        log(f"tiny f32 DeepSeek kv={kv:5s}: card {'==' if same else '!='} "
+            f"cpu")
+        if not same:
+            bad.append((kv, outs))
+    if bad:
+        raise AssertionError(f"card and CPU DeepSeek disagree: {bad}")
+
+
+def phase_deepseek(torch, np, card):
+    from flashinfer_tpu_torch.models.deepseek import (
+        DeepSeekConfig,
+        deepseek_init_weights,
+    )
+
+    cfg = DeepSeekConfig(dtype=torch.bfloat16, **V2_LITE)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    t0 = time.perf_counter()
+    params = deepseek_init_weights(gen, cfg, DEVICE)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in params.values())
+    log(f"DeepSeek-V2-Lite widths, {cfg.num_layers} layers: {n_params/1e9:.3f}"
+        f"B parameters, bf16 ({n_params * 2 / 1e9:.1f} GB), "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+               for n in rng.integers(32, 129, 8)]
+    n_new = 32
+    results = {}
+    for mode in ("sampled", "greedy"):
+        counters = _reset_counts()
+        run = deepseek_serve(torch, np, cfg, params, prompts, n_new,
+                             device=DEVICE, sampled=mode == "sampled",
+                             profile_at=min(len(p) for p in prompts) // 2)
+        outs, wall, step_ms, prof = (run["outs"], run["wall_s"],
+                                     run["step_ms"], run["profile"])
+        del run
+        counts = {k: counters[k].launches for k in DEEPSEEK_PATH}
+        assert all(len(o) == n_new for o in outs), [len(o) for o in outs]
+        assert all(0 <= t < cfg.vocab_size for o in outs for t in o)
+        gen_tokens = sum(len(o) for o in outs)
+        res = dict(tokens_per_s=gen_tokens / wall, wall_s=wall,
+                   generated_tokens=gen_tokens, steps=len(step_ms) + 3,
+                   step_ms_median=float(np.median(step_ms)),
+                   step_ms_p90=float(np.percentile(step_ms, 90)),
+                   launches=counts, profile=prof,
+                   first_tokens=[o[:4] for o in outs[:3]],
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        if prof:
+            prof["busy_share"] = (prof["device_ms_per_step"]
+                                  / res["step_ms_median"])
+        results[mode] = res
+        results[f"{mode}_outs"] = outs
+        log(f"deepseek {mode}: {gen_tokens} tokens in {wall:.2f} s = "
+            f"{res['tokens_per_s']:.1f} tokens/s over {res['steps']} steps "
+            f"(prompts {[len(p) for p in prompts]} fed token by token); step "
+            f"median {res['step_ms_median']:.2f} ms, p90 "
+            f"{res['step_ms_p90']:.2f} ms; launches {counts}; peak memory "
+            f"{res['peak_mem_gb']:.2f} GB [{card}]")
+        if prof:
+            log(f"deepseek {mode} profile, per step at batch 8: device "
+                f"{prof['device_ms_per_step']:.2f} ms in "
+                f"{prof['device_ops_per_step']} device ops (traced wall "
+                f"{prof['profiled_wall_ms_per_step']:.2f} ms), busy share "
+                f"{prof['busy_share']:.3f}; by family "
+                f"{json.dumps(prof['ms_per_step'])}")
+            for ms, n, name in prof["top_kernels"]:
+                log(f"  device {ms:8.3f} ms  x{n:<5d} {name}")
+        else:
+            log(f"deepseek {mode} profile: the profiler recorded no device "
+                "time (not measured)")
+        missing = [k for k, n in counts.items() if n == 0]
+        if mode == "sampled" and missing:
+            raise AssertionError(f"kernels not launched on the DeepSeek "
+                                 f"path: {missing}")
+    n_e4m3 = 4
+    run = deepseek_serve(torch, np, cfg, params, prompts, n_e4m3,
+                         device=DEVICE, sampled=False, kv="e4m3")
+    want = [o[:n_e4m3] for o in results["greedy_outs"]]
+    first = sum(a[0] == b[0] for a, b in zip(run["outs"], want))
+    agree = float(np.mean(np.asarray(run["outs"]) == np.asarray(want)))
+    results["e4m3"] = dict(first_tokens_shared=first, agreement=agree,
+                           step_ms_median=float(np.median(run["step_ms"])))
+    log(f"deepseek e4m3 caches (scale 0.25), greedy: {first} of "
+        f"{len(prompts)} first tokens shared with bf16, {agree:.3f} of the "
+        f"first {n_e4m3}; step median {np.median(run['step_ms']):.2f} ms")
+    del run
+    results["e4m3_witness"] = deepseek_e4m3_witness(torch, np, cfg, params,
+                                                    prompts)
+    results["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params
+    torch.cuda.empty_cache()
+    return results
+
+
 # --------------------------------------------------------------------- main
 
 def main() -> int:
@@ -686,11 +1343,23 @@ def main() -> int:
                   torch, np, lens_decode, lens_prefill)
     samp = ph.run("kernel check: sampler", check_sampler, torch)
     norm = ph.run("kernel check: rmsnorm", check_rmsnorm, torch)
+    mla = ph.run("kernel check: MLA attention", check_mla, torch, np)
+    gg = ph.run("kernel check: grouped GEMM", check_grouped_gemm, torch, np)
     torch.cuda.empty_cache()
     ph.run("tiny reference", phase_tiny_reference, torch, np)
+    ph.run("tiny DeepSeek reference", phase_tiny_deepseek, torch, np)
     eng = ph.run("engine", phase_engine, torch, np, card)
+    torch.cuda.empty_cache()
+    dsk = ph.run("DeepSeek", phase_deepseek, torch, np, card)
 
-    launches = (eng or {}).get("sampled", {}).get("launches", {})
+    # each path's sampled run, its counts set to 0 just before it; a kernel
+    # on both paths reports the launches of both runs
+    by_path = {"llama": (eng or {}).get("sampled", {}).get("launches", {}),
+               "deepseek": (dsk or {}).get("sampled", {}).get("launches", {})}
+
+    def launches(name):
+        return sum(counts.get(name, 0) for counts in by_path.values())
+
     kernels = []
     if attn:
         main_row = next(r for r in attn if r["mode"] == "decode"
@@ -699,7 +1368,7 @@ def main() -> int:
             name="paged_attention", route="cuda",
             source="flashinfer_tpu_torch/csrc/paged_attention.cu",
             replaces="flashinfer_tpu/ops/attention/kernels/paged.py:161",
-            launches=launches.get("paged_attention", 0),
+            launches=launches("paged_attention"),
             max_abs_err=max(r["err_o"] for r in attn), ms=main_row["ms"],
             plain_ms=main_row["plain_ms"], bound_ms=main_row["bound_ms"],
             bound_by=main_row["bound_by"], library_ms=None))
@@ -708,26 +1377,51 @@ def main() -> int:
             name="sampler_family", route="cuda",
             source="flashinfer_tpu_torch/csrc/sampling.cu",
             replaces="flashinfer_tpu/ops/sampling.py:484",
-            launches=launches.get("sampler_family", 0),
-            max_abs_err=samp["err"], ms=samp["ms"],
-            plain_ms=samp["plain_ms"], bound_ms=samp["bound_ms"],
-            bound_by=samp["bound_by"], library_ms=None))
+            launches=launches("sampler_family"),
+            max_abs_err=max(x["err"] for x in samp), ms=samp[0]["ms"],
+            plain_ms=samp[0]["plain_ms"], bound_ms=samp[0]["bound_ms"],
+            bound_by=samp[0]["bound_by"], library_ms=None))
     if norm:
         r = norm[0]
         kernels.append(dict(
             name="rmsnorm", route="triton",
             source="flashinfer_tpu_torch/ops/norm.py",
             replaces="flashinfer_tpu/ops/norm.py:80",
-            launches=launches.get("rmsnorm", 0),
+            launches=launches("rmsnorm"),
             max_abs_err=max(x["err"] for x in norm), ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
-    log(f"total {time.perf_counter() - t_start:.1f} s")
+    if mla:
+        main_row = next(r for r in mla if r["mode"] == "decode"
+                        and r["kv"] == "bf16")
+        kernels.append(dict(
+            name="mla_attention", route="cuda",
+            source="flashinfer_tpu_torch/csrc/mla_attention.cu",
+            replaces="flashinfer_tpu/ops/attention/mla.py:67",
+            launches=launches("mla_attention"),
+            max_abs_err=max(r["err_o"] for r in mla), ms=main_row["ms"],
+            plain_ms=main_row["plain_ms"], bound_ms=main_row["bound_ms"],
+            bound_by=main_row["bound_by"], library_ms=None))
+    if gg:
+        main_row = next(r for r in gg if r["case"] == "v2lite_decode"
+                        and r["gemm"] == "gemm1" and r["w"] == "bf16")
+        kernels.append(dict(
+            name="grouped_gemm", route="cuda",
+            source="flashinfer_tpu_torch/csrc/grouped_gemm.cu",
+            replaces="flashinfer_tpu/ops/gemm_grouped.py:157",
+            launches=launches("grouped_gemm"),
+            max_abs_err=max(r["err"] for r in gg), ms=main_row["ms"],
+            plain_ms=main_row["plain_ms"], bound_ms=main_row["bound_ms"],
+            bound_by=main_row["bound_by"],
+            library_ms=main_row["library_ms"]))
+    log(f"total {time.perf_counter() - t_start:.1f} s [{card}]")
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(card=card, attention=attn, sampler=samp,
-                           rmsnorm=norm, engine=eng, kernels=kernels,
-                           failed=ph.failed), f, indent=1)
+                           rmsnorm=norm, mla=mla, grouped_gemm=gg,
+                           engine=eng, deepseek=dsk, kernels=kernels,
+                           launches_by_path=by_path, failed=ph.failed), f,
+                      indent=1)
     if ph.failed:
         log(f"FAILED phases: {ph.failed}")
         return 1

@@ -20,7 +20,7 @@ from flashinfer_tpu_torch.ops.activation import silu_and_mul
 from flashinfer_tpu_torch.ops.attention.reference import attention_reference
 from flashinfer_tpu_torch.ops.norm import rmsnorm_plain
 from flashinfer_tpu_torch.ops.rope import apply_rope_pos_ids
-from flashinfer_tpu_torch.utils import resolve_device
+from flashinfer_tpu_torch.utils import resolve_device, tensor_from_numpy
 
 __all__ = [
     "LlamaConfig",
@@ -108,15 +108,8 @@ def params_from_numpy(np_params: Mapping[str, np.ndarray],
     """The JAX package's flat parameter dict (numpy arrays, [L, in, out]
     layout) as the port's tensors on ``device``, same names and layout."""
     device = resolve_device(device)
-    out = {}
-    for name, arr in np_params.items():
-        arr = np.asarray(arr)
-        if arr.dtype.name == "bfloat16":  # ml_dtypes bf16: reinterpret bits
-            t = torch.from_numpy(arr.view(np.uint16).copy()).view(
-                torch.bfloat16)
-        else:
-            t = torch.from_numpy(arr.copy())
-        out[name] = t.to(device)
+    out = {name: tensor_from_numpy(arr, device)
+           for name, arr in np_params.items()}
     check_dense_params(out)
     return out
 

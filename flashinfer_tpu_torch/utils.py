@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import enum
 
+import numpy as np
 import torch
 
 __all__ = [
@@ -17,6 +18,7 @@ __all__ = [
     "next_power_of_2",
     "check_kv_layout",
     "resolve_device",
+    "tensor_from_numpy",
 ]
 
 
@@ -61,3 +63,14 @@ def resolve_device(device: str | torch.device) -> torch.device:
             "torch.cuda.is_available() is False; pass device='cpu' to run "
             "the plain PyTorch versions of the kernels")
     return dev
+
+
+def tensor_from_numpy(arr, device: torch.device) -> torch.Tensor:
+    """A numpy array (as the JAX package's arrays convert) as a tensor on
+    ``device``; ml_dtypes bfloat16 arrays keep their bits."""
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        t = torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(arr.copy())
+    return t.to(device)

@@ -78,6 +78,28 @@ def test_wrappers_default_to_cuda(monkeypatch):
         llama_init_weights(torch.Generator(), LlamaConfig.tiny())
 
 
+def test_deepseek_entry_points_default_to_cuda(monkeypatch):
+    from flashinfer_tpu_torch.models.deepseek import (
+        DeepSeekConfig,
+        deepseek_init_weights,
+        params_from_numpy,
+    )
+    from flashinfer_tpu_torch.ops.attention.mla import (
+        BatchMLAPagedAttentionWrapper,
+    )
+    from flashinfer_tpu_torch.ops.rope import rope_cos_sin_cache
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BatchMLAPagedAttentionWrapper()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        deepseek_init_weights(torch.Generator(), DeepSeekConfig.tiny())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        params_from_numpy({})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        rope_cos_sin_cache(8, 16)
+
+
 def test_chip_smoke_fails_without_the_card(tmp_path):
     """Without a card, and alone in a directory, the script exits non-zero
     and prints no result line."""

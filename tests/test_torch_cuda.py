@@ -7,9 +7,12 @@ machine without a CUDA device; on the H100 run them with
 (``--noconftest``: the suite's conftest configures JAX, which the machine
 with the card does not have).
 
-Tolerances: f32 outputs agree to 1e-4 (other summation orders); bf16 and
-e4m3 attention outputs to 2e-2, a bf16 rounding step of P taken against a
-running rather than a global maximum."""
+Tolerances: f32 outputs agree to 1e-4 (other summation orders); bf16,
+e4m3 and int8 attention outputs (paged and MLA) to 2e-2, a bf16 rounding
+step of P taken against a running rather than a global maximum; grouped
+GEMM outputs to one bf16 step (2^-7 relative) or 1e-3 relative in f32,
+plus 1e-3 of the output's rms (f32 sums in other orders); fused MoE to
+2e-2 of its largest output (bf16 intermediates on both sides)."""
 
 import numpy as np
 import pytest
@@ -149,6 +152,139 @@ def test_rmsnorm_kernel_matches_plain(dev, dtype, rows, hidden):
     want = rmsnorm_plain(x, w, 1e-5, weight_bias=0.5)
     tol = 1e-5 if dtype == torch.float32 else 2**-7
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def _mla_case(dev, mode, qdt, kv, heads, d_ckv, d_kpe, kpe_width, rng):
+    """A planned MLA batch on the card: (packed q_ckv, q_pe, caches,
+    kv_indices, plan, meta)."""
+    from flashinfer_tpu_torch.ops.attention.mla import (
+        BatchMLAPagedAttentionWrapper,
+    )
+
+    ps = 16
+    if mode == "decode":
+        kv_lens = rng.integers(1, 300, 5)
+        qo = np.ones(5, np.int64)
+    else:
+        qo = rng.integers(20, 90, 3)
+        kv_lens = qo + rng.integers(0, 60, 3)
+    npages = -(-kv_lens // ps)
+    indptr = np.concatenate([[0], np.cumsum(npages)])
+    pages = int(indptr[-1]) + 3
+    indices = rng.permutation(pages)[: int(indptr[-1])]
+    w = BatchMLAPagedAttentionWrapper(device="cuda")
+    w.plan(np.concatenate([[0], np.cumsum(qo)]), indptr, indices, kv_lens,
+           heads, d_ckv, d_kpe, ps, causal=mode != "decode",
+           kv_chunk_size=64)
+    dp = w.device_plan
+    caches = []
+    for width in (d_ckv, kpe_width):
+        c = torch.randn(pages, ps, width, device=dev)
+        if kv == "int8":
+            c = (c * 20).round().clamp(-127, 127).to(torch.int8)
+        elif kv == "e4m3":
+            c = c.to(torch.float8_e4m3fn)
+        else:
+            c = c.to(qdt)
+        caches.append(c)
+    rows = dp.meta.bucket_rows
+    q_ckv = torch.randn(rows, d_ckv, device=dev).to(qdt)
+    q_pe = torch.randn(rows, d_kpe, device=dev).to(qdt)
+    return (q_ckv, q_pe, caches[0], caches[1], dp.segment("kv_indices"),
+            dp.segment("plan"), dp.meta)
+
+
+@pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv", ["model", "e4m3", "int8"])
+@pytest.mark.parametrize("mode", ["decode", "prefill"])
+@pytest.mark.parametrize("heads,d_ckv,d_kpe,kpe_width",
+                         [(16, 512, 64, 64), (4, 64, 32, 128)])
+def test_mla_kernel_matches_plain(dev, qdt, kv, mode, heads, d_ckv, d_kpe,
+                                  kpe_width):
+    from flashinfer_tpu_torch.ops.attention.mla import (
+        mla_paged_plain,
+        mla_paged_run,
+    )
+
+    rng = np.random.default_rng(3)
+    *args, m = _mla_case(dev, mode, qdt, kv, heads, d_ckv, d_kpe, kpe_width,
+                         rng)
+    # an int8 cache holds values x 20: its dequant scale folds into both
+    deq = 0.05 if kv == "int8" else 1.0
+    kw = dict(tile_q=m.tile_q, group=m.gqa_group, causal=m.causal,
+              sm_scale=0.7 * deq / (d_ckv + d_kpe) ** 0.5, v_scale=1.3 * deq)
+    before = mla_paged_run.launches
+    o, lse = mla_paged_run(*args, **kw)
+    assert mla_paged_run.launches == before + 1
+    ref_o, ref_lse = mla_paged_plain(*args, **kw)
+    torch.cuda.synchronize()
+    tol = 1e-4 if (qdt == torch.float32 and kv == "model") else 2e-2
+    torch.testing.assert_close(o.float(), ref_o.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-4)
+
+
+def _gg_case(dev, wdt, tm, k, n, nk, rng):
+    from flashinfer_tpu_torch.ops.gemm_grouped import make_group_layout
+
+    e = 6
+    gs = torch.from_numpy(rng.integers(0, 3 * tm, e)).to(dev)
+    gs[1] = 0  # an empty expert
+    lay = make_group_layout(gs, int(gs.sum()), tm)
+    xdt = torch.float32 if wdt == torch.float32 else torch.bfloat16
+    x = torch.randn(lay.m_pad, k, device=dev)
+    x = torch.where(lay.src_valid[:, None], x, 0).to(xdt)
+    w = torch.randn((e, n, k) if nk else (e, k, n), device=dev) * 0.1
+    if wdt == torch.float8_e4m3fn:
+        w = (w * 10).to(wdt)
+    else:
+        w = w.to(wdt)
+    scales = torch.rand(e, device=dev) + 0.5
+    return x, w, lay.expert_of_tile, scales
+
+
+@pytest.mark.parametrize("wdt", [torch.bfloat16, torch.float8_e4m3fn,
+                                 torch.float32])
+@pytest.mark.parametrize("tm", [16, 32, 64, 128])
+@pytest.mark.parametrize("nk", [False, True])
+@pytest.mark.parametrize("out", [torch.bfloat16, torch.float32])
+def test_grouped_gemm_kernel_matches_plain(dev, wdt, tm, nk, out):
+    from flashinfer_tpu_torch.ops.gemm_grouped import (
+        grouped_gemm_padded,
+        grouped_gemm_padded_plain,
+    )
+
+    rng = np.random.default_rng(tm)
+    k, n = (256, 384) if wdt != torch.float32 else (72, 40)
+    x, w, eot, sc = _gg_case(dev, wdt, tm, k, n, nk, rng)
+    before = grouped_gemm_padded.launches
+    got = grouped_gemm_padded(x, w, eot, sc, out_dtype=out, rhs_nk=nk)
+    assert grouped_gemm_padded.launches == before + 1
+    want = grouped_gemm_padded_plain(x, w, eot, sc, out_dtype=out,
+                                     rhs_nk=nk)
+    torch.cuda.synchronize()
+    rms = float(want.float().pow(2).mean().sqrt())
+    rtol = 2 ** -7 if out == torch.bfloat16 else 1e-3
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=1e-3 * rms)
+    pad = eot.long().repeat_interleave(tm) < 0
+    assert not got[pad].any()  # -1 tiles are zeros
+
+
+@pytest.mark.parametrize("wdt", [torch.bfloat16, torch.float8_e4m3fn])
+def test_fused_moe_on_the_card_matches_cpu(dev, wdt):
+    from flashinfer_tpu_torch.ops.fused_moe import fused_moe, route_tokens
+
+    gen = torch.Generator().manual_seed(4)
+    m, e, hidden, inter, top_k = 40, 8, 256, 128, 3
+    x = torch.randn(m, hidden, generator=gen).bfloat16()
+    w13 = (torch.randn(e, 2 * inter, hidden, generator=gen) * 0.1).to(wdt)
+    w2 = (torch.randn(e, hidden, inter, generator=gen) * 0.1).to(wdt)
+    ids, sc = route_tokens(torch.randn(m, e, generator=gen), top_k)
+    want = fused_moe(x, w13, w2, ids, sc, out_dtype=torch.float32)
+    got = fused_moe(*(t.to(dev) for t in (x, w13, w2, ids, sc)),
+                    out_dtype=torch.float32)
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-2,
+                               atol=2e-2 * float(want.abs().max()))
 
 
 @pytest.mark.parametrize("kv_dtype", ["model", "fp8_e4m3", "int8"])
