@@ -15,17 +15,27 @@ Run from the root of a checkout. Phases, in order:
    engine gives them; MLA attention at DeepSeek-V2-Lite shapes (decode and
    causal prefill, bf16/e4m3/int8 caches); the grouped GEMM (both MoE GEMMs,
    bf16 and e4m3 weights) at the V2-Lite decode and prefill routings and a
-   Mixtral-8x7B layer;
-4. tiny references: the f32 tiny Llama engine and the f32 tiny DeepSeek
+   Mixtral-8x7B layer; the flash kernel at Llama-3-8B prefill (8192 tokens
+   causal), chunked prefill (2048 at the tail of 8192) and decode (32K
+   keys), DeepSeek-V2-Lite's MHA prefill (d 192, dv 128), each variant at
+   Llama widths on 2048 tokens, and a small f32 case;
+4. single request: Llama-3-8B widths over 32 layers, an 8192-token prompt
+   through ``single_prefill_with_kv_cache`` and 32
+   ``single_decode_with_kv_cache`` steps (the single path: its flash
+   launches are read here), then a tiny f32 case card vs CPU;
+5. POD: 32 decodes of 512-4096 keys beside a 2048-token chunk of an
+   8192-token prompt, Llama-3-8B widths, page 16, HND, 32 layers, both modes
+   (the pod path: its launches are read here); the modes must agree;
+6. tiny references: the f32 tiny Llama engine and the f32 tiny DeepSeek
    decode loop on the card (every kernel on) emit the greedy tokens of the
    same model on the CPU (every plain version);
-5. engine: ``LlamaServingEngine`` at Llama-3-8B widths and depth in bf16,
+7. engine: ``LlamaServingEngine`` at Llama-3-8B widths and depth in bf16,
    random weights from a seeded CUDA generator, 12 requests of 64-512
    prompt tokens and 32 new tokens on 8 slots, sampled (the engine's
    default, the Llama path: its kernel launch counts are read from this
    run) and then greedy, then greedy again with the HND layout and the e4m3
    and int8 KV caches;
-6. DeepSeek: ``deepseek_decode_step`` at DeepSeek-V2-Lite widths and full
+8. DeepSeek: ``deepseek_decode_step`` at DeepSeek-V2-Lite widths and full
    depth (27 layers) in bf16, random weights from a seeded CUDA generator,
    8 requests of 32-128 prompt tokens prefilled token by token and 32 new
    tokens each, one MLA plan per step: sampled (top-k 40, top-p 0.9: the
@@ -33,7 +43,7 @@ Run from the root of a checkout. Phases, in order:
    then a short greedy run on e4m3 caches and the e4m3 witness (one step
    on bf16, e4m3 and bf16-fed-e4m3-values caches: the last two must
    agree);
-7. one ``{"kernels": [...]}`` line, then the result line.
+9. one ``{"kernels": [...]}`` line, then the result line.
 
 The script exits non-zero, and prints no result line, when the machine has
 no CUDA device, when it is not run from a checkout, or when any phase fails.
@@ -45,6 +55,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -258,6 +269,25 @@ def _attention_bytes(plan, pages, kv_lens, tile_q, hkv, d, kv_itemsize):
     return kv + q + out + p.size * 4 + pages * 4
 
 
+def _attn_check(torch, got, want):
+    """err_o (largest |o| error), o_ratio (the largest error over its ATTN
+    limit: <= 1 passes), ref_at_worst (|ref o| where that ratio is
+    reached), err_lse, same_inf (-inf lse at the same places) and ok."""
+    (o, lse), (ref_o, ref_lse) = got, want
+    diff = (o.float() - ref_o.float()).abs()
+    ratios = diff / (ATTN_RTOL_O * ref_o.float().abs() + ATTN_ATOL_O)
+    worst = int(ratios.argmax())
+    finite = torch.isfinite(ref_lse)
+    same_inf = bool(torch.equal(finite, torch.isfinite(lse)))
+    err_lse = (float((lse[finite] - ref_lse[finite]).abs().max())
+               if bool(finite.any()) else 0.0)
+    ratio = float(ratios.reshape(-1)[worst])
+    return dict(err_o=float(diff.max()), o_ratio=ratio,
+                ref_at_worst=float(ref_o.float().abs().reshape(-1)[worst]),
+                err_lse=err_lse, same_inf=same_inf,
+                ok=ratio <= 1.0 and err_lse <= ATTN_TOL_LSE and same_inf)
+
+
 def check_paged_attention(torch, np, lens_decode, lens_prefill):
     from flashinfer_tpu_torch.ops.attention.kernels.paged import (
         batch_paged_attention_run,
@@ -304,18 +334,11 @@ def check_paged_attention(torch, np, lens_decode, lens_prefill):
                     return fn(q, kc, vc, kv_idx, plan, kv_indices_offset=off,
                               **kw)
 
-                o, lse = call(batch_paged_attention_run, rotate=False)
-                ref_o, ref_lse = call(paged_attention_plain, rotate=False)
+                got = call(batch_paged_attention_run, rotate=False)
+                want = call(paged_attention_plain, rotate=False)
                 torch.cuda.synchronize()
-                diff_o = (o.float() - ref_o.float()).abs()
-                err_o = float(diff_o.max())
-                # the largest error over its limit: <= 1 passes
-                o_ratio = float((diff_o / (ATTN_RTOL_O * ref_o.float().abs()
-                                           + ATTN_ATOL_O)).max())
-                finite = torch.isfinite(ref_lse)
-                same_inf = bool(torch.equal(finite, torch.isfinite(lse)))
-                err_lse = float((lse[finite] - ref_lse[finite]).abs().max()) \
-                    if bool(finite.any()) else 0.0
+                chk = _attn_check(torch, got, want)
+                del got, want
                 ms = cuda_ms(torch, lambda: call(batch_paged_attention_run),
                              20, graph=True)
                 call_ms = cuda_ms(
@@ -326,23 +349,24 @@ def check_paged_attention(torch, np, lens_decode, lens_prefill):
                                           d, kc.element_size())
                 ops = 4 * d * _attention_work(kv_lens, qo_lens, hq)
                 b_ms, b_by = bound_ms(nbytes, ops)
-                ok = o_ratio <= 1.0 and err_lse <= ATTN_TOL_LSE and same_inf
                 row = dict(mode=mode, layout=layout, kv=kv_dtype,
                            q_shape=list(q.shape), kv_tokens=int(kv_lens.sum()),
                            T=m.num_work_items, tile_q=m.tile_q,
-                           splits=m.max_splits, err_o=err_o, o_ratio=o_ratio,
-                           err_lse=err_lse, ms=ms, call_ms=call_ms,
+                           splits=m.max_splits, err_o=chk["err_o"],
+                           o_ratio=chk["o_ratio"], err_lse=chk["err_lse"],
+                           same_inf=chk["same_inf"], ms=ms, call_ms=call_ms,
                            plain_ms=plain_ms, bound_bytes=nbytes,
-                           bound_ms=b_ms, bound_by=b_by, ok=ok)
+                           bound_ms=b_ms, bound_by=b_by, ok=chk["ok"])
                 rows.append(row)
                 log(f"paged_attention {mode:7s} {layout} {kv_dtype:4s} "
                     f"q={list(q.shape)} kv_tokens={int(kv_lens.sum())} "
                     f"T={m.num_work_items} tile_q={m.tile_q} "
-                    f"splits={m.max_splits} err_o={err_o:.2e} "
-                    f"(limit ratio {o_ratio:.3f}) err_lse={err_lse:.2e} "
+                    f"splits={m.max_splits} err_o={chk['err_o']:.2e} "
+                    f"(limit ratio {chk['o_ratio']:.3f}) "
+                    f"err_lse={chk['err_lse']:.2e} "
                     f"ms={ms:.4f} call_ms={call_ms:.4f} "
                     f"plain_ms={plain_ms:.3f} bound_ms={b_ms:.5f} ({b_by}) "
-                    f"{'ok' if ok else 'MISMATCH'}")
+                    f"{'ok' if chk['ok'] else 'MISMATCH'}")
                 del kc, vc, caches
     bad = [r for r in rows if not r["ok"]]
     if bad:
@@ -700,6 +724,537 @@ def check_grouped_gemm(torch, np):
     return rows
 
 
+
+# Llama-3-8B attention widths: q heads, kv heads, head dim
+LLAMA_HEADS = (32, 8, 128)
+# flash kernel check cases: (name, qo_len, kv_len, hq, hkv, d, dv, dtype,
+# causal, variant); the variants run at Llama widths on 2048 tokens
+FLASH_CASES = (
+    ("llama_prefill", 8192, 8192, 32, 8, 128, 128, "bf16", True, None),
+    ("chunked_prefill", 2048, 8192, 32, 8, 128, 128, "bf16", True, None),
+    ("decode", 1, 32768, 32, 8, 128, 128, "bf16", False, None),
+    # DeepSeek-V2-Lite's MHA prefill: qk 128 + 64 rope, v 128, 16 heads
+    ("v2lite_mha_prefill", 4096, 4096, 16, 16, 192, 128, "bf16", True,
+     None),
+    ("soft_cap_50", 2048, 2048, 32, 8, 128, 128, "bf16", True, "soft_cap"),
+    ("window_1024", 2048, 2048, 32, 8, 128, 128, "bf16", True, "window"),
+    ("alibi", 2048, 2048, 32, 8, 128, 128, "bf16", True, "alibi"),
+    ("sinks", 2048, 2048, 32, 8, 128, 128, "bf16", True, "sink"),
+    ("sigmoid", 2048, 2048, 32, 8, 128, 128, "bf16", True, "sigmoid"),
+    ("custom_mask", 2048, 2048, 32, 8, 128, 128, "bf16", True, "mask"),
+    ("hnd", 2048, 2048, 32, 8, 128, 128, "bf16", True, "hnd"),
+    ("small_f32", 100, 300, 8, 2, 64, 64, "f32", True, None),
+)
+
+
+def _flash_pairs(np, qo, kv, causal, window=-1):
+    """(query, key) pairs the mask keeps: query i at kv - qo + i."""
+    q_pos = kv - qo + np.arange(qo)
+    hi = np.minimum(q_pos, kv - 1) if causal else np.full(qo, kv - 1)
+    lo = np.maximum(q_pos - window, 0) if window >= 0 else np.zeros(qo)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def _flash_case(torch, np, qo, kv, hq, hkv, d, dv, dtype, causal, variant,
+                gen):
+    """(kernel call, plain call, library call or None, extra bytes, kept
+    pairs, the inputs) of one check case; the kernel and plain calls
+    return (o, lse), the library call (SDPA) o [1, hq, qo, dv]."""
+    import torch.nn.functional as F
+    from torch.nn.attention.bias import causal_lower_right
+
+    from flashinfer_tpu_torch.ops.attention.kernels.flash import (
+        flash_attention_dense,
+        flash_attention_plain,
+    )
+    from flashinfer_tpu_torch.ops.attention.single import (
+        default_alibi_slopes,
+        single_prefill_with_kv_cache,
+    )
+    from flashinfer_tpu_torch.ops.attention.variants import (
+        FlashSigmoid,
+        make_default_variant,
+    )
+    from flashinfer_tpu_torch.ops.quantization import unpackbits
+
+    dev = torch.device(DEVICE)
+    dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    q = torch.randn(qo, hq, d, device=dev, generator=gen, dtype=dt)
+    k = torch.randn(kv, hkv, d, device=dev, generator=gen, dtype=dt)
+    v = torch.randn(kv, hkv, dv, device=dev, generator=gen, dtype=dt)
+    kw = dict(causal=causal, sm_scale=d ** -0.5)
+    single_kw = {}
+    extra, window = 0, -1
+    pairs = None
+    # The variants keep each row's P.V sum unit-size, from weights spread
+    # over many keys: the ATTN limit's absolute term is one bf16 step of
+    # such a sum, and one bf16 rounding flip of a weight near 1 moves o by
+    # as much (PERF.md, "the variant checks' inputs").
+    if variant == "soft_cap":
+        # one large component shared by every key: the logits sit far past
+        # the cap (|x| up to ~70), their spread along a row stays ~1
+        k = (k.float() + 24 * torch.randn(1, hkv, d, device=dev,
+                                          generator=gen)).to(dt)
+        kw["variant"] = make_default_variant(logits_soft_cap=50.0)
+    elif variant == "window":
+        kw["window_left"] = window = 1024
+    elif variant == "alibi":  # the kernel call goes through single.py
+        single_kw["pos_encoding_mode"] = "ALIBI"
+        kw["variant"] = make_default_variant(use_alibi=True)
+        kw["variant_params"] = {"alibi_slopes": default_alibi_slopes(hq,
+                                                                     dev)}
+        extra = hq * 4
+    elif variant == "sink":
+        kw["sink"] = torch.randn(hq, device=dev, generator=gen) * 4
+        extra = hq * 4
+    elif variant == "sigmoid":  # sigmoid attention's bias -log(n)
+        kw["variant"] = FlashSigmoid(1.0, -math.log(kv))
+    elif variant == "mask":
+        bits = torch.randint(0, 256, (-(-qo * kv // 8),), device=dev,
+                             generator=gen, dtype=torch.int32)
+        kw["custom_mask"] = bits.to(torch.uint8)
+        extra = kw["custom_mask"].numel()
+        keep = unpackbits(kw["custom_mask"], qo * kv).reshape(qo, kv)
+        q_pos = kv - qo + torch.arange(qo, device=dev)
+        keep &= torch.arange(kv, device=dev)[None, :] <= q_pos[:, None]
+        pairs = int(keep.sum())
+    elif variant == "hnd":  # [hkv, kv, d] caches, read in place
+        k = k.transpose(0, 1).contiguous().transpose(0, 1)
+        v = v.transpose(0, 1).contiguous().transpose(0, 1)
+        single_kw["kv_layout"] = "HND"
+    if pairs is None:
+        pairs = _flash_pairs(np, qo, kv, causal, window)
+
+    if single_kw:
+        k_in = k.transpose(0, 1) if variant == "hnd" else k
+        v_in = v.transpose(0, 1) if variant == "hnd" else v
+        skw = {x: y for x, y in kw.items() if x not in ("variant",
+                                                         "variant_params")}
+
+        def kernel():
+            return single_prefill_with_kv_cache(q, k_in, v_in,
+                                                return_lse=True,
+                                                **single_kw, **skw)
+    else:
+        def kernel():
+            return flash_attention_dense(q, k, v, **kw)
+
+    def plain():
+        return flash_attention_plain(q, k, v, **kw)
+
+    lib = None
+    if variant is None and dtype == "bf16":
+        # the queries sit at the tail of the keys: SDPA's lower-right causal
+        # bias (is_causal aligns top-left; the two agree when qo == kv)
+        mask = causal_lower_right(qo, kv) if causal else None
+        qt, kt, vt = (x.transpose(0, 1)[None] for x in (q, k, v))
+
+        def lib():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, scale=kw["sm_scale"],
+                enable_gqa=hkv != hq)
+    return kernel, plain, lib, extra, pairs, (q, k, v, kw)
+
+
+def _time_library(torch, lib, ref_o, big):
+    """(ms, o_ratio) of SDPA: its time in a CUDA graph and its largest
+    error against the plain version over the ATTN limit, which shows that
+    it computes the same function; (None, None) if it refuses the case."""
+    try:  # an eager call first: a refusal must not happen inside a capture
+        o = lib()[0].transpose(0, 1)
+        torch.cuda.synchronize()
+    except (RuntimeError, TypeError) as err:
+        log(f"  scaled_dot_product_attention refused: {err}"[:300])
+        return None, None
+    ref = ref_o.float()
+    ratio = float(((o.float() - ref).abs()
+                   / (ATTN_RTOL_O * ref.abs() + ATTN_ATOL_O)).max())
+    del o
+    return cuda_ms(torch, lib, 5 if big else 20, warmup=1 if big else 2,
+                   graph=True), ratio
+
+
+def _kernel_weights(torch, q, k, kw, t, head):
+    """The bf16 weights the kernel gives query t of ``head`` over the keys it
+    sees, read back through the kernel itself: the one query over the keys
+    up to its position, with a one-hot V (key j*dv + c has 1 in column c,
+    all other keys 0), so each output column is one key's rounded weight,
+    exactly."""
+    from flashinfer_tpu_torch.ops.attention.kernels.flash import (
+        flash_attention_dense,
+    )
+
+    qo, kv = q.shape[0], k.shape[0]
+    n = kv - qo + t + 1 if kw.get("causal") else kv
+    hkv, dv = k.shape[1], k.shape[2]
+    eye = torch.eye(dv, dtype=k.dtype, device=k.device)
+    out = []
+    for j0 in range(0, n, dv):
+        vj = torch.zeros(n, hkv, dv, dtype=k.dtype, device=k.device)
+        m = min(dv, n - j0)
+        vj[j0:j0 + m] = eye[:m, None, :]
+        o, _ = flash_attention_dense(q[t:t + 1], k[:n], vj, **kw)
+        out.append(o[0, head, :m])
+    return torch.cat(out)
+
+
+def _sigmoid_witness(torch, np, inputs, got, want):
+    """The sigmoid case against a float64 evaluation of its function
+    (logits and weights in f64, the weights rounded to v's dtype as the
+    function rounds P, P.V in f64): the kernel's and the plain version's
+    largest error over the ATTN limit; and, at the element where the
+    kernel and the plain version differ most, their errors against f64,
+    how many of that row's bf16 weights the kernel (read back by
+    ``_kernel_weights``) and the plain version round otherwise than f64,
+    and how far those flips alone move that element."""
+    q, k, v, kw = inputs
+    scale, bias = kw["variant"].kernel.sigmoid
+    qo, hq, _ = q.shape
+    kv, hkv, dv = v.shape
+    group = hq // hkv
+    dev = q.device
+    keep = torch.ones(qo, kv, dtype=torch.bool, device=dev)
+    if kw.get("causal"):
+        q_pos = kv - qo + torch.arange(qo, device=dev)
+        keep = torch.arange(kv, device=dev)[None, :] <= q_pos[:, None]
+    (o, _), (plain_o, _) = got, want
+    lim = ATTN_RTOL_O * plain_o.float().abs() + ATTN_ATOL_O
+    worst = int(((o.float() - plain_o.float()).abs() / lim).argmax())
+    t, hw, c = (int(x) for x in np.unravel_index(worst, tuple(o.shape)))
+
+    def weights(h, dt):  # [group, qo, kv], rounded to v's dtype
+        hs = slice(h * group, (h + 1) * group)
+        s = torch.einsum("qgd,kd->gqk", q[:, hs].to(dt), k[:, h].to(dt))
+        s = s * kw["sm_scale"]
+        w = torch.reciprocal(1.0 + torch.exp(-(s * scale + bias)))
+        return torch.where(keep[None], w, 0.0).to(v.dtype)
+
+    ref = torch.empty(qo, hq, dv, dtype=torch.float64, device=dev)
+    for h in range(hkv):
+        w64 = weights(h, torch.float64)
+        ref[:, h * group:(h + 1) * group] = torch.einsum(
+            "gqk,kd->qgd", w64.double(), v[:, h].double())
+        if h == hw // group:
+            row64 = w64[hw % group, t].double()
+            row32 = weights(h, torch.float32)[hw % group, t].double()
+        del w64
+    row_k = _kernel_weights(torch, q, k, kw, t, hw).double()
+    n = row_k.numel()
+    v_c = v[:n, hw // group, c].double()
+    row64, row32 = row64[:n], row32[:n]
+    lim64 = ATTN_RTOL_O * ref.abs() + ATTN_ATOL_O
+    res = dict(
+        kernel_vs_f64_ratio=float(((o.double() - ref).abs() / lim64).max()),
+        plain_vs_f64_ratio=float(((plain_o.double() - ref).abs()
+                                  / lim64).max()),
+        worst=[t, hw, c], f64_at_worst=float(ref[t, hw, c]),
+        kernel_minus_f64=float(o[t, hw, c].double() - ref[t, hw, c]),
+        plain_minus_f64=float(plain_o[t, hw, c].double() - ref[t, hw, c]),
+        kernel_weight_flips=int((row_k != row64).sum()),
+        kernel_flip_shift=float(((row_k - row64) * v_c).sum()),
+        plain_weight_flips=int((row32 != row64).sum()),
+        plain_flip_shift=float(((row32 - row64) * v_c).sum()),
+        keys_in_row=n)
+    log(f"  sigmoid vs float64: kernel ratio {res['kernel_vs_f64_ratio']:.3f},"
+        f" plain ratio {res['plain_vs_f64_ratio']:.3f}; at the worst kernel-"
+        f"plain element {res['worst']} (f64 {res['f64_at_worst']:.5f}): "
+        f"kernel - f64 {res['kernel_minus_f64']:.5f}, plain - f64 "
+        f"{res['plain_minus_f64']:.5f}; of the row's {n} bf16 weights the "
+        f"kernel rounds {res['kernel_weight_flips']} otherwise than f64 "
+        f"(moving o by {res['kernel_flip_shift']:.5f}), the plain version "
+        f"{res['plain_weight_flips']} ({res['plain_flip_shift']:.5f})")
+    return res
+
+
+def check_flash_attention(torch, np, cases=FLASH_CASES):
+    """The flash kernel against its plain version on the card, case by
+    case (Llama-3-8B prefill, chunked prefill and decode, DeepSeek-V2-Lite's
+    MHA prefill, each variant at Llama widths, a small f32 case), with its
+    time, bound, the plain version's time and SDPA's where it computes the
+    same function (bf16, no variant; causal as the lower-right bias)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(13)
+    rows = []
+    for name, qo, kv, hq, hkv, d, dv, dtype, causal, variant in cases:
+        kernel, plain, lib, extra, pairs, inputs = _flash_case(
+            torch, np, qo, kv, hq, hkv, d, dv, dtype, causal, variant, gen)
+        got = kernel()
+        want = plain()
+        torch.cuda.synchronize()
+        chk = _attn_check(torch, got, want)
+        big = qo * kv >= 2 ** 24
+        lib_ms = lib_ratio = None
+        if lib is not None:
+            lib_ms, lib_ratio = _time_library(torch, lib, want[0], big)
+        if variant == "sigmoid":
+            chk["vs_float64"] = _sigmoid_witness(torch, np, inputs, got, want)
+        del got, want, inputs
+        ms = cuda_ms(torch, kernel, 5 if big else 20, warmup=1 if big else 2,
+                     graph=True)
+        plain_ms = cuda_ms(torch, plain, 2, warmup=1)
+        isz = 2 if dtype == "bf16" else 4
+        nbytes = ((qo * hq * (d + dv) + kv * hkv * (d + dv)) * isz
+                  + qo * hq * 4 + extra)
+        ops = 2 * (d + dv) * pairs * hq
+        b_ms, b_by = bound_ms(nbytes, ops, dtype)
+        row = dict(case=name, qo=qo, kv=kv, hq=hq, hkv=hkv, d=d, dv=dv,
+                   dtype=dtype, causal=causal, **chk, ms=ms,
+                   plain_ms=plain_ms, library_ms=lib_ms,
+                   library_o_ratio=lib_ratio, bound_bytes=nbytes,
+                   bound_ops=ops, bound_ms=b_ms, bound_by=b_by)
+        rows.append(row)
+        log(f"flash_attention {name:18s} q=[{qo}, {hq}, {d}] kv=[{kv}, {hkv},"
+            f" {dv}] {dtype} causal={causal} err_o={chk['err_o']:.2e} (limit "
+            f"ratio {chk['o_ratio']:.3f} at |ref| {chk['ref_at_worst']:.3f}) "
+            f"err_lse={chk['err_lse']:.2e} ms={ms:.4f} plain_ms="
+            f"{plain_ms:.3f} library_ms={lib_ms} (its ratio {lib_ratio}) "
+            f"bound_ms={b_ms:.5f} ({b_by}) "
+            f"{'ok' if chk['ok'] else 'MISMATCH'}")
+        del kernel, plain, lib
+        torch.cuda.empty_cache()
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"flash kernel disagrees with its plain "
+                             f"version: {bad}")
+    return rows
+
+
+# the single-request path: prompt tokens, decode steps, layers
+SINGLE_PROMPT, SINGLE_STEPS, SINGLE_LAYERS = 8192, 32, 32
+
+
+def phase_single_request(torch, np, card):
+    """The single-request path at Llama-3-8B widths, bf16, all 32 layers
+    (LAYERS_ROTATED distinct q/k/v sets, seeded): an 8192-token prompt
+    through ``single_prefill_with_kv_cache`` (causal, lse) a layer, then 32
+    ``single_decode_with_kv_cache`` steps a layer over the grown KV. Then
+    the tiny f32 case, card against CPU."""
+    from flashinfer_tpu_torch.ops.attention.kernels.flash import (
+        flash_attention_plain,
+    )
+    from flashinfer_tpu_torch.ops.attention.single import (
+        single_decode_with_kv_cache,
+        single_prefill_with_kv_cache,
+    )
+
+    hq, hkv, d = LLAMA_HEADS
+    n, steps, L = SINGLE_PROMPT, SINGLE_STEPS, SINGLE_LAYERS
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    sets = [dict(q=torch.randn(n, hq, d, device=dev, generator=gen,
+                               dtype=torch.bfloat16),
+                 qd=torch.randn(steps, hq, d, device=dev, generator=gen,
+                                dtype=torch.bfloat16),
+                 k=torch.randn(n + steps, hkv, d, device=dev, generator=gen,
+                               dtype=torch.bfloat16),
+                 v=torch.randn(n + steps, hkv, d, device=dev, generator=gen,
+                               dtype=torch.bfloat16))
+            for _ in range(LAYERS_ROTATED)]
+    single_prefill_with_kv_cache(sets[0]["q"], sets[0]["k"][:n],
+                                 sets[0]["v"][:n], causal=True)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = _reset_counts()
+    t0 = time.perf_counter()
+    for layer in range(L):
+        s = sets[layer % LAYERS_ROTATED]
+        o, lse = single_prefill_with_kv_cache(
+            s["q"], s["k"][:n], s["v"][:n], causal=True, return_lse=True)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3 / L
+    assert o.shape == (n, hq, d) and bool(torch.isfinite(o).all())
+    assert bool(torch.isfinite(lse).all())  # every row sees key 0
+    step_ms = []
+    for i in range(steps):
+        ts = time.perf_counter()
+        for layer in range(L):
+            s = sets[layer % LAYERS_ROTATED]
+            od = single_decode_with_kv_cache(s["qd"][i], s["k"][:n + i + 1],
+                                             s["v"][:n + i + 1])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - ts) * 1e3)
+    counts = {k: counters[k].launches for k in SINGLE_PATH}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    # the last step's output of the last layer against the plain version
+    s = sets[(L - 1) % LAYERS_ROTATED]
+    got = single_decode_with_kv_cache(s["qd"][-1], s["k"], s["v"],
+                                      return_lse=True)
+    want = flash_attention_plain(s["qd"][-1][None], s["k"], s["v"])
+    chk = _attn_check(torch, (got[0][None], got[1][None]), want)
+    assert od.shape == (hq, d) and chk["ok"], chk
+    res = dict(prefill_ms_per_layer=prefill_ms,
+               prefill_tokens_per_s=n / (prefill_ms * L / 1e3),
+               decode_step_ms_median=float(np.median(step_ms)),
+               decode_ms_per_layer=float(np.median(step_ms)) / L,
+               decode_check=chk, launches=counts, peak_mem_gb=peak)
+    log(f"single request, Llama-3-8B widths, {L} layers: prefill of {n} "
+        f"tokens {prefill_ms:.3f} ms a layer "
+        f"({res['prefill_tokens_per_s']:.0f}"
+        f" tokens/s over {L} layers); {steps} decode steps over {n}-"
+        f"{n + steps} keys: median {res['decode_step_ms_median']:.3f} ms a "
+        f"step of {L} layers ({res['decode_ms_per_layer']:.4f} ms a layer); "
+        f"last decode vs plain err_o {chk['err_o']:.2e} (ratio "
+        f"{chk['o_ratio']:.3f}); "
+        f"launches {counts}; peak memory {peak:.2f} GB [{card}]")
+    del sets
+    torch.cuda.empty_cache()
+    res["tiny_f32"] = _single_tiny_card_vs_cpu(torch)
+    return res
+
+
+def _single_tiny_card_vs_cpu(torch):
+    """A tiny f32 prefill and decode (HND, ALiBi, a packed custom mask,
+    lse), card against CPU, within 1e-4."""
+    from flashinfer_tpu_torch.ops.attention.single import (
+        single_decode_with_kv_cache,
+        single_prefill_with_kv_cache,
+    )
+
+    gen = torch.Generator().manual_seed(15)
+    q = torch.randn(30, 8, 64, generator=gen)
+    k = torch.randn(2, 90, 64, generator=gen)
+    v = torch.randn(2, 90, 64, generator=gen)
+    packed = torch.randint(0, 256, (-(-30 * 90 // 8),), generator=gen,
+                           dtype=torch.int32).to(torch.uint8)
+    outs = []
+    for device in ("cpu", DEVICE):
+        t = [x.to(device) for x in (q, k, v, packed)]
+        o, lse = single_prefill_with_kv_cache(
+            t[0], t[1], t[2], packed_custom_mask=t[3], causal=True,
+            kv_layout="HND", pos_encoding_mode="ALIBI", return_lse=True)
+        od, dlse = single_decode_with_kv_cache(t[0][0], t[1], t[2],
+                                               kv_layout="HND",
+                                               return_lse=True)
+        outs.append([x.cpu() for x in (o, lse, od, dlse)])
+    err = 0.0
+    for a, b in zip(*outs):
+        finite = torch.isfinite(b)
+        assert torch.equal(finite, torch.isfinite(a))
+        err = max(err, float((a[finite] - b[finite]).abs().max()))
+    log(f"tiny f32 single request, card vs CPU: max |diff| {err:.2e}")
+    if err > 1e-4:
+        raise AssertionError(f"tiny f32 single request: card and CPU differ "
+                             f"by {err}")
+    return err
+
+
+# POD: decode batch, its lengths, the prefill chunk and its prompt
+POD_DECODES, POD_KV_RANGE, POD_CHUNK, POD_PROMPT = 32, (512, 4096), 2048, 8192
+POD_LAYERS, POD_PAGE, POD_KV_CHUNK = 32, 16, 512
+
+
+def _pod_plain(torch, s, indptr, indices, kv_lens):
+    """The plain versions of POD's two parts on one layer set, as (o, lse)
+    pairs: the chunk against its dense KV (causal, queries at the tail),
+    and each decode against its own pages of the HND cache gathered into a
+    dense KV, one ``flash_attention_plain`` call a request."""
+    from flashinfer_tpu_torch.ops.attention.kernels.flash import (
+        flash_attention_plain,
+    )
+
+    prefill = flash_attention_plain(s["q_p"], s["k_p"], s["v_p"], causal=True)
+    outs = []
+    for i, n in enumerate(kv_lens.tolist()):
+        pages = torch.as_tensor(indices[indptr[i]:indptr[i + 1]],
+                                device=s["kc"].device)
+        k, v = (c[pages].transpose(1, 2).reshape(-1, c.shape[1], c.shape[3])
+                [:n] for c in (s["kc"], s["vc"]))
+        outs.append(flash_attention_plain(s["q_d"][i:i + 1], k, v))
+    decode = tuple(torch.cat(x) for x in zip(*outs))
+    return prefill, decode
+
+
+def phase_pod(torch, np, card):
+    """POD at Llama-3-8B widths, page 16, HND, over 32 layers
+    (LAYERS_ROTATED distinct sets): 32 decodes of 512-4096 tokens beside a
+    2048-token chunk at the end of an 8192-token prompt, in both modes
+    (two launches: flash + paged kernel; combined: append, then one paged
+    launch). On the first layer set each mode's chunk and decodes are held
+    to their plain versions (``_pod_plain``), and the two modes to each
+    other, within the ATTN tolerances."""
+    from flashinfer_tpu_torch.ops.attention.pod import (
+        PODWithPagedKVCacheWrapper,
+    )
+
+    hq, hkv, d = LLAMA_HEADS
+    ps = POD_PAGE
+    rng = np.random.default_rng(16)
+    kv_lens = rng.integers(POD_KV_RANGE[0], POD_KV_RANGE[1] + 1, POD_DECODES)
+    pages = -(-kv_lens // ps)
+    indptr = np.concatenate([[0], np.cumsum(pages)])
+    n_dec = int(indptr[-1])
+    num_pages = n_dec + -(-POD_PROMPT // ps)
+    perm = rng.permutation(num_pages)
+    indices, free = perm[:n_dec], perm[n_dec:]
+    last = kv_lens - (pages - 1) * ps
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(17)
+
+    def randn(*shape):
+        return torch.randn(*shape, device=dev, generator=gen,
+                           dtype=torch.bfloat16)
+
+    sets = [dict(q_p=randn(POD_CHUNK, hq, d), k_p=randn(POD_PROMPT, hkv, d),
+                 v_p=randn(POD_PROMPT, hkv, d), q_d=randn(POD_DECODES, hq, d),
+                 kc=randn(num_pages, hkv, ps, d),
+                 vc=randn(num_pages, hkv, ps, d))
+            for _ in range(LAYERS_ROTATED)]
+    plan = (indptr, indices, last, hq, hkv, d, ps)
+    kw = dict(kv_len_arr=kv_lens, kv_chunk_size=POD_KV_CHUNK)
+    modes = {
+        "two_launch": PODWithPagedKVCacheWrapper(device=DEVICE).plan(
+            *plan, **kw),
+        "combined": PODWithPagedKVCacheWrapper(device=DEVICE).plan(
+            *plan, prefill_qo_len=POD_CHUNK, prefill_kv_len=POD_PROMPT,
+            prefill_page_indices=free, **kw)}
+
+    def run(mode, s):
+        out = modes[mode].run(s["q_p"], s["k_p"], s["v_p"], s["q_d"],
+                              (s["kc"], s["vc"]), return_lse=True)
+        if mode == "combined":
+            (po, do), _, (pl, dl) = out
+        else:
+            (po, do), (pl, dl) = out
+        return (po, pl), (do, dl)
+
+    first = {m: run(m, sets[0]) for m in modes}  # warm-up and the checks
+    plain = _pod_plain(torch, sets[0], indptr, indices, kv_lens)
+    torch.cuda.synchronize()
+    parts = (("prefill", 0), ("decode", 1))
+    checks = {f"{m} {part} vs plain": _attn_check(torch, first[m][i],
+                                                  plain[i])
+              for m in modes for part, i in parts}
+    checks.update({f"combined vs two_launch {part}": _attn_check(
+        torch, first["combined"][i], first["two_launch"][i])
+        for part, i in parts})
+    del first, plain
+    counters = _reset_counts()
+    ms = {}
+    for mode in modes:
+        t0 = time.perf_counter()
+        for layer in range(POD_LAYERS):
+            run(mode, sets[layer % LAYERS_ROTATED])
+        torch.cuda.synchronize()
+        ms[mode] = (time.perf_counter() - t0) * 1e3 / POD_LAYERS
+    counts = {k: counters[k].launches for k in POD_PATH}
+    res = dict(decode_kv_tokens=int(kv_lens.sum()), ms_per_layer=ms,
+               checks=checks, launches=counts)
+    log(f"POD, Llama-3-8B widths, HND, page {ps}: {POD_DECODES} decodes of "
+        f"{kv_lens.min()}-{kv_lens.max()} keys ({int(kv_lens.sum())} in all) "
+        f"+ a {POD_CHUNK}-token chunk at the end of a {POD_PROMPT}-token "
+        f"prompt, {POD_LAYERS} layers: two launches {ms['two_launch']:.3f} ms "
+        f"a layer, combined {ms['combined']:.3f} ms a layer; launches "
+        f"{counts} [{card}]")
+    for name, c in checks.items():
+        log(f"  POD {name}: err_o {c['err_o']:.2e} (limit ratio "
+            f"{c['o_ratio']:.3f}) err_lse {c['err_lse']:.2e} "
+            f"{'ok' if c['ok'] else 'MISMATCH'}")
+    del sets, modes
+    torch.cuda.empty_cache()
+    bad = {k: c for k, c in checks.items() if not c["ok"]}
+    if bad:
+        raise AssertionError(f"POD outputs disagree: {bad}")
+    return res
+
 # ------------------------------------------------------------------ engines
 
 def phase_tiny_reference(torch, np):
@@ -739,6 +1294,9 @@ def phase_tiny_reference(torch, np):
 
 def _reset_counts():
     """Set every kernel's launch count to 0; returns name -> wrapper."""
+    from flashinfer_tpu_torch.ops.attention.kernels.flash import (
+        flash_attention_dense,
+    )
     from flashinfer_tpu_torch.ops.attention.kernels.paged import (
         batch_paged_attention_run,
     )
@@ -750,7 +1308,8 @@ def _reset_counts():
     fns = {"paged_attention": batch_paged_attention_run,
            "sampler_family": family_call, "rmsnorm": rmsnorm,
            "mla_attention": mla_paged_run,
-           "grouped_gemm": grouped_gemm_padded}
+           "grouped_gemm": grouped_gemm_padded,
+           "flash_attention": flash_attention_dense}
     for fn in fns.values():
         fn.launches = 0
     return fns
@@ -759,6 +1318,8 @@ def _reset_counts():
 LLAMA_PATH = ("paged_attention", "sampler_family", "rmsnorm")
 DEEPSEEK_PATH = ("mla_attention", "grouped_gemm", "rmsnorm",
                  "sampler_family")
+SINGLE_PATH = ("flash_attention",)
+POD_PATH = ("flash_attention", "paged_attention")
 
 
 def _family(name):
@@ -1346,6 +1907,10 @@ def main() -> int:
     mla = ph.run("kernel check: MLA attention", check_mla, torch, np)
     gg = ph.run("kernel check: grouped GEMM", check_grouped_gemm, torch, np)
     torch.cuda.empty_cache()
+    flash = ph.run("kernel check: flash attention", check_flash_attention,
+                   torch, np)
+    single = ph.run("single request", phase_single_request, torch, np, card)
+    pod = ph.run("POD", phase_pod, torch, np, card)
     ph.run("tiny reference", phase_tiny_reference, torch, np)
     ph.run("tiny DeepSeek reference", phase_tiny_deepseek, torch, np)
     eng = ph.run("engine", phase_engine, torch, np, card)
@@ -1355,7 +1920,9 @@ def main() -> int:
     # each path's sampled run, its counts set to 0 just before it; a kernel
     # on both paths reports the launches of both runs
     by_path = {"llama": (eng or {}).get("sampled", {}).get("launches", {}),
-               "deepseek": (dsk or {}).get("sampled", {}).get("launches", {})}
+               "deepseek": (dsk or {}).get("sampled", {}).get("launches", {}),
+               "single": (single or {}).get("launches", {}),
+               "pod": (pod or {}).get("launches", {})}
 
     def launches(name):
         return sum(counts.get(name, 0) for counts in by_path.values())
@@ -1414,11 +1981,23 @@ def main() -> int:
             plain_ms=main_row["plain_ms"], bound_ms=main_row["bound_ms"],
             bound_by=main_row["bound_by"],
             library_ms=main_row["library_ms"]))
+    if flash:
+        main_row = next(r for r in flash if r["case"] == "llama_prefill")
+        kernels.append(dict(
+            name="flash_attention", route="cuda",
+            source="flashinfer_tpu_torch/csrc/flash_attention.cu",
+            replaces="flashinfer_tpu/ops/attention/kernels/flash.py:93",
+            launches=launches("flash_attention"),
+            max_abs_err=max(r["err_o"] for r in flash), ms=main_row["ms"],
+            plain_ms=main_row["plain_ms"], bound_ms=main_row["bound_ms"],
+            bound_by=main_row["bound_by"],
+            library_ms=main_row["library_ms"]))
     log(f"total {time.perf_counter() - t_start:.1f} s [{card}]")
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(card=card, attention=attn, sampler=samp,
                            rmsnorm=norm, mla=mla, grouped_gemm=gg,
+                           flash=flash, single=single, pod=pod,
                            engine=eng, deepseek=dsk, kernels=kernels,
                            launches_by_path=by_path, failed=ph.failed), f,
                       indent=1)

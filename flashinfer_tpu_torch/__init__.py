@@ -6,6 +6,11 @@ kernel's plain PyTorch version instead. The CUDA kernels build with nvcc at
 first use (``flashinfer_tpu_torch.jit``)."""
 
 from flashinfer_tpu_torch.models.llama import LlamaConfig, params_from_numpy
+from flashinfer_tpu_torch.ops.attention.pod import PODWithPagedKVCacheWrapper
+from flashinfer_tpu_torch.ops.attention.single import (
+    single_decode_with_kv_cache,
+    single_prefill_with_kv_cache,
+)
 from flashinfer_tpu_torch.serving.engine import (
     EngineConfig,
     GenerationRequest,
@@ -13,4 +18,6 @@ from flashinfer_tpu_torch.serving.engine import (
 )
 
 __all__ = ["EngineConfig", "GenerationRequest", "LlamaConfig",
-           "LlamaServingEngine", "params_from_numpy"]
+           "LlamaServingEngine", "PODWithPagedKVCacheWrapper",
+           "params_from_numpy", "single_decode_with_kv_cache",
+           "single_prefill_with_kv_cache"]

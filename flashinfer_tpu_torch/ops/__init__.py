@@ -12,6 +12,11 @@ from flashinfer_tpu_torch.ops.gemm_grouped import (
     make_group_layout,
 )
 from flashinfer_tpu_torch.ops.norm import rmsnorm, rmsnorm_plain
+from flashinfer_tpu_torch.ops.quantization import (
+    packbits,
+    segment_packbits,
+    unpackbits,
+)
 from flashinfer_tpu_torch.ops.page import (
     append_paged_kv_cache,
     append_paged_mla_kv_cache,
@@ -47,11 +52,14 @@ __all__ = [
     "grouped_gemm_padded",
     "make_group_layout",
     "mla_rope_quantize_fp8",
+    "packbits",
     "rmsnorm",
     "rmsnorm_plain",
     "rope_cos_sin_cache",
     "route_tokens",
+    "segment_packbits",
     "silu_and_mul",
     "softmax",
     "top_k_top_p_sampling_from_probs",
+    "unpackbits",
 ]

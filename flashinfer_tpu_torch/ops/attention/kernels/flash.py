@@ -1,0 +1,299 @@
+"""Dense single-request attention: the CUDA flash kernel's wrapper and its
+plain PyTorch version.
+
+Replaces the TPU kernel ``_flash_kernel`` (flashinfer_tpu/ops/attention/
+kernels/flash.py:93, launched by ``flash_attention_dense`` :255). The kernel
+itself is ``flashinfer_tpu_torch/csrc/flash_attention.cu``; its source note
+says what bounds it on the H100 and how its design answers.
+
+Both versions compute what the TPU kernel computes: logits ``q.k * sm_scale``
+with f32 accumulation; the variant's logits transform (ALiBi, then the soft
+cap; or the sigmoid); the mask (``kv_pos < kv_len``, causal with query i at
+position ``kv_len - qo_len + i``, the window ``kv_pos >= q_pos -
+window_left``, the custom mask); softmax with P rounded to v's dtype before
+P.V; the sink added once at the end. A row that sees no key gives o = 0 and
+lse = -inf (o and lse 0 for the sigmoid). lse is natural-log.
+
+``custom_mask`` is either bool [qo_len, kv_len] (True = keep) or the JAX
+package's packed form, uint8 bits in "big" order over the flattened
+[qo_len, kv_len] matrix; the tensor's dtype decides. The kernel reads the
+packed bits (8x fewer bytes); a bool mask is packed on the device first.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Any, Optional, Tuple
+
+import torch
+
+from flashinfer_tpu_torch import jit
+from flashinfer_tpu_torch.ops.attention.state import merge_states
+from flashinfer_tpu_torch.ops.attention.variants import (
+    VARIANT_JIT,
+    AttentionVariant,
+    DefaultAttention,
+)
+from flashinfer_tpu_torch.ops.quantization import packbits, unpackbits
+from flashinfer_tpu_torch.utils import cdiv
+
+__all__ = ["flash_attention_dense", "flash_attention_plain",
+           "flash_num_splits"]
+
+_NEG_INF = float("-inf")
+# the kernel's tiles (csrc/flash_attention.cu): packed q rows a CTA, keys a
+# tile; bf16 runs on the tensor cores, f32 on the CUDA cores
+_ROWS = {torch.bfloat16: 64, torch.float32: 16}
+_TILE_K = 64
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_BF16_DV = (64, 128, 192, 256)
+_MIN_TILES_PER_SPLIT = 4
+
+
+@functools.cache
+def _num_sms(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def _check_mask_bits(custom_mask: torch.Tensor, qo_len: int, kv_len: int):
+    if custom_mask.numel() * (8 if custom_mask.dtype == torch.uint8 else 1) \
+            < qo_len * kv_len:
+        raise ValueError(f"custom mask of {custom_mask.numel()} "
+                         f"{custom_mask.dtype} entries does not cover "
+                         f"[{qo_len}, {kv_len}]")
+
+
+def _dense_mask(custom_mask: torch.Tensor, qo_len: int,
+                kv_len: int) -> torch.Tensor:
+    _check_mask_bits(custom_mask, qo_len, kv_len)
+    if custom_mask.dtype == torch.uint8:
+        return unpackbits(custom_mask, qo_len * kv_len).reshape(qo_len,
+                                                                kv_len)
+    return custom_mask.bool().reshape(qo_len, kv_len)
+
+
+def flash_attention_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = False,
+    sm_scale: Optional[float] = None,
+    window_left: int = -1,
+    custom_mask: Optional[torch.Tensor] = None,
+    sink: Optional[torch.Tensor] = None,
+    variant: AttentionVariant = DefaultAttention,
+    variant_params: Any = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's function in plain PyTorch, one kv head's query group at
+    a time (so that long sequences fit), every hook applied. Softmax runs
+    against each row's global maximum; the kernel's against a running one.
+    Hooks see absolute head indices, as in ``attention_reference``. The
+    sink comes from ``sink`` alone, as in the TPU kernel: a variant's
+    ``sink_logits`` hook is the oracle's."""
+    qo_len, hq, d = q.shape
+    kv_len, hkv, _ = k.shape
+    dv = v.shape[-1]
+    group = hq // hkv
+    dev = q.device
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+
+    q_pos = torch.arange(qo_len, device=dev)[:, None] + (kv_len - qo_len)
+    kv_pos = torch.arange(kv_len, device=dev)[None, :]
+    mask = kv_pos < kv_len
+    if causal:
+        mask = mask & (kv_pos <= q_pos)
+    if window_left >= 0:
+        mask = mask & (kv_pos > q_pos - window_left - 1)
+    if custom_mask is not None:
+        mask = mask & _dense_mask(custom_mask, qo_len, kv_len)
+
+    qf = q.float()
+    if variant.query_transform is not None:
+        qf = variant.query_transform(variant_params, qf)
+    out = torch.empty(qo_len, hq, dv, dtype=torch.float32, device=dev)
+    lse = torch.zeros(qo_len, hq, device=dev)
+    for h in range(hkv):
+        hs = slice(h * group, (h + 1) * group)
+        head_idx = torch.arange(h * group, (h + 1) * group,
+                                device=dev)[:, None, None]
+        s = torch.einsum("qgd,kd->gqk", qf[:, hs], k[:, h].float()) * sm_scale
+        if variant.logits_transform is not None:
+            s = variant.logits_transform(variant_params, s, q_pos, kv_pos,
+                                         head_idx)
+        keep = mask[None]
+        if variant.logits_mask is not None:
+            keep = keep & variant.logits_mask(variant_params, q_pos, kv_pos,
+                                              head_idx)
+        vf = v[:, h].float()
+        if not variant.use_softmax:
+            w = torch.where(keep, s, 0.0).to(v.dtype).float()
+            out[:, hs] = torch.einsum("gqk,kd->qgd", w, vf)
+            continue
+        s = torch.where(keep, s, _NEG_INF)
+        m = s.amax(dim=-1)  # [g, q]
+        m_safe = torch.where(torch.isneginf(m), 0.0, m)
+        p = torch.where(keep, torch.exp(s - m_safe[..., None]), 0.0)
+        l = p.sum(dim=-1)
+        o = torch.einsum("gqk,kd->gqd", p.to(v.dtype).float(), vf)
+        if sink is not None:
+            sk = sink[hs].float()[:, None].to(dev)  # [g, 1]
+            m_fin = torch.maximum(m, sk)
+            m_fin_safe = torch.where(torch.isneginf(m_fin), 0.0, m_fin)
+            scale = torch.where(torch.isneginf(m), 0.0,
+                                torch.exp(m - m_fin_safe))
+            l = l * scale + torch.exp(sk - m_fin_safe)
+            o = o * scale[..., None]
+            m, m_safe = m_fin, m_fin_safe
+        safe_l = torch.where(l > 0, l, 1.0)
+        out[:, hs] = (o / safe_l[..., None]).transpose(0, 1)
+        lse[:, hs] = torch.where(l > 0, m_safe + torch.log(safe_l),
+                                 _NEG_INF).T
+    if variant.output_transform is not None:
+        out = variant.output_transform(variant_params, out)
+    return out.to(q.dtype), lse
+
+
+def _lib():
+    fn = jit.load("flash_attention").fi_flash_attention
+    if fn.argtypes is None:
+        P, I, F, L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                      ctypes.c_longlong)
+        fn.argtypes = [P, P, P, P, P, P, P, P,  # q k v mask alibi sink o lse
+                       L, L, L, L, L, L,  # q, k, v strides (token, head)
+                       I, I, I, I, I, I,  # qo kv hq hkv d dv
+                       I, I, I,  # causal window splits
+                       F, F, I, F, F,  # scale cap sigmoid sig_scale sig_bias
+                       I, P]  # dtype stream
+        fn.restype = I
+    return fn
+
+
+def flash_num_splits(qo_len: int, kv_len: int, num_qo_heads: int,
+                     num_kv_heads: int, dtype: torch.dtype,
+                     num_sms: int) -> int:
+    """How many CTAs share one (q tile, kv head)'s key range: 1 once the
+    tiles fill the card twice over, else enough to reach ~2 CTAs an SM,
+    with at least 4 key tiles a split."""
+    ctas = cdiv(qo_len * (num_qo_heads // num_kv_heads),
+                _ROWS[dtype]) * num_kv_heads
+    if 2 * ctas >= num_sms:
+        return 1
+    return max(1, min(cdiv(2 * num_sms, ctas),
+                      cdiv(kv_len, _TILE_K) // _MIN_TILES_PER_SPLIT))
+
+
+def _kernel_ready(t: torch.Tensor) -> torch.Tensor:
+    """t with a contiguous last dim, 16-byte aligned rows and base."""
+    vec = 16 // t.element_size()
+    if (t.stride(-1) != 1 or t.data_ptr() % 16
+            or any(s % vec for s in t.stride()[:-1])):
+        t = t.contiguous()
+    return t
+
+
+def flash_attention_dense(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = False,
+    sm_scale: Optional[float] = None,
+    window_left: int = -1,
+    custom_mask: Optional[torch.Tensor] = None,
+    sink: Optional[torch.Tensor] = None,
+    variant: AttentionVariant = DefaultAttention,
+    variant_params: Any = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dense single-request attention. q [qo_len, num_qo_heads, d]; k/v
+    [kv_len, num_kv_heads, d(_vo)] (any token and head strides: an HND
+    cache's transposed view is read in place); ``sink`` [num_qo_heads].
+    Returns (out [qo_len, num_qo_heads, dv] in q's dtype, lse [qo_len,
+    num_qo_heads] f32).
+
+    A CUDA tensor launches the kernel (or raises); a CPU tensor takes
+    ``flash_attention_plain``."""
+    kw = dict(causal=causal, sm_scale=sm_scale, window_left=window_left,
+              custom_mask=custom_mask, sink=sink, variant=variant,
+              variant_params=variant_params)
+    if not q.is_cuda:
+        return flash_attention_plain(q, k, v, **kw)
+    spec = variant.kernel
+    if spec is None or any(h is not None for h in (
+            variant.query_transform, variant.logits_mask,
+            variant.output_transform)):
+        raise NotImplementedError(f"variant {variant.name!r}: {VARIANT_JIT}")
+    qo_len, hq, d = q.shape
+    kv_len, hkv, _ = k.shape
+    dv = v.shape[-1]
+    dt = q.dtype
+    if dt not in _DTYPE_CODES or k.dtype != dt or v.dtype != dt:
+        raise TypeError(f"flash kernel takes bf16 or f32 q, k, v of one "
+                        f"dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
+    if hq % hkv or k.shape[2] != d or v.shape[:2] != k.shape[:2]:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)} do not fit")
+    if d % 16 or d > 256 or (dt == torch.bfloat16 and dv not in _BF16_DV) \
+            or dv % 16 or dv > 256:
+        raise ValueError(f"flash kernel takes head_dim a multiple of 16 up "
+                         f"to 256 (bf16 dv in {_BF16_DV}); got d={d}, "
+                         f"dv={dv}")
+    if not (k.is_cuda and v.is_cuda):
+        raise ValueError("q, k and v must lie on one CUDA device")
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    dev = q.device
+    softmax = spec.sigmoid is None
+    alibi = None
+    if spec.use_alibi:
+        alibi = variant_params["alibi_slopes"].to(dev, torch.float32)
+        alibi = alibi.reshape(hq).contiguous()
+    mask = None
+    if custom_mask is not None:
+        _check_mask_bits(custom_mask, qo_len, kv_len)
+        mask = (custom_mask if custom_mask.dtype == torch.uint8
+                else packbits(custom_mask.to(dev))).to(dev).contiguous()
+    out_shape = (qo_len, hq, dv)
+    if qo_len == 0:
+        return (torch.empty(out_shape, dtype=dt, device=dev),
+                torch.empty(qo_len, hq, device=dev))
+    q, k, v = _kernel_ready(q), _kernel_ready(k), _kernel_ready(v)
+    splits = flash_num_splits(qo_len, kv_len, hq, hkv, dt,
+                              _num_sms(dev.index))
+    if splits == 1:
+        o = torch.empty(out_shape, dtype=dt, device=dev)
+        lse = torch.empty(qo_len, hq, device=dev)
+    else:
+        o = torch.empty(qo_len, splits, hq, dv, device=dev)
+        lse = torch.empty(qo_len, splits, hq, device=dev)
+    sink_k = None
+    if sink is not None and softmax:  # the sigmoid has no sink
+        sink_k = sink.to(dev, torch.float32).reshape(hq).contiguous()
+    sig_scale, sig_bias = spec.sigmoid or (1.0, 0.0)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    err = _lib()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(mask), ptr(alibi),
+        ptr(sink_k), o.data_ptr(), lse.data_ptr(),
+        q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
+        v.stride(1), qo_len, kv_len, hq, hkv, d, dv, int(causal),
+        int(window_left), splits, float(sm_scale),
+        float(spec.logits_soft_cap), int(not softmax), float(sig_scale),
+        float(sig_bias), _DTYPE_CODES[dt],
+        torch.cuda.current_stream(dev).cuda_stream)
+    jit.check(err, "flash attention kernel")
+    flash_attention_dense.launches += 1
+    if splits == 1:
+        return o, lse
+    if not softmax:  # sigmoid partials simply add
+        return o.sum(dim=1).to(dt), torch.zeros(qo_len, hq, device=dev)
+    o, lse = merge_states(o, lse)  # split 0's state holds the sink
+    return o.to(dt), lse
+
+
+flash_attention_dense.launches = 0

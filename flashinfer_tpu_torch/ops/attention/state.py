@@ -1,8 +1,10 @@
-"""Split-KV merge of partial attention states (counterpart of
-``gather_merge_states`` in ``flashinfer_tpu/ops/attention/state.py``).
+"""Merging partial attention states (counterpart of
+``flashinfer_tpu/ops/attention/state.py``: ``merge_state``,
+``merge_states`` and ``gather_merge_states``).
 
 A state is ``(v, s)``: v the normalized partial output, s its natural-log
-log-sum-exp. Plain PyTorch: the reference's version is not a kernel either.
+log-sum-exp; a state with s = -inf (no key) is the identity of the merge.
+Plain PyTorch: the reference's version is not a kernel either.
 """
 
 from __future__ import annotations
@@ -11,9 +13,43 @@ from typing import Tuple
 
 import torch
 
-__all__ = ["gather_merge_states"]
+__all__ = ["gather_merge_states", "merge_state", "merge_states"]
 
 _NEG_INF = float("-inf")
+
+
+def merge_state(v_a: torch.Tensor, s_a: torch.Tensor, v_b: torch.Tensor,
+                s_b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Merge two states: v [seq, heads, dim], s [seq, heads]. Returns v in
+    v_a's dtype and s in f32; two empty states give v = 0, s = -inf."""
+    s_a, s_b = s_a.float(), s_b.float()
+    s_max = torch.maximum(s_a, s_b)
+    s_max_safe = torch.where(torch.isneginf(s_max), 0.0, s_max)
+    w_a = torch.where(torch.isneginf(s_a), 0.0, torch.exp(s_a - s_max_safe))
+    w_b = torch.where(torch.isneginf(s_b), 0.0, torch.exp(s_b - s_max_safe))
+    d = w_a + w_b
+    safe_d = torch.where(d > 0, d, 1.0)
+    v = (v_a.float() * (w_a / safe_d)[..., None]
+         + v_b.float() * (w_b / safe_d)[..., None])
+    s = torch.where(d > 0, s_max + torch.log(safe_d), _NEG_INF)
+    return v.to(v_a.dtype), s
+
+
+def merge_states(v: torch.Tensor, s: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Merge ``num_states`` states: v [seq, num_states, heads, dim], s [seq,
+    num_states, heads]. Returns (v [seq, heads, dim] in v's dtype, s [seq,
+    heads] f32)."""
+    s = s.float()
+    s_max = s.amax(dim=1, keepdim=True)
+    s_max_safe = torch.where(torch.isneginf(s_max), 0.0, s_max)
+    w = torch.where(torch.isneginf(s), 0.0, torch.exp(s - s_max_safe))
+    d = w.sum(dim=1)  # [seq, heads]
+    out = torch.einsum("lshd,lsh->lhd", v.float(), w)
+    safe_d = torch.where(d > 0, d, 1.0)
+    out = out / safe_d[..., None]
+    s_out = torch.where(d > 0, s_max_safe[:, 0] + torch.log(safe_d), _NEG_INF)
+    return out.to(v.dtype), s_out
 
 
 def gather_merge_states(

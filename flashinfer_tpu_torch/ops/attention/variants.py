@@ -1,32 +1,119 @@
-"""The default softmax attention variant: softmax scale and tanh soft cap.
+"""Attention variants: the JAX package's hook set
+(``flashinfer_tpu/ops/attention/variants.py``) in PyTorch.
 
-Counterpart of the default of ``make_default_variant`` in
-``flashinfer_tpu/ops/attention/variants.py``. The reference's other hooks
-(ALiBi, sinks, query/output transforms, non-softmax variants) are not in
-this slice; the paged kernel takes only this variant.
+A variant is a bundle of optional hooks applied to plain tensors:
+
+  query_transform(params, q) -> q                         before Q.K^T
+  logits_transform(params, logits, q_pos, kv_pos, head_idx) -> logits
+  logits_mask(params, q_pos, kv_pos, head_idx) -> bool     True = keep
+  sink_logits(params) -> [num_heads]                       extra softmax logit
+  output_transform(params, out) -> out                     after P.V
+
+``q_pos``, ``kv_pos`` and ``head_idx`` are broadcastable integer tensors
+(absolute query position, key position, query head). ``use_softmax`` False
+makes the transformed logits the weights themselves (lse is 0).
+
+The CUDA flash kernel cannot call Python hooks, so each built-in variant
+also carries a ``KernelVariant``: the few numbers the kernel reads (soft
+cap, ALiBi on or off, sigmoid scale and bias). A variant built from hooks of
+the caller's own has none and runs only in the plain PyTorch versions; on a
+CUDA tensor it raises (a user's CUDA functor compiled into the kernel is the
+ROADMAP item "variant JIT").
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 
-__all__ = ["AttentionVariant", "DefaultAttention"]
+from flashinfer_tpu_torch.utils import apply_logits_soft_cap
+
+__all__ = [
+    "AttentionVariant",
+    "DefaultAttention",
+    "FlashSigmoid",
+    "KernelVariant",
+    "make_default_variant",
+]
+
+Params = Any  # per-call tensors the hooks read (slopes, sinks, scales, ...)
+
+VARIANT_JIT = ("a variant with hooks of its own runs only in the plain "
+               "PyTorch version; compiling it into the CUDA kernel is the "
+               "ROADMAP item 'variant JIT'")
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelVariant:
+    """What the flash kernel reads of a built-in variant. ALiBi slopes come
+    from ``variant_params["alibi_slopes"]``; ``sigmoid`` is (scale, bias)
+    of ``FlashSigmoid`` (weights, no softmax)."""
+
+    logits_soft_cap: float = 0.0
+    use_alibi: bool = False
+    sigmoid: Optional[Tuple[float, float]] = None
 
 
 @dataclasses.dataclass(frozen=True)
 class AttentionVariant:
-    """Softmax attention whose scaled logits pass through an optional
-    ``cap * tanh(logits / cap)`` soft cap (off when ``logits_soft_cap`` is 0)."""
+    """Hooks applied by the plain versions; ``kernel`` is set for the
+    built-in variants the CUDA kernel runs."""
 
-    logits_soft_cap: float = 0.0
+    name: str = "default"
+    query_transform: Optional[Callable[[Params, torch.Tensor], torch.Tensor]] = None
+    logits_transform: Optional[Callable[..., torch.Tensor]] = None
+    logits_mask: Optional[Callable[..., torch.Tensor]] = None
+    sink_logits: Optional[Callable[[Params], torch.Tensor]] = None
+    output_transform: Optional[Callable[[Params, torch.Tensor], torch.Tensor]] = None
+    use_softmax: bool = True
+    kernel: Optional[KernelVariant] = None
 
-    def logits_transform(self, logits: torch.Tensor) -> torch.Tensor:
-        if self.logits_soft_cap <= 0.0:
-            return logits
-        cap = self.logits_soft_cap
-        return cap * torch.tanh(logits / cap)
+
+def _alibi_bias(slopes, q_pos, kv_pos, head_idx):
+    return slopes[head_idx] * (kv_pos - q_pos).float()
 
 
-DefaultAttention = AttentionVariant()
+def make_default_variant(
+    *,
+    logits_soft_cap: float = 0.0,
+    use_alibi: bool = False,
+    has_sink: bool = False,
+) -> AttentionVariant:
+    """The reference's ``DefaultAttention<soft_cap, alibi>`` as hooks: ALiBi
+    ``slope[h] * (kv_pos - q_pos)`` is added first, then the soft cap.
+    Windows and custom masks are kernel arguments, not hooks. With
+    ``has_sink`` the sink logits come from ``params["sink"]``."""
+
+    def logits_transform(params, logits, q_pos, kv_pos, head_idx):
+        if use_alibi:
+            logits = logits + _alibi_bias(params["alibi_slopes"], q_pos,
+                                          kv_pos, head_idx)
+        return apply_logits_soft_cap(logits, logits_soft_cap)
+
+    transform = logits_transform if (use_alibi or logits_soft_cap > 0.0) \
+        else None
+    sink = (lambda params: params["sink"]) if has_sink else None
+    return AttentionVariant(
+        name=f"default(cap={logits_soft_cap},alibi={use_alibi},"
+             f"sink={has_sink})",
+        logits_transform=transform, sink_logits=sink,
+        kernel=KernelVariant(logits_soft_cap=float(logits_soft_cap),
+                             use_alibi=use_alibi))
+
+
+DefaultAttention = make_default_variant()
+
+
+def FlashSigmoid(scale: float = 1.0, bias: float = 0.0) -> AttentionVariant:
+    """Sigmoid attention: weights ``1 / (1 + exp(-(logits * scale +
+    bias)))``, no softmax normalisation."""
+
+    def logits_transform(params, logits, q_pos, kv_pos, head_idx):
+        return torch.reciprocal(1.0 + torch.exp(-(logits * scale + bias)))
+
+    return AttentionVariant(
+        name="flash_sigmoid", logits_transform=logits_transform,
+        use_softmax=False,
+        kernel=KernelVariant(sigmoid=(float(scale), float(bias))))

@@ -1,7 +1,7 @@
 """Small shared helpers: KV layout enum, integer rounding, device checks.
 
 Counterpart of ``flashinfer_tpu/utils/__init__.py`` for the PyTorch port
-(only what the serving path needs).
+(only what the ported paths need).
 """
 
 from __future__ import annotations
@@ -12,7 +12,9 @@ import numpy as np
 import torch
 
 __all__ = [
+    "PosEncodingMode",
     "TensorLayout",
+    "apply_logits_soft_cap",
     "cdiv",
     "round_up",
     "next_power_of_2",
@@ -27,6 +29,22 @@ class TensorLayout(enum.IntEnum):
 
     NHD = 0
     HND = 1
+
+
+class PosEncodingMode(enum.IntEnum):
+    """Positional encoding the single-request attention entry points apply
+    (flashinfer_tpu/utils/__init__.py:52)."""
+
+    NONE = 0
+    ROPE_LLAMA = 1
+    ALIBI = 2
+
+
+def apply_logits_soft_cap(logits: torch.Tensor, soft_cap: float) -> torch.Tensor:
+    """``cap * tanh(logits / cap)``; identity when ``soft_cap`` is 0."""
+    if soft_cap <= 0.0:
+        return logits
+    return soft_cap * torch.tanh(logits / soft_cap)
 
 
 def cdiv(a: int, b: int) -> int:

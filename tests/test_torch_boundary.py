@@ -72,6 +72,10 @@ def test_wrappers_default_to_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         BatchAttention()
+    from flashinfer_tpu_torch import PODWithPagedKVCacheWrapper
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PODWithPagedKVCacheWrapper()
     from flashinfer_tpu_torch import LlamaConfig
 
     with pytest.raises(RuntimeError, match="CUDA"):

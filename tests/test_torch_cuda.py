@@ -9,7 +9,9 @@ with the card does not have).
 
 Tolerances: f32 outputs agree to 1e-4 (other summation orders); bf16,
 e4m3 and int8 attention outputs (paged and MLA) to 2e-2, a bf16 rounding
-step of P taken against a running rather than a global maximum; grouped
+step of P taken against a running rather than a global maximum (the flash
+kernel's bf16 o to 2^-6 |ref| + 2^-8 and lse to 1e-3, for that reason);
+grouped
 GEMM outputs to one bf16 step (2^-7 relative) or 1e-3 relative in f32,
 plus 1e-3 of the output's rms (f32 sums in other orders); fused MoE to
 2e-2 of its largest output (bf16 intermediates on both sides)."""
@@ -314,3 +316,195 @@ def test_tiny_engine_on_the_card_matches_cpu(dev, kv_dtype, layout):
         eng.run_to_completion(max_steps=100)
         outs.append([r.output for r in reqs])
     assert outs[0] == outs[1]
+
+
+# name: (qo_len, kv_len, causal, window_left)
+FLASH_SHAPES = {"prefill": (70, 70, True, -1), "chunk": (37, 150, True, -1),
+                "window": (45, 200, True, 30), "full": (20, 90, False, -1),
+                # causal, more queries than keys: the first rows see no key
+                "qo_gt_kv": (90, 40, True, -1)}
+FLASH_VARIANTS = ["default", "soft_cap", "alibi", "sink", "sigmoid", "mask",
+                  "hnd"]
+
+
+def _flash_case(dev, dtype, shape, variant, d, dv, hq=8, hkv=2, seed=0):
+    """q, k, v and the keyword arguments of one case; ``shape`` is
+    (qo_len, kv_len, causal, window_left)."""
+    from flashinfer_tpu_torch.ops.attention.single import default_alibi_slopes
+    from flashinfer_tpu_torch.ops.attention.variants import (
+        FlashSigmoid,
+        make_default_variant,
+    )
+
+    qo, kv, causal, window = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(qo, hq, d, device=dev, generator=gen).to(dtype)
+    k = torch.randn(kv, hkv, d, device=dev, generator=gen).to(dtype)
+    v = torch.randn(kv, hkv, dv, device=dev, generator=gen).to(dtype)
+    kw = dict(causal=causal, window_left=window)
+    if variant == "soft_cap":
+        kw["variant"] = make_default_variant(logits_soft_cap=2.0)
+        q = q * 4
+    elif variant == "alibi":
+        kw["variant"] = make_default_variant(use_alibi=True)
+        kw["variant_params"] = {"alibi_slopes": default_alibi_slopes(hq, dev)}
+    elif variant == "sink":
+        kw["sink"] = torch.randn(hq, device=dev, generator=gen) * 3
+    elif variant == "sigmoid":
+        kw["variant"] = FlashSigmoid(0.5, -1.0)
+    elif variant == "mask":
+        mask = torch.rand(qo, kv, device=dev, generator=gen) < 0.5
+        mask[1] = False  # a row that sees no key
+        kw["custom_mask"] = mask
+    elif variant == "hnd":  # a transposed HND view, read through strides
+        k = k.transpose(0, 1).contiguous().transpose(0, 1)
+        v = v.transpose(0, 1).contiguous().transpose(0, 1)
+    return q, k, v, kw
+
+
+def _check_flash(o, lse, ref_o, ref_lse, dtype):
+    if dtype == torch.float32:
+        torch.testing.assert_close(o, ref_o, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-4)
+        return
+    diff = (o.float() - ref_o.float()).abs()
+    assert bool((diff <= 2.0 ** -6 * ref_o.float().abs() + 2.0 ** -8).all()), \
+        float(diff.max())
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,dv", [(64, 64), (128, 128), (192, 128),
+                                  (256, 256)])
+@pytest.mark.parametrize("shape", list(FLASH_SHAPES))
+@pytest.mark.parametrize("variant", FLASH_VARIANTS)
+def test_flash_kernel_matches_plain(dev, dtype, d, dv, shape, variant):
+    from flashinfer_tpu_torch.ops.attention.kernels.flash import (
+        flash_attention_dense,
+        flash_attention_plain,
+    )
+
+    q, k, v, kw = _flash_case(dev, dtype, FLASH_SHAPES[shape], variant, d, dv)
+    before = flash_attention_dense.launches
+    o, lse = flash_attention_dense(q, k, v, **kw)
+    assert flash_attention_dense.launches == before + 1
+    ref_o, ref_lse = flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert o.dtype == dtype and o.shape == ref_o.shape
+    _check_flash(o, lse, ref_o, ref_lse, dtype)
+    if variant == "mask":
+        assert torch.isneginf(lse[1]).all() and not o[1].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv_len", [100, 3000, 20000])
+@pytest.mark.parametrize("variant", ["default", "sink", "sigmoid", "alibi"])
+@pytest.mark.parametrize("window", [-1, 1000])
+def test_flash_kernel_split_kv(dev, dtype, kv_len, variant, window):
+    """Decode-like shapes: one query, the key range split across CTAs (and
+    merged by the wrapper) from 3000 keys on, one pass at 100; with a
+    sliding window the split covers only the window's tiles."""
+    from flashinfer_tpu_torch.ops.attention.kernels.flash import (
+        flash_attention_dense,
+        flash_attention_plain,
+        flash_num_splits,
+    )
+
+    q, k, v, kw = _flash_case(dev, dtype, (1, kv_len, False, window),
+                              variant, 128, 128, hq=32, hkv=8)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits = flash_num_splits(1, kv_len, 32, 8, dtype, sms)
+    assert (splits > 1) == (kv_len >= 3000)
+    o, lse = flash_attention_dense(q, k, v, **kw)
+    ref_o, ref_lse = flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    _check_flash(o, lse, ref_o, ref_lse, dtype)
+
+
+def test_flash_kernel_refuses_what_it_cannot_run(dev):
+    from flashinfer_tpu_torch.ops.attention.kernels.flash import (
+        flash_attention_dense,
+    )
+    from flashinfer_tpu_torch.ops.attention.variants import AttentionVariant
+
+    q = torch.randn(4, 4, 64, device=dev)
+    custom = AttentionVariant(name="mine",
+                              query_transform=lambda p, x: x * 2)
+    with pytest.raises(NotImplementedError, match="variant JIT"):
+        flash_attention_dense(q, q, q, variant=custom)
+    with pytest.raises(TypeError):
+        flash_attention_dense(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError):
+        flash_attention_dense(q[..., :40], q[..., :40], q[..., :40])
+
+
+@pytest.mark.parametrize("mode", ["NONE", "ALIBI", "ROPE_LLAMA"])
+def test_single_request_on_the_card_matches_cpu(dev, mode):
+    from flashinfer_tpu_torch.ops.attention.single import (
+        single_decode_with_kv_cache,
+        single_prefill_with_kv_cache,
+    )
+    from flashinfer_tpu_torch.ops.quantization import packbits
+
+    gen = torch.Generator().manual_seed(5)
+    q = torch.randn(30, 8, 64, generator=gen)
+    k = torch.randn(2, 90, 64, generator=gen)  # HND
+    v = torch.randn(2, 90, 64, generator=gen)
+    packed = packbits(torch.rand(30 * 90, generator=gen) < 0.8)
+    outs = []
+    for device in ("cpu", "cuda"):
+        t = [x.to(device) for x in (q, k, v, packed)]
+        o, lse = single_prefill_with_kv_cache(
+            t[0], t[1], t[2], packed_custom_mask=t[3], causal=True,
+            kv_layout="HND", pos_encoding_mode=mode, return_lse=True)
+        d, dlse = single_decode_with_kv_cache(
+            t[0][0], t[1], t[2], kv_layout="HND", pos_encoding_mode=mode,
+            return_lse=True)
+        outs.append([x.cpu() for x in (o, lse, d, dlse)])
+    for got, want in zip(outs[1], outs[0]):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pod_modes_on_the_card(dev, dtype):
+    """Both POD modes on the card against the CPU (plain versions), and
+    against each other."""
+    from flashinfer_tpu_torch.ops.attention.pod import (
+        PODWithPagedKVCacheWrapper,
+    )
+
+    rng = np.random.default_rng(2)
+    hq, hkv, d, ps = 8, 2, 128, 16
+    kv_lens = rng.integers(20, 300, 6)
+    pages = -(-kv_lens // ps)
+    indptr = np.concatenate([[0], np.cumsum(pages)])
+    num_pages = int(indptr[-1]) + 8
+    indices = rng.permutation(num_pages)[: indptr[-1]]
+    free = [p for p in range(num_pages) if p not in set(indices.tolist())]
+    last = kv_lens - (pages - 1) * ps
+    gen = torch.Generator().manual_seed(3)
+    qp, kp, vp = (torch.randn(n, h, d, generator=gen).to(dtype)
+                  for n, h in ((40, hq), (100, hkv), (100, hkv)))
+    qd = torch.randn(6, hq, d, generator=gen).to(dtype)
+    kc, vc = (torch.randn(num_pages, hkv, ps, d, generator=gen).to(dtype)
+              for _ in "kv")
+    plan = (indptr, indices, last, hq, hkv, d, ps)
+    kw = dict(kv_len_arr=kv_lens, kv_chunk_size=64)
+    comb = dict(prefill_qo_len=40, prefill_kv_len=100,
+                prefill_page_indices=free)
+    res = {}
+    for device in ("cpu", "cuda"):
+        t = [x.to(device) for x in (qp, kp, vp, qd)]
+        two = PODWithPagedKVCacheWrapper(device=device).plan(*plan, **kw)
+        one = PODWithPagedKVCacheWrapper(device=device).plan(*plan, **kw,
+                                                             **comb)
+        res[device, "two"] = two.run(*t, (kc.to(device), vc.to(device)))
+        res[device, "one"], _ = one.run(*t, (kc.to(device), vc.to(device)))
+    tol = (dict(atol=1e-4, rtol=1e-4) if dtype == torch.float32
+           else dict(atol=2e-2, rtol=2e-2))
+    for a, b in ((("cuda", "two"), ("cpu", "two")),
+                 (("cuda", "one"), ("cpu", "one")),
+                 (("cuda", "one"), ("cuda", "two"))):
+        for x, y in zip(res[a], res[b]):
+            torch.testing.assert_close(x.cpu().float(), y.cpu().float(),
+                                       **tol)
