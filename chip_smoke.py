@@ -7,7 +7,9 @@ Run from the root of a checkout. Phases, in order:
 
 1. card: the card's name and power limit from nvidia-smi;
 2. build: every CUDA kernel built with nvcc from ``flashinfer_tpu_torch/csrc``
-   (one process per source, all at once);
+   (one process per source, all at once); ``cuobjdump -sass`` counts the
+   flash library's wgmma (HGMMA), TMA load (UTMALDG) and mma.sync (HMMA)
+   instructions, and the phase fails without wgmma or TMA;
 3. kernel checks: each kernel against its plain PyTorch version on the card
    with its time (CUDA events), its bound, the plain version's time and,
    where one PyTorch call computes the same function, that call's time:
@@ -25,7 +27,9 @@ Run from the root of a checkout. Phases, in order:
    launches are read here), then a tiny f32 case card vs CPU;
 5. POD: 32 decodes of 512-4096 keys beside a 2048-token chunk of an
    8192-token prompt, Llama-3-8B widths, page 16, HND, 32 layers, both modes
-   (the pod path: its launches are read here); the modes must agree;
+   (the pod path: its launches are read here); the modes must agree with
+   their plain versions and each other; the two-launch mode is then traced
+   (device time by kernel family, busy share);
 6. tiny references: the f32 tiny Llama engine and the f32 tiny DeepSeek
    decode loop on the card (every kernel on) emit the greedy tokens of the
    same model on the CPU (every plain version);
@@ -54,6 +58,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import itertools
 import json
 import math
 import os
@@ -192,7 +197,30 @@ def phase_build():
         for ln in jit.build_log(name).splitlines():
             if "registers" in ln or "spill" in ln:
                 log("  ptxas:", ln.strip())
+    sass = flash_sass_counts()
+    log(f"flash_attention SASS: {sass}")
+    if not (sass["HGMMA"] and sass["UTMALDG"]):
+        raise AssertionError(f"the flash library lacks wgmma or TMA: {sass}")
     return secs
+
+
+def flash_sass_counts():
+    """How many wgmma (HGMMA), TMA load (UTMALDG) and mma.sync (HMMA)
+    instructions ``cuobjdump -sass`` finds in the flash library."""
+    from flashinfer_tpu_torch import jit
+
+    cuobjdump = os.path.join(os.path.dirname(jit._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(jit._lib_path(
+        "flash_attention"))], capture_output=True, text=True, check=True,
+        timeout=300).stdout
+    ops = []
+    for ln in sass.splitlines():  # "/*0090*/ @P0 HGMMA.64x128x16... ;"
+        words = [w for w in ln.split("*/", 1)[-1].split()
+                 if not w.startswith("@")]
+        if words:
+            ops.append(words[0].split(".")[0])
+    return {op: sum(o == op for o in ops)
+            for op in ("HGMMA", "UTMALDG", "HMMA")}
 
 
 # ----------------------------------------------------------- kernel checks
@@ -843,33 +871,65 @@ def _flash_case(torch, np, qo, kv, hq, hkv, d, dv, dtype, causal, variant,
         return flash_attention_plain(q, k, v, **kw)
 
     lib = None
-    if variant is None and dtype == "bf16":
+    qt, kt, vt = (x.transpose(0, 1)[None] for x in (q, k, v))
+    if variant in (None, "hnd"):  # an HND cache's [1, hkv, kv, d] in place
         # the queries sit at the tail of the keys: SDPA's lower-right causal
         # bias (is_causal aligns top-left; the two agree when qo == kv)
         mask = causal_lower_right(qo, kv) if causal else None
-        qt, kt, vt = (x.transpose(0, 1)[None] for x in (q, k, v))
 
         def lib():
             return F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask, scale=kw["sm_scale"],
                 enable_gqa=hkv != hq)
+    elif variant in ("window", "mask", "alibi"):
+        # the mask as a boolean attn_mask, ALiBi as an additive bias in q's
+        # dtype (SDPA takes no other); K/V heads repeated for the group
+        # beforehand, since SDPA's kernels that take a mask take no GQA
+        q_pos = kv - qo + torch.arange(qo, device=dev)[:, None]
+        kv_pos = torch.arange(kv, device=dev)[None, :]
+        keep = kv_pos <= q_pos if causal else torch.ones(
+            qo, kv, dtype=torch.bool, device=dev)
+        if variant == "window":
+            keep = keep & (kv_pos >= q_pos - window)
+        elif variant == "mask":
+            keep = keep & unpackbits(kw["custom_mask"], qo * kv).reshape(
+                qo, kv)
+        mask = keep
+        if variant == "alibi":
+            slopes = kw["variant_params"]["alibi_slopes"]
+            bias = slopes[:, None, None] * (kv_pos - q_pos).float()
+            mask = torch.where(keep, bias, float("-inf")).to(dt)[None]
+            del bias
+        kt, vt = (x.repeat_interleave(hq // hkv, dim=1) for x in (kt, vt))
+
+        def lib():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, scale=kw["sm_scale"])
     return kernel, plain, lib, extra, pairs, (q, k, v, kw)
 
 
-def _time_library(torch, lib, ref_o, big):
+def _time_library(torch, lib, want, big):
     """(ms, o_ratio) of SDPA: its time in a CUDA graph and its largest
-    error against the plain version over the ATTN limit, which shows that
-    it computes the same function; (None, None) if it refuses the case."""
+    error against the plain version's (o, lse) over the ATTN limit, which
+    shows that it computes the same function; (None, None) if it refuses
+    the case. Past the limit, the worst element is logged with its row's
+    plain lse (-inf: the row sees no key)."""
     try:  # an eager call first: a refusal must not happen inside a capture
-        o = lib()[0].transpose(0, 1)
+        o = lib()[0].transpose(0, 1).float()
         torch.cuda.synchronize()
     except (RuntimeError, TypeError) as err:
         log(f"  scaled_dot_product_attention refused: {err}"[:300])
         return None, None
-    ref = ref_o.float()
-    ratio = float(((o.float() - ref).abs()
-                   / (ATTN_RTOL_O * ref.abs() + ATTN_ATOL_O)).max())
-    del o
+    ref = want[0].float()
+    ratios = (o - ref).abs() / (ATTN_RTOL_O * ref.abs() + ATTN_ATOL_O)
+    ratio = float(ratios.max())
+    if ratio > 1:
+        t, h, c = (int(i) for i in torch.unravel_index(ratios.argmax(),
+                                                       ratios.shape))
+        log(f"  SDPA departs from the plain version most at [{t}, {h}, {c}]:"
+            f" SDPA {float(o[t, h, c]):.5f}, plain {float(ref[t, h, c]):.5f};"
+            f" the row's plain lse {float(want[1][t, h]):.4f}")
+    del o, ratios
     return cuda_ms(torch, lib, 5 if big else 20, warmup=1 if big else 2,
                    graph=True), ratio
 
@@ -970,8 +1030,10 @@ def check_flash_attention(torch, np, cases=FLASH_CASES):
     """The flash kernel against its plain version on the card, case by
     case (Llama-3-8B prefill, chunked prefill and decode, DeepSeek-V2-Lite's
     MHA prefill, each variant at Llama widths, a small f32 case), with its
-    time, bound, the plain version's time and SDPA's where it computes the
-    same function (bf16, no variant; causal as the lower-right bias)."""
+    time, bound, the plain version's time and SDPA's where one call computes
+    the same function (causal as the lower-right bias; HND as transposed
+    views; the window and the custom mask as a boolean mask, ALiBi as a
+    bias); the soft cap, sinks and the sigmoid have none."""
     gen = torch.Generator(device=DEVICE).manual_seed(13)
     rows = []
     for name, qo, kv, hq, hkv, d, dv, dtype, causal, variant in cases:
@@ -984,7 +1046,7 @@ def check_flash_attention(torch, np, cases=FLASH_CASES):
         big = qo * kv >= 2 ** 24
         lib_ms = lib_ratio = None
         if lib is not None:
-            lib_ms, lib_ratio = _time_library(torch, lib, want[0], big)
+            lib_ms, lib_ratio = _time_library(torch, lib, want, big)
         if variant == "sigmoid":
             chk["vs_float64"] = _sigmoid_witness(torch, np, inputs, got, want)
         del got, want, inputs
@@ -1248,6 +1310,25 @@ def phase_pod(torch, np, card):
         log(f"  POD {name}: err_o {c['err_o']:.2e} (limit ratio "
             f"{c['o_ratio']:.3f}) err_lse {c['err_lse']:.2e} "
             f"{'ok' if c['ok'] else 'MISMATCH'}")
+    # where a two-launch layer's wall time goes: device time by family
+    layer_sets = itertools.cycle(sets)
+    prof = _profile_steps(torch, lambda: run("two_launch", next(layer_sets)),
+                          LAYERS_ROTATED)
+    res["two_launch_profile"] = prof
+    if prof:
+        prof["busy_share"] = prof["device_ms_per_step"] / ms["two_launch"]
+        log(f"POD two_launch profile, per layer: device "
+            f"{prof['device_ms_per_step']:.3f} ms (traced wall "
+            f"{prof['profiled_wall_ms_per_step']:.3f} ms), busy share "
+            f"{prof['busy_share']:.3f}; by family "
+            f"{json.dumps(prof['ms_per_step'])}")
+        for t, n, name in prof["top_kernels"][:6]:
+            log(f"  device {t:8.3f} ms  x{n:<5d} {name}")
+        for t, n, name in prof["top_host_ops"][:6]:
+            log(f"  host   {t:8.3f} ms  x{n:<5d} {name}")
+    else:
+        log("POD two_launch profile: the profiler recorded no device time "
+            "(not measured)")
     del sets, modes
     torch.cuda.empty_cache()
     bad = {k: c for k, c in checks.items() if not c["ok"]}
@@ -1325,6 +1406,9 @@ POD_PATH = ("flash_attention", "paged_attention")
 def _family(name):
     name = name.lower()
     for fam, keys in (("paged_attention", ("paged_attention",)),
+                      ("flash_attention", ("flash_tc_kernel",
+                                           "flash_f32_kernel",
+                                           "merge_splits_kernel")),
                       ("mla_attention", ("mla_attention",)),
                       ("grouped_gemm", ("grouped_gemm",)),
                       ("sampler_family", ("family_kernel",)),

@@ -13,44 +13,74 @@
 // once at the end. A row that sees no key gives o = 0 and lse = -inf (o and
 // lse 0 for the sigmoid, whose weights simply add). lse is natural-log.
 //
-// Outputs: with one split, o [qo_len, hq, dv] in q's dtype and lse
-// [qo_len, hq]; with S > 1 splits of the key range, f32 partial states
-// o [qo_len, S, hq, dv] and lse [qo_len, S, hq] that the wrapper merges
-// (the sink joins split 0's state, so the merge adds it once).
+// Outputs: o [qo_len, hq, dv] in q's dtype and lse [qo_len, hq]. With S > 1
+// splits of the key range, the attention kernel writes f32 partial states
+// o [qo_len, S, hq, dv] and lse [qo_len, S, hq] into the caller's scratch
+// and a merge kernel, launched by the same entry point, combines them (the
+// sink joins split 0's state, so the merge adds it once).
 //
 // What bounds it on the H100: at prefill the operations (4 * d flops a
 // (query, key) pair; Llama-3-8B's 8192-token causal prefill is 0.55 TFLOP,
 // 0.56 ms at 989 TFLOP/s against 0.05 ms of bytes), at decode the K/V
 // bytes (one query token sees the whole cache: 134 MB at 32K tokens).
-// Design: bf16 runs on the tensor cores (mma.sync m16n8k16, f32
-// accumulators in registers). A CTA of four warps takes 64 GQA-packed query
-// rows of one kv head (row = token * group + head in group, 16 rows a
-// warp), so each K/V tile serves the whole head group. 64-key K and V tiles
-// are staged in shared memory with cp.async, double-buffered, rows padded
-// by 16 bytes so the fragment loads are free of bank conflicts; Q.K^T
-// leaves S in the accumulator layout that P.V takes as its A operand, so P
-// never goes through shared memory, and V's B fragments come from
-// ldmatrix.trans. The key loop runs from the window's first needed tile to
-// the causal frontier of the CTA's last token; only the tiles at the edges
-// (the diagonal, the window's start, the end of the KV, a custom mask) test
-// each (row, key); the CTAs with the most keys start first. When the (row
-// tile, kv head) CTAs would leave most SMs idle (decode: one token is 8
-// CTAs at Llama-3-8B), the key range is split across CTAs (the wrapper
-// picks the count) and merged by the wrapper.
+// Design (bf16), FA3-shaped for Hopper:
+// - wgmma for both products. A CTA holds two consumer warpgroups of 64
+//   GQA-packed query rows each (row = token * group + head in group), so it
+//   serves 128 packed rows of one kv head and each K/V tile serves the head
+//   group. S = Q.K^T is wgmma m64nTk16 with Q and K in shared memory in the
+//   128-byte swizzle layout (64-element column blocks); S's accumulator
+//   layout is P's A fragment, so O += P.V is the register-A form with V
+//   MN-major (tnspB), and P never leaves registers.
+// - TMA for K and V: one 3-D tensor map each over the caller's strides
+//   (NHD and HND alike), zero fill past kv_len, passed as
+//   __grid_constant__ parameters (a CUDA graph records them by value).
+// - Warp specialisation: a producer warpgroup (24 registers; one thread)
+//   keeps a ring of two K/V stages full behind full/empty mbarriers; the
+//   consumers take 240 registers (setmaxnreg). Tiles of 128 keys, 64 where
+//   S (64 x 128) beside O (64 x dv) or the stages do not fit (dv > 128,
+//   d 256 with dv 128).
+// - The two consumers run independently (S, softmax, P.V a tile each), so
+//   the warp schedulers overlap one's softmax with the other's wgmma. FA3's
+//   ping-pong (turns taken at named barriers) measured 1.3x slower on the
+//   H100 at Llama's prefill, and a warpgroup issuing a tile's S beside the
+//   previous tile's P.V 1.2x slower (ptxas serialised the wgmma: the
+//   softmax writes S's registers while P.V is in flight), so neither is
+//   used (PERF.md).
+// - The softmax is short: the variant's branch is taken once a tile, not an
+//   element; 2^x is one MUFU op (ex2.approx.ftz); the default path folds
+//   its scale into the exponent's FMA after the row max, so it needs a
+//   positive scale (any other takes the general path).
+// - The key loop runs from the window's first needed tile to the causal
+//   frontier of the CTA's last token; only the tiles at the edges (the
+//   diagonal, the window's start, the end of the KV, a custom mask) test
+//   each (row, key); the CTAs with the most keys start first.
+// - When the (row tile, kv head) CTAs would leave most SMs idle (decode),
+//   the key range is split across CTAs (the wrapper picks the count) and a
+//   second launch of this entry point merges the splits: no PyTorch op and
+//   no allocation of its own.
 // f32 runs on the CUDA cores in f32 (16 rows a CTA), so f32 keeps f32
-// accuracy. wgmma, TMA and warp specialisation are later work.
+// accuracy.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "wgmma.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kTileK = 64;
-constexpr int kRowsTc = 64;   // packed rows a CTA, tensor-core kernel
-constexpr int kRowsF32 = 16;  // packed rows a CTA, CUDA-core kernel
+constexpr int kWgRows = 64;                 // packed rows a consumer warpgroup
+constexpr int kConsumers = 2;               // consumer warpgroups a CTA
+constexpr int kRowsTc = kWgRows * kConsumers;
+constexpr int kTcThreads = 128 * (kConsumers + 1);  // + the producer
+constexpr int kStages = 2;                  // K/V stages in shared memory
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+constexpr int kThreads = 128;               // CUDA-core kernel
+constexpr int kTileF32 = 64;                // keys a tile, CUDA-core kernel
+constexpr int kRowsF32 = 16;                // packed rows a CTA, CUDA cores
+constexpr int kSmemLimit = 232448;          // bytes a CTA may use (H100)
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -69,6 +99,7 @@ struct Params {
   int qo_len, kv_len, hq, hkv, group, d, dv;
   int causal, window_left, splits, sigmoid;
   float sm_scale, scale_log2, soft_cap, sig_scale, sig_bias;
+  int heads_inner;  // the K/V tensor maps order (d, head, token)
 };
 
 // One packed query row: its token (-1 past the end), q head, absolute
@@ -99,19 +130,35 @@ __device__ __forceinline__ bool keep(const Params& p, const Row& r, int kv) {
   return true;
 }
 
-// A kept logit as the softmax takes it (base 2), or the sigmoid's weight.
-template <bool kGeneral>
-__device__ __forceinline__ float transform(const Params& p, const Row& r,
-                                           int kv, float s) {
-  if (!kGeneral) return s * p.scale_log2;
+// The variant's transform of a logit, one of: the default (log2(e) *
+// sm_scale folded in), the sigmoid, ALiBi alone, ALiBi and the soft cap.
+enum Kind { kPlain, kSigmoid, kBias, kCapped };
+
+// A kept logit as the softmax takes it (base 2), or the sigmoid's weight;
+// alibi is ALiBi's slope * (kv_pos - q_pos) (0 without ALiBi).
+template <int K>
+__device__ __forceinline__ float transform_k(const Params& p, float alibi,
+                                             float s) {
+  if (K == kPlain) return s * p.scale_log2;
   float x = s * p.sm_scale;
-  if (p.sigmoid) return 1.f / (1.f + expf(-(x * p.sig_scale + p.sig_bias)));
-  if (p.alibi) x += r.slope * float(kv - r.q_pos);
-  if (p.soft_cap > 0.f) x = p.soft_cap * tanhf(x / p.soft_cap);
+  if (K == kSigmoid) return 1.f / (1.f + expf(-(x * p.sig_scale + p.sig_bias)));
+  x += alibi;
+  if (K == kCapped) x = p.soft_cap * tanhf(x / p.soft_cap);
   return x * kLog2e;
 }
 
-// The key tiles [t0, t1) that rows [row0, row0 + rows) of this split need.
+template <bool kGeneral>
+__device__ __forceinline__ float transform(const Params& p, float alibi,
+                                           float s) {
+  if (!kGeneral) return transform_k<kPlain>(p, alibi, s);
+  if (p.sigmoid) return transform_k<kSigmoid>(p, alibi, s);
+  return p.soft_cap > 0.f ? transform_k<kCapped>(p, alibi, s)
+                          : transform_k<kBias>(p, alibi, s);
+}
+
+// The key tiles [t0, t1) of kTile keys that rows [row0, row0 + rows) of
+// this split need.
+template <int kTile>
 __device__ __forceinline__ void key_tiles(const Params& p, int row0, int rows,
                                           int split, int& t0, int& t1) {
   const int last = min(row0 + rows, p.qo_len * p.group) - 1;
@@ -121,8 +168,8 @@ __device__ __forceinline__ void key_tiles(const Params& p, int row0, int rows,
   int kv_begin = 0;
   if (p.window_left >= 0)
     kv_begin = max(0, off + row0 / p.group - p.window_left);
-  t0 = kv_begin / kTileK;
-  t1 = kv_end > kv_begin ? (kv_end + kTileK - 1) / kTileK : t0;
+  t0 = kv_begin / kTile;
+  t1 = kv_end > kv_begin ? (kv_end + kTile - 1) / kTile : t0;
   if (p.splits > 1) {
     const int per = (t1 - t0 + p.splits - 1) / p.splits;
     const int s0 = t0 + split * per;
@@ -131,11 +178,31 @@ __device__ __forceinline__ void key_tiles(const Params& p, int row0, int rows,
   }
 }
 
+// transform_k<K> over a tile of S accumulators: s[4j + c] is row ra (c <
+// 2) or rb at key key0 + 8j + (c & 1). ALiBi's bias is taken at the first
+// key a row and moved by the slope times a constant (no int-to-float
+// conversion an element).
+template <int K, int N>
+__device__ __forceinline__ void transform_tile(const Params& p, float* s,
+                                               const Row& ra, const Row& rb,
+                                               int key0) {
+  const float ba = ra.slope * float(key0 - ra.q_pos);
+  const float bb = rb.slope * float(key0 - rb.q_pos);
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const Row& r = (i & 2) ? rb : ra;
+    const float alibi =
+        fmaf(r.slope, float((i >> 2) * 8 + (i & 1)), (i & 2) ? bb : ba);
+    s[i] = transform_k<K>(p, alibi, s[i]);
+  }
+}
+
 // Whether every (row, key) of key tile kt is kept for the real rows
 // (tokens tok_lo..tok_hi); rows past the end compute values nobody stores.
+template <int kTile>
 __device__ __forceinline__ bool tile_full(const Params& p, int kt, int tok_lo,
                                           int tok_hi) {
-  const int k_lo = kt * kTileK, k_hi = k_lo + kTileK - 1;
+  const int k_lo = kt * kTile, k_hi = k_lo + kTile - 1;
   const int off = p.kv_len - p.qo_len;
   return !p.mask && k_hi < p.kv_len && !(p.causal && k_hi > off + tok_lo) &&
          !(p.window_left >= 0 && k_lo < off + tok_hi - p.window_left);
@@ -172,46 +239,100 @@ __device__ __forceinline__ float finish_row(const Params& p, const Row& r,
 
 // ------------------------------------------------------------ tensor cores
 
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
-                                                  const void* smem) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
+// wgmma descriptor of a 128-byte-swizzled operand: rows of 128 bytes in
+// 1024-byte atoms of 8 rows (sbo apart); lbo is the distance between
+// 64-element column blocks of an MN-major operand (unused K-major).
+__device__ __forceinline__ uint64_t sw128_desc(const void* smem, uint32_t lbo,
+                                               uint32_t sbo) {
+  return uint64_t((smem_u32(smem) & 0x3FFFF) >> 4) |
+         (uint64_t((lbo >> 4) & 0x3FFF) << 16) |
+         (uint64_t((sbo >> 4) & 0x3FFF) << 32) | (uint64_t(1) << 62);
 }
 
-// 16 bytes global -> shared, asynchronously; zero-filled when !valid.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr),
-               "l"(gmem), "r"(valid ? 16 : 0)
-               : "memory");
+// Byte offset of 16-byte chunk c (0..7) of row r in a swizzled block.
+__device__ __forceinline__ int sw128(int r, int c) {
+  return r * 128 + ((c ^ (r & 7)) << 4);
 }
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Ties registers an in-flight wgmma writes or reads to this point, so the
+// compiler neither reads them early nor reuses them before the wait.
+template <int N>
+__device__ __forceinline__ void hold(float* x) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(x[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void hold(uint32_t* x) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(x[i])::"memory");
+}
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
 }
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+// Waits until the barrier's phase of this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+// One TMA box of a 3-D tensor map into shared memory, completing on bar.
+__device__ __forceinline__ void tma_load3(void* dst, const CUtensorMap* map,
+                                          uint64_t* bar, int c0, int c1,
+                                          int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// 2^x on the MUFU alone (exp2f adds a rescale for subnormal results): a
+// weight below 2^-126 of the row's largest moves neither l nor o.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -223,216 +344,252 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-size_t tc_smem_bytes(int d, int dv) {
-  return (size_t(kRowsTc + 2 * kTileK) * (d + 8) +
-          size_t(2 * kTileK) * (dv + 8)) * sizeof(__nv_bfloat16);
+// Shared memory: Q [consumers][d blocks][64 rows][128 B], then kStages
+// stages of K [d blocks][tile][128 B] and V [dv blocks][tile][128 B], then
+// the stages' barriers; 1024 bytes of slack to align the swizzle atoms.
+size_t tc_smem_bytes(int d, int dv, int tile) {
+  const int db = (d + 63) / 64, vb = dv / 64;
+  return 1024 + size_t(kConsumers) * db * kWgRows * 128 +
+         kStages * (size_t(db) + vb) * tile * 128 + 4 * kStages * 8;
 }
 
-template <int DV, bool kGeneral>
-__global__ void __launch_bounds__(kThreads) flash_tc_kernel(const Params p) {
+// Keys a tile for (d, dv): 128 where S (64 x 128) and O (64 x dv) fit the
+// registers and the stages fit the shared memory, else 64 (the wrapper's
+// _tile_k mirrors this).
+int tc_tile_k(int d, int dv) {
+  return dv <= 128 && tc_smem_bytes(d, dv, 128) <= kSmemLimit ? 128 : 64;
+}
+
+template <int DV, int TK, bool kGeneral>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    flash_tc_kernel(const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const Params p) {
   using bf16 = __nv_bfloat16;
-  constexpr int kN8 = DV / 8;  // output n8 fragments a warp
-  constexpr int VS = DV + 8;   // V row stride in shared memory
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int d = p.d, QS = d + 8;  // Q and K row stride
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // [kRowsTc][QS]
-  bf16* sK = sQ + kRowsTc * QS;                  // [2][kTileK][QS]
-  bf16* sV = sK + 2 * kTileK * QS;               // [2][kTileK][VS]
+  constexpr int kS = TK / 2;    // S accumulators a thread
+  constexpr int kO = DV / 2;    // O accumulators a thread
+  constexpr int kVB = DV / 64;  // V column blocks
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int d = p.d, qb = (d + 63) / 64;
+  const int k_stage = qb * TK * 128, v_stage = kVB * TK * 128;
+  unsigned char* sQ = base;                                 // per consumer
+  unsigned char* sK = sQ + kConsumers * qb * kWgRows * 128;  // stages
+  unsigned char* sV = sK + kStages * k_stage;                // stages
+  uint64_t* full_k = reinterpret_cast<uint64_t*>(sV + kStages * v_stage);
+  uint64_t* full_v = full_k + kStages;
+  uint64_t* empty_k = full_v + kStages;
+  uint64_t* empty_v = empty_k + kStages;
 
   const int tile = gridDim.x - 1 - blockIdx.x;  // most keys first
   const int kvh = blockIdx.y, split = blockIdx.z;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
+  const int tid = threadIdx.x, wg = tid >> 7, wtid = tid & 127;
   const int row0 = tile * kRowsTc, total = p.qo_len * p.group;
-  const bf16* q = static_cast<const bf16*>(p.q);
-  const bf16* k = static_cast<const bf16*>(p.k) + kvh * p.k_sh;
-  const bf16* v = static_cast<const bf16*>(p.v) + kvh * p.v_sh;
-
-  const int qv = d / 8;  // 16-byte vectors a Q/K row
-  for (int i = tid; i < kRowsTc * qv; i += kThreads) {
-    const int r = i / qv, c = (i % qv) * 8, pr = row0 + r;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (pr < total) {
-      const int tok = pr / p.group, h = kvh * p.group + pr % p.group;
-      x = *reinterpret_cast<const uint4*>(q + tok * p.q_st + h * p.q_sh + c);
-    }
-    *reinterpret_cast<uint4*>(sQ + r * QS + c) = x;
-  }
-
+  // consumer warpgroups with real rows: each releases every stage
+  const int active = row0 + kWgRows < total ? 2 : 1;
   int t0, t1;
-  key_tiles(p, row0, kRowsTc, split, t0, t1);
-  auto load_kv = [&](int kt, int buf) {
-    bf16* dk = sK + buf * kTileK * QS;
-    bf16* dv_ = sV + buf * kTileK * VS;
-    const int key0 = kt * kTileK;
-    for (int i = tid; i < kTileK * qv; i += kThreads) {
-      const int r = i / qv, c = (i % qv) * 8, key = key0 + r;
-      const bool ok = key < p.kv_len;
-      cp_async16(dk + r * QS + c, k + (ok ? key : 0) * p.k_st + c, ok);
+  key_tiles<TK>(p, row0, kRowsTc, split, t0, t1);
+
+  if (tid == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&full_k[i], 1);
+      mbar_init(&full_v[i], 1);
+      mbar_init(&empty_k[i], 4 * active);  // one arrival a consumer warp
+      mbar_init(&empty_v[i], 4 * active);
     }
-    for (int i = tid; i < kTileK * (DV / 8); i += kThreads) {
-      const int r = i / (DV / 8), c = (i % (DV / 8)) * 8, key = key0 + r;
-      const bool ok = key < p.kv_len;
-      cp_async16(dv_ + r * VS + c, v + (ok ? key : 0) * p.v_st + c, ok);
-    }
-  };
-
-  const int tok_lo = row0 / p.group;
-  const int tok_hi = (min(row0 + kRowsTc, total) - 1) / p.group;
-  const Row ra = row_info(p, kvh, row0 + warp * 16 + g);
-  const Row rb = row_info(p, kvh, row0 + warp * 16 + g + 8);
-  const bool warp_active = row0 + warp * 16 < total;
-  const bool sigmoid = kGeneral && p.sigmoid;
-
-  float acc[kN8][4];
-#pragma unroll
-  for (int n = 0; n < kN8; ++n)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[n][c] = 0.f;
-  float m_a = -CUDART_INF_F, m_b = -CUDART_INF_F, l_a = 0.f, l_b = 0.f;
-
-  if (t0 < t1) {
-    load_kv(t0, 0);
-    cp_async_commit();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  for (int it = t0; it < t1; ++it) {
-    const int buf = (it - t0) & 1;
-    if (it + 1 < t1) {  // the next tile flies while this one is computed
-      load_kv(it + 1, buf ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (warp_active) {
-      const bf16* ks = sK + buf * kTileK * QS;
-      const bf16* vs = sV + buf * kTileK * VS;
-      float s[8][4];
+  __syncthreads();
+
+  if (wg == kConsumers) {
+    // ---- producer: one thread keeps the K/V ring full through TMA
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (wtid == 0) {
+      for (int it = t0; it < t1; ++it) {
+        const int i = it - t0, st = i % kStages;
+        const int ph = (i / kStages) & 1;
+        const int key0 = it * TK;
+        const int c1 = p.heads_inner ? kvh : key0;
+        const int c2 = p.heads_inner ? key0 : kvh;
+        mbar_wait(&empty_k[st], ph ^ 1);
+        mbar_expect_tx(&full_k[st], k_stage);
+        for (int cb = 0; cb < qb; ++cb)
+          tma_load3(sK + st * k_stage + cb * TK * 128, &tm_k, &full_k[st],
+                    cb * 64, c1, c2);
+        mbar_wait(&empty_v[st], ph ^ 1);
+        mbar_expect_tx(&full_v[st], v_stage);
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s[j][c] = 0.f;
-      const bf16* qa = sQ + (warp * 16 + g) * QS + 2 * t;
-      for (int kk = 0; kk < d; kk += 16) {
-        uint32_t a[4] = {ld32(qa + kk), ld32(qa + 8 * QS + kk),
-                         ld32(qa + kk + 8), ld32(qa + 8 * QS + kk + 8)};
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const bf16* kb = ks + (j * 8 + g) * QS + kk + 2 * t;
-          mma_bf16(s[j], a, ld32(kb), ld32(kb + 8));
-        }
+        for (int cb = 0; cb < kVB; ++cb)
+          tma_load3(sV + st * v_stage + cb * TK * 128, &tm_v, &full_v[st],
+                    cb * 64, c1, c2);
       }
-      // S[row][key]: s[j][0..1] row g, keys j*8 + 2t, +1; s[j][2..3] row g+8
-      const int key0 = it * kTileK + 2 * t;
-      if (tile_full(p, it, tok_lo, tok_hi)) {  // no key masked: no tests
+    }
+  } else {
+    // ---- consumers: 64 packed rows each
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    if (wg >= active) return;
+    const int lane = tid & 31, warp = wtid >> 5;
+    const int g = lane >> 2, t = lane & 3;
+    const int wrow0 = row0 + wg * kWgRows;  // this warpgroup's first row
+    const bf16* q = static_cast<const bf16*>(p.q);
+
+    // Q: zero past the rows and past d
+    unsigned char* sQw = sQ + wg * qb * kWgRows * 128;
+    for (int i = wtid; i < kWgRows * qb * 8; i += 128) {
+      const int r = i / (qb * 8), cb = (i / 8) % qb, c = i % 8;
+      const int pr = wrow0 + r, col = cb * 64 + c * 8;
+      uint4 x = make_uint4(0u, 0u, 0u, 0u);
+      if (pr < total && col < d) {
+        const int tok = pr / p.group, h = kvh * p.group + pr % p.group;
+        x = *reinterpret_cast<const uint4*>(q + tok * p.q_st + h * p.q_sh +
+                                            col);
+      }
+      *reinterpret_cast<uint4*>(sQw + cb * kWgRows * 128 + sw128(r, c)) = x;
+    }
+    fence_async_smem();  // Q is visible to this warpgroup's wgmma
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+
+    const int tok_lo = wrow0 / p.group;
+    const int tok_hi = (min(wrow0 + kWgRows, total) - 1) / p.group;
+    const Row ra = row_info(p, kvh, wrow0 + warp * 16 + g);
+    const Row rb = row_info(p, kvh, wrow0 + warp * 16 + g + 8);
+    const bool sigmoid = kGeneral && p.sigmoid;
+
+    float o[kO];
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
+    for (int i = 0; i < kO; ++i) o[i] = 0.f;
+    float m_a = -CUDART_INF_F, m_b = -CUDART_INF_F, l_a = 0.f, l_b = 0.f;
+
+    for (int it = t0; it < t1; ++it) {
+      const int i = it - t0, st = i % kStages;
+      const int ph = (i / kStages) & 1;
+      const unsigned char* ks = sK + st * k_stage;
+      const unsigned char* vs = sV + st * v_stage;
+      float s[kS];
+      mbar_wait(&full_k[st], ph);
+      wg_fence();
+      for (int kk = 0; kk < d / 16; ++kk) {
+        const int off = (kk >> 2) * kWgRows * 128 + (kk & 3) * 32;
+        const int koff = (kk >> 2) * TK * 128 + (kk & 3) * 32;
+        wgmma_ss<TK>(s, sw128_desc(sQw + off, 16, 1024),
+                     sw128_desc(ks + koff, 16, 1024), kk > 0);
+      }
+      wg_commit();
+      wg_wait<0>();
+      hold<kS>(s);
+      if (lane == 0) mbar_arrive(&empty_k[st]);
+      // s[4j + c]: row g (c < 2) or g + 8, key 8j + 2t + (c & 1)
+      const int key0 = it * TK + 2 * t;
+      // The variant's transform, its branch taken once a tile. The default
+      // leaves the logits raw: its scale (> 0) joins the exponent below.
+      if (kGeneral) {
+        if (p.sigmoid)
+          transform_tile<kSigmoid, kS>(p, s, ra, rb, key0);
+        else if (p.soft_cap > 0.f)
+          transform_tile<kCapped, kS>(p, s, ra, rb, key0);
+        else
+          transform_tile<kBias, kS>(p, s, ra, rb, key0);
+      }
+      if (!tile_full<TK>(p, it, tok_lo, tok_hi)) {  // an edge: test each key
 #pragma unroll
-          for (int c = 0; c < 4; ++c)
-            s[j][c] = transform<kGeneral>(p, c < 2 ? ra : rb,
-                                          key0 + j * 8 + (c & 1), s[j][c]);
-      } else {
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const Row& r = c < 2 ? ra : rb;
-            const int kv = key0 + j * 8 + (c & 1);
-            s[j][c] = keep(p, r, kv) ? transform<kGeneral>(p, r, kv, s[j][c])
-                                     : (sigmoid ? 0.f : -CUDART_INF_F);
-          }
+        for (int i = 0; i < kS; ++i)
+          if (!keep(p, (i & 2) ? rb : ra, key0 + (i >> 2) * 8 + (i & 1)))
+            s[i] = sigmoid ? 0.f : -CUDART_INF_F;
       }
       if (!sigmoid) {
-        float mx_a = m_a, mx_b = m_b;
+        const float c = kGeneral ? 1.f : p.scale_log2;  // raw logit -> base 2
+        float mx_a = -CUDART_INF_F, mx_b = -CUDART_INF_F;
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          mx_a = fmaxf(mx_a, fmaxf(s[j][0], s[j][1]));
-          mx_b = fmaxf(mx_b, fmaxf(s[j][2], s[j][3]));
+        for (int i = 0; i < kS; i += 4) {
+          mx_a = fmaxf(mx_a, fmaxf(s[i], s[i + 1]));
+          mx_b = fmaxf(mx_b, fmaxf(s[i + 2], s[i + 3]));
         }
-        mx_a = quad_max(mx_a);
-        mx_b = quad_max(mx_b);
+        mx_a = fmaxf(m_a, quad_max(mx_a) * c);
+        mx_b = fmaxf(m_b, quad_max(mx_b) * c);
         const float sa = (mx_a == -CUDART_INF_F) ? 0.f : mx_a;
         const float sb = (mx_b == -CUDART_INF_F) ? 0.f : mx_b;
-        const float alpha_a = (m_a == -CUDART_INF_F) ? 0.f : exp2f(m_a - sa);
-        const float alpha_b = (m_b == -CUDART_INF_F) ? 0.f : exp2f(m_b - sb);
+        const float alpha_a = (m_a == -CUDART_INF_F) ? 0.f : exp2_ftz(m_a - sa);
+        const float alpha_b = (m_b == -CUDART_INF_F) ? 0.f : exp2_ftz(m_b - sb);
         m_a = mx_a;
         m_b = mx_b;
         float sum_a = 0.f, sum_b = 0.f;
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {  // exp2(-inf) = 0 for masked keys
-          s[j][0] = exp2f(s[j][0] - sa);
-          s[j][1] = exp2f(s[j][1] - sa);
-          s[j][2] = exp2f(s[j][2] - sb);
-          s[j][3] = exp2f(s[j][3] - sb);
-          sum_a += s[j][0] + s[j][1];
-          sum_b += s[j][2] + s[j][3];
+        for (int i = 0; i < kS; i += 4) {  // exp2(-inf) = 0 for masked keys
+          s[i] = exp2_ftz(fmaf(s[i], c, -sa));
+          s[i + 1] = exp2_ftz(fmaf(s[i + 1], c, -sa));
+          s[i + 2] = exp2_ftz(fmaf(s[i + 2], c, -sb));
+          s[i + 3] = exp2_ftz(fmaf(s[i + 3], c, -sb));
+          sum_a += s[i] + s[i + 1];
+          sum_b += s[i + 2] + s[i + 3];
         }
         // this thread's share of l; the four of a row add up at the end
         l_a = l_a * alpha_a + sum_a;
         l_b = l_b * alpha_b + sum_b;
 #pragma unroll
-        for (int n = 0; n < kN8; ++n) {
-          acc[n][0] *= alpha_a;
-          acc[n][1] *= alpha_a;
-          acc[n][2] *= alpha_b;
-          acc[n][3] *= alpha_b;
+        for (int i = 0; i < kO; i += 4) {
+          o[i] *= alpha_a;
+          o[i + 1] *= alpha_a;
+          o[i + 2] *= alpha_b;
+          o[i + 3] *= alpha_b;
         }
       }
-      // P.V: the S fragments of keys 16kj..16kj+15 are P's A fragment
-      const int mi = lane >> 3;
-      const bf16* vrow = vs + ((mi & 1) * 8 + (lane & 7)) * VS + (mi >> 1) * 8;
+      // P.V: S's accumulators of keys 16kk..16kk+15 are P's A fragment
+      uint32_t pa[TK / 16][4];
 #pragma unroll
-      for (int kj = 0; kj < 4; ++kj) {
-        const uint32_t a[4] = {pack_bf16(s[2 * kj][0], s[2 * kj][1]),
-                               pack_bf16(s[2 * kj][2], s[2 * kj][3]),
-                               pack_bf16(s[2 * kj + 1][0], s[2 * kj + 1][1]),
-                               pack_bf16(s[2 * kj + 1][2], s[2 * kj + 1][3])};
-#pragma unroll
-        for (int n = 0; n < DV / 16; ++n) {
-          uint32_t b[4];
-          ldmatrix_x4_trans(b, vrow + kj * 16 * VS + n * 16);
-          mma_bf16(acc[2 * n], a, b[0], b[1]);
-          mma_bf16(acc[2 * n + 1], a, b[2], b[3]);
-        }
+      for (int kk = 0; kk < TK / 16; ++kk) {
+        pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+        pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+        pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+        pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
       }
+      mbar_wait(&full_v[st], ph);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < TK / 16; ++kk)
+        wgmma_rs<DV>(o, pa[kk], sw128_desc(vs + kk * 16 * 128, TK * 128, 1024),
+                     1);
+      wg_commit();
+      wg_wait<0>();
+      hold<kO>(o);
+      hold<TK / 4>(&pa[0][0]);
+      if (lane == 0) mbar_arrive(&empty_v[st]);
     }
-    __syncthreads();  // this buffer is refilled two tiles on
-  }
 
-  l_a = quad_sum(l_a);
-  l_b = quad_sum(l_b);
-  if (!warp_active) return;
+    l_a = quad_sum(l_a);
+    l_b = quad_sum(l_b);
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const Row& r = half ? rb : ra;
-    if (r.tok < 0) continue;
-    float lse;
-    const float f =
-        finish_row(p, r, split, half ? m_b : m_a, half ? l_b : l_a, &lse);
-    const size_t orow = out_row(p, r, split);
-    if (p.splits == 1) {
-      bf16* o = static_cast<bf16*>(p.o) + orow * DV + 2 * t;
+    for (int half = 0; half < 2; ++half) {
+      const Row& r = half ? rb : ra;
+      if (r.tok < 0) continue;
+      float lse;
+      const float f =
+          finish_row(p, r, split, half ? m_b : m_a, half ? l_b : l_a, &lse);
+      const size_t orow = out_row(p, r, split);
+      if (p.splits == 1) {
+        bf16* out = static_cast<bf16*>(p.o) + orow * DV + 2 * t;
 #pragma unroll
-      for (int n = 0; n < kN8; ++n)
-        *reinterpret_cast<__nv_bfloat162*>(o + n * 8) = __floats2bfloat162_rn(
-            acc[n][2 * half] * f, acc[n][2 * half + 1] * f);
-    } else {
-      float* o = static_cast<float*>(p.o) + orow * DV + 2 * t;
+        for (int j = 0; j < DV / 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(out + j * 8) =
+              __floats2bfloat162_rn(o[4 * j + 2 * half] * f,
+                                    o[4 * j + 2 * half + 1] * f);
+      } else {
+        float* out = static_cast<float*>(p.o) + orow * DV + 2 * t;
 #pragma unroll
-      for (int n = 0; n < kN8; ++n)
-        *reinterpret_cast<float2*>(o + n * 8) =
-            make_float2(acc[n][2 * half] * f, acc[n][2 * half + 1] * f);
+        for (int j = 0; j < DV / 8; ++j)
+          *reinterpret_cast<float2*>(out + j * 8) = make_float2(
+              o[4 * j + 2 * half] * f, o[4 * j + 2 * half + 1] * f);
+      }
+      if (t == 0) p.lse[orow] = lse;
     }
-    if (t == 0) p.lse[orow] = lse;
   }
 }
 
 // ------------------------------------------------------------- CUDA cores
 
 size_t f32_smem_bytes(int d, int dv) {
-  return (size_t(kRowsF32) * d + size_t(kTileK) * (d + 1) +
-          size_t(kTileK) * dv + size_t(kRowsF32) * kTileK + 3 * kRowsF32) *
+  return (size_t(kRowsF32) * d + size_t(kTileF32) * (d + 1) +
+          size_t(kTileF32) * dv + size_t(kRowsF32) * kTileF32 + 3 * kRowsF32) *
          sizeof(float);
 }
 
@@ -452,6 +609,7 @@ __device__ __forceinline__ float warp_sum(float v) {
 template <bool kGeneral>
 __global__ void __launch_bounds__(kThreads) flash_f32_kernel(const Params p) {
   constexpr int ROWS = kRowsF32, RPT = ROWS / 2, RPW = ROWS / 4;
+  constexpr int kTileK = kTileF32;
   extern __shared__ float smem_f[];
   const int d = p.d, dv = p.dv;
   float* q_s = smem_f;                   // [ROWS][d]
@@ -498,7 +656,7 @@ __global__ void __launch_bounds__(kThreads) flash_f32_kernel(const Params p) {
     for (int r = 0; r < ROWS; ++r) acc[ci][r] = 0.f;
 
   int t0, t1;
-  key_tiles(p, row0, ROWS, split, t0, t1);
+  key_tiles<kTileK>(p, row0, ROWS, split, t0, t1);
   for (int it = t0; it < t1; ++it) {
     __syncthreads();  // the previous tile's K, V and P are consumed
     const int key0 = it * kTileK;
@@ -533,8 +691,10 @@ __global__ void __launch_bounds__(kThreads) flash_f32_kernel(const Params p) {
 #pragma unroll
     for (int r = 0; r < RPT; ++r)
       p_s[(rg * RPT + r) * kTileK + jq] =
-          keep(p, rq[r], kv) ? transform<kGeneral>(p, rq[r], kv, s[r])
-                             : (sigmoid ? 0.f : -CUDART_INF_F);
+          keep(p, rq[r], kv)
+              ? transform<kGeneral>(
+                    p, rq[r].slope * float(kv - rq[r].q_pos), s[r])
+              : (sigmoid ? 0.f : -CUDART_INF_F);
     __syncthreads();
 
 #pragma unroll
@@ -606,27 +766,142 @@ __global__ void __launch_bounds__(kThreads) flash_f32_kernel(const Params p) {
   }
 }
 
+// --------------------------------------------------------------- merge
+
+// Merges the S split states of one (token, head) a CTA: o [qo_len, S, hq,
+// dv] f32 with natural-log lse [qo_len, S, hq] (-inf for a split with no
+// key, the identity) into o_out [qo_len, hq, dv] and lse_out; the sigmoid's
+// partial sums simply add (lse 0). Split 0's state already holds the sink.
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+
+template <typename OutT>
+__global__ void __launch_bounds__(kThreads)
+    merge_splits_kernel(const float* o, const float* lse, OutT* o_out,
+                        float* lse_out, int splits, int hq, int dv,
+                        int sigmoid) {
+  const int row = blockIdx.x, tok = row / hq, h = row % hq;
+  const float* ls = lse + size_t(tok) * splits * hq + h;  // stride hq
+  float m = -CUDART_INF_F;
+  for (int i = 0; i < splits; ++i) m = fmaxf(m, ls[i * hq]);
+  const float m_safe = (m == -CUDART_INF_F) ? 0.f : m;
+  float den = 0.f;
+  for (int i = 0; i < splits; ++i)
+    den += ls[i * hq] == -CUDART_INF_F ? 0.f : expf(ls[i * hq] - m_safe);
+  const float inv = sigmoid ? 1.f : (den > 0.f ? 1.f / den : 0.f);
+  const float* os = o + (size_t(tok) * splits * hq + h) * dv;
+  for (int c = threadIdx.x; c < dv; c += kThreads) {
+    float acc = 0.f;
+    for (int i = 0; i < splits; ++i) {
+      const float w = sigmoid ? 1.f
+                              : (ls[i * hq] == -CUDART_INF_F
+                                     ? 0.f
+                                     : expf(ls[i * hq] - m_safe));
+      acc += w * os[size_t(i) * hq * dv + c];
+    }
+    store(o_out + size_t(row) * dv + c, acc * inv);
+  }
+  if (threadIdx.x == 0)
+    lse_out[row] = sigmoid ? 0.f
+                           : (den > 0.f ? m_safe + logf(den) : -CUDART_INF_F);
+}
+
 // ---------------------------------------------------------------- launch
 
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, const Params& p, int rows, size_t bytes,
-                   cudaStream_t s) {
+template <bool G>
+cudaError_t launch_f32(const Params& p, cudaStream_t s) {
+  const size_t bytes = f32_smem_bytes(p.d, p.dv);
+  auto kernel = flash_f32_kernel<G>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
   if (err != cudaSuccess) return err;
-  dim3 grid((p.qo_len * p.group + rows - 1) / rows, p.hkv, p.splits);
+  dim3 grid((p.qo_len * p.group + kRowsF32 - 1) / kRowsF32, p.hkv, p.splits);
   kernel<<<grid, kThreads, bytes, s>>>(p);
+  return cudaGetLastError();
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime (no -lcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// A 3-D bf16 map over [tokens, heads, width] with the caller's strides
+// (elements), boxes of 64 columns x tile tokens x 1 head, 128-byte swizzle;
+// reads past the tokens or the width fill zeros. Its dims go (width, head,
+// token) when heads lie closer than tokens (heads_inner), else (width,
+// token, head).
+bool tensor_map(CUtensorMap* map, const void* ptr, int width, int tokens,
+                int heads, long long st, long long sh, int tile,
+                int* heads_inner) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  cuuint64_t tok_n = tokens > 0 ? tokens : 1, tok_b = cuuint64_t(st) * 2;
+  cuuint64_t head_b = cuuint64_t(sh) * 2;
+  if (heads == 1) head_b = tok_b * tok_n;  // any valid stride
+  *heads_inner = head_b < tok_b;
+  const cuuint64_t dims[3] = {cuuint64_t(width), *heads_inner ? heads : tok_n,
+                              *heads_inner ? tok_n : cuuint64_t(heads)};
+  const cuuint64_t strides[2] = {*heads_inner ? head_b : tok_b,
+                                 *heads_inner ? tok_b : head_b};
+  const cuuint32_t box[3] = {64, *heads_inner ? 1u : cuuint32_t(tile),
+                             *heads_inner ? cuuint32_t(tile) : 1u};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DV, int TK, bool G>
+cudaError_t launch_tc_at(Params p, cudaStream_t s) {
+  CUtensorMap tm_k, tm_v;
+  int k_inner, v_inner;
+  if (!tensor_map(&tm_k, p.k, p.d, p.kv_len, p.hkv, p.k_st, p.k_sh, TK,
+                  &k_inner) ||
+      !tensor_map(&tm_v, p.v, DV, p.kv_len, p.hkv, p.v_st, p.v_sh, TK,
+                  &v_inner) ||
+      k_inner != v_inner)
+    return cudaErrorInvalidValue;
+  p.heads_inner = k_inner;
+  const size_t bytes = tc_smem_bytes(p.d, DV, TK);
+  auto kernel = flash_tc_kernel<DV, TK, G>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+  if (err != cudaSuccess) return err;
+  dim3 grid((p.qo_len * p.group + kRowsTc - 1) / kRowsTc, p.hkv, p.splits);
+  kernel<<<grid, kTcThreads, bytes, s>>>(tm_k, tm_v, p);
   return cudaGetLastError();
 }
 
 template <bool G>
 cudaError_t launch_tc(const Params& p, cudaStream_t s) {
-  const size_t bytes = tc_smem_bytes(p.d, p.dv);
+  const bool wide = tc_tile_k(p.d, p.dv) == 128;
   switch (p.dv) {
-    case 64: return launch(flash_tc_kernel<64, G>, p, kRowsTc, bytes, s);
-    case 128: return launch(flash_tc_kernel<128, G>, p, kRowsTc, bytes, s);
-    case 192: return launch(flash_tc_kernel<192, G>, p, kRowsTc, bytes, s);
-    case 256: return launch(flash_tc_kernel<256, G>, p, kRowsTc, bytes, s);
+    case 64: return wide ? launch_tc_at<64, 128, G>(p, s)
+                         : launch_tc_at<64, 64, G>(p, s);
+    case 128: return wide ? launch_tc_at<128, 128, G>(p, s)
+                          : launch_tc_at<128, 64, G>(p, s);
+    case 192: return launch_tc_at<192, 64, G>(p, s);
+    case 256: return launch_tc_at<256, 64, G>(p, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -636,17 +911,21 @@ cudaError_t launch_tc(const Params& p, cudaStream_t s) {
 extern "C" int fi_flash_attention(
     const void* q, const void* k, const void* v, const uint8_t* mask,
     const float* alibi, const float* sink, void* o, float* lse,
-    long long q_st, long long q_sh, long long k_st, long long k_sh,
-    long long v_st, long long v_sh, int qo_len, int kv_len, int hq, int hkv,
-    int d, int dv, int causal, int window_left, int splits, float sm_scale,
-    float soft_cap, int sigmoid, float sig_scale, float sig_bias, int dtype,
-    void* stream) {
+    float* o_part, float* lse_part, long long q_st, long long q_sh,
+    long long k_st, long long k_sh, long long v_st, long long v_sh,
+    int qo_len, int kv_len, int hq, int hkv, int d, int dv, int causal,
+    int window_left, int splits, float sm_scale, float soft_cap, int sigmoid,
+    float sig_scale, float sig_bias, int dtype, void* stream) {
   if (qo_len <= 0 || kv_len < 0 || hkv <= 0 || hq % hkv != 0 || d % 16 != 0 ||
-      d <= 0 || d > 256 || dv % 16 != 0 || dv <= 0 || dv > 256 || splits < 1)
+      d <= 0 || d > 256 || dv % 16 != 0 || dv <= 0 || dv > 256 || splits < 1 ||
+      (splits > 1 && (o_part == nullptr || lse_part == nullptr)))
     return int(cudaErrorInvalidValue);
   Params p;
   p.q = q; p.k = k; p.v = v; p.mask = mask; p.alibi = alibi; p.sink = sink;
-  p.o = o; p.lse = lse;
+  // more than one split: the kernel writes f32 partial states, the merge
+  // kernel the outputs
+  p.o = splits > 1 ? static_cast<void*>(o_part) : o;
+  p.lse = splits > 1 ? lse_part : lse;
   p.q_st = q_st; p.q_sh = q_sh; p.k_st = k_st; p.k_sh = k_sh;
   p.v_st = v_st; p.v_sh = v_sh;
   p.qo_len = qo_len; p.kv_len = kv_len; p.hq = hq; p.hkv = hkv;
@@ -656,17 +935,28 @@ extern "C" int fi_flash_attention(
   p.sm_scale = sm_scale;
   p.scale_log2 = float(double(sm_scale) * 1.4426950408889634);
   p.soft_cap = soft_cap; p.sig_scale = sig_scale; p.sig_bias = sig_bias;
-  const bool general = alibi != nullptr || soft_cap > 0.f || sigmoid;
+  p.heads_inner = 0;
+  // the default path folds its scale into the exponent after the row max,
+  // which needs the scale positive
+  const bool general =
+      alibi != nullptr || soft_cap > 0.f || sigmoid || !(sm_scale > 0.f);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == kBF16) {
     err = general ? launch_tc<true>(p, s) : launch_tc<false>(p, s);
   } else if (dtype == kF32) {
-    const size_t bytes = f32_smem_bytes(d, dv);
-    err = general ? launch(flash_f32_kernel<true>, p, kRowsF32, bytes, s)
-                  : launch(flash_f32_kernel<false>, p, kRowsF32, bytes, s);
+    err = general ? launch_f32<true>(p, s) : launch_f32<false>(p, s);
   } else {
     err = cudaErrorInvalidValue;
   }
-  return int(err);
+  if (err != cudaSuccess || splits == 1) return int(err);
+  if (dtype == kBF16)
+    merge_splits_kernel<<<qo_len * hq, kThreads, 0, s>>>(
+        o_part, lse_part, static_cast<__nv_bfloat16*>(o), lse, splits, hq, dv,
+        sigmoid);
+  else
+    merge_splits_kernel<<<qo_len * hq, kThreads, 0, s>>>(
+        o_part, lse_part, static_cast<float*>(o), lse, splits, hq, dv,
+        sigmoid);
+  return int(cudaGetLastError());
 }

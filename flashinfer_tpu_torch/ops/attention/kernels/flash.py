@@ -30,7 +30,6 @@ from typing import Any, Optional, Tuple
 import torch
 
 from flashinfer_tpu_torch import jit
-from flashinfer_tpu_torch.ops.attention.state import merge_states
 from flashinfer_tpu_torch.ops.attention.variants import (
     VARIANT_JIT,
     AttentionVariant,
@@ -43,13 +42,27 @@ __all__ = ["flash_attention_dense", "flash_attention_plain",
            "flash_num_splits"]
 
 _NEG_INF = float("-inf")
-# the kernel's tiles (csrc/flash_attention.cu): packed q rows a CTA, keys a
-# tile; bf16 runs on the tensor cores, f32 on the CUDA cores
-_ROWS = {torch.bfloat16: 64, torch.float32: 16}
-_TILE_K = 64
+# the kernel's tiles (csrc/flash_attention.cu): packed q rows a CTA; bf16
+# runs on wgmma (two warpgroups of 64 rows, one CTA an SM), f32 on the CUDA
+# cores (16 rows, 64-key tiles, two CTAs an SM)
+_ROWS = {torch.bfloat16: 128, torch.float32: 16}
+_CTAS_PER_SM = {torch.bfloat16: 1, torch.float32: 2}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _BF16_DV = (64, 128, 192, 256)
 _MIN_TILES_PER_SPLIT = 4
+_SMEM_LIMIT = 232448  # bytes of shared memory a CTA may use (H100)
+
+
+def _tile_k(dtype: torch.dtype, d: int, dv: int) -> int:
+    """Keys a tile (``tc_tile_k`` in the kernel): 128 for bf16 where S and
+    O fit the registers (dv <= 128) and Q, two K/V stages, their barriers
+    and the alignment slack fit the shared memory, else 64."""
+    if dtype != torch.bfloat16:
+        return 64
+    blocks = cdiv(d, 64)
+    smem = (1024 + 2 * blocks * 64 * 128
+            + 2 * (blocks + dv // 64) * 128 * 128 + 64)
+    return 128 if dv <= 128 and smem <= _SMEM_LIMIT else 64
 
 
 @functools.cache
@@ -163,6 +176,7 @@ def _lib():
         P, I, F, L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                       ctypes.c_longlong)
         fn.argtypes = [P, P, P, P, P, P, P, P,  # q k v mask alibi sink o lse
+                       P, P,  # split partials: o, lse
                        L, L, L, L, L, L,  # q, k, v strides (token, head)
                        I, I, I, I, I, I,  # qo kv hq hkv d dv
                        I, I, I,  # causal window splits
@@ -173,24 +187,28 @@ def _lib():
 
 
 def flash_num_splits(qo_len: int, kv_len: int, num_qo_heads: int,
-                     num_kv_heads: int, dtype: torch.dtype,
-                     num_sms: int) -> int:
+                     num_kv_heads: int, dtype: torch.dtype, num_sms: int,
+                     head_dim: int = 128,
+                     head_dim_vo: Optional[int] = None) -> int:
     """How many CTAs share one (q tile, kv head)'s key range: 1 once the
-    tiles fill the card twice over, else enough to reach ~2 CTAs an SM,
-    with at least 4 key tiles a split."""
+    tiles cover half the SMs, else as many as fill the card's resident CTA
+    slots in one wave (one bf16 CTA an SM, two f32), with at least 4 key
+    tiles a split."""
     ctas = cdiv(qo_len * (num_qo_heads // num_kv_heads),
                 _ROWS[dtype]) * num_kv_heads
     if 2 * ctas >= num_sms:
         return 1
-    return max(1, min(cdiv(2 * num_sms, ctas),
-                      cdiv(kv_len, _TILE_K) // _MIN_TILES_PER_SPLIT))
+    tile = _tile_k(dtype, head_dim, head_dim_vo or head_dim)
+    return max(1, min(_CTAS_PER_SM[dtype] * num_sms // ctas,
+                      cdiv(kv_len, tile) // _MIN_TILES_PER_SPLIT))
 
 
 def _kernel_ready(t: torch.Tensor) -> torch.Tensor:
-    """t with a contiguous last dim, 16-byte aligned rows and base."""
+    """t with a contiguous last dim, 16-byte aligned rows and base, and no
+    broadcast (zero) stride: what a TMA tensor map takes."""
     vec = 16 // t.element_size()
     if (t.stride(-1) != 1 or t.data_ptr() % 16
-            or any(s % vec for s in t.stride()[:-1])):
+            or any(s % vec or s == 0 for s in t.stride()[:-1])):
         t = t.contiguous()
     return t
 
@@ -262,13 +280,13 @@ def flash_attention_dense(
                 torch.empty(qo_len, hq, device=dev))
     q, k, v = _kernel_ready(q), _kernel_ready(k), _kernel_ready(v)
     splits = flash_num_splits(qo_len, kv_len, hq, hkv, dt,
-                              _num_sms(dev.index))
-    if splits == 1:
-        o = torch.empty(out_shape, dtype=dt, device=dev)
-        lse = torch.empty(qo_len, hq, device=dev)
-    else:
-        o = torch.empty(qo_len, splits, hq, dv, device=dev)
-        lse = torch.empty(qo_len, splits, hq, device=dev)
+                              _num_sms(dev.index), d, dv)
+    o = torch.empty(out_shape, dtype=dt, device=dev)
+    lse = torch.empty(qo_len, hq, device=dev)
+    o_part = lse_part = None
+    if splits > 1:  # scratch for the split states the kernel merges
+        o_part = torch.empty(qo_len, splits, hq, dv, device=dev)
+        lse_part = torch.empty(qo_len, splits, hq, device=dev)
     sink_k = None
     if sink is not None and softmax:  # the sigmoid has no sink
         sink_k = sink.to(dev, torch.float32).reshape(hq).contiguous()
@@ -279,7 +297,7 @@ def flash_attention_dense(
 
     err = _lib()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(mask), ptr(alibi),
-        ptr(sink_k), o.data_ptr(), lse.data_ptr(),
+        ptr(sink_k), o.data_ptr(), lse.data_ptr(), ptr(o_part), ptr(lse_part),
         q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
         v.stride(1), qo_len, kv_len, hq, hkv, d, dv, int(causal),
         int(window_left), splits, float(sm_scale),
@@ -288,12 +306,7 @@ def flash_attention_dense(
         torch.cuda.current_stream(dev).cuda_stream)
     jit.check(err, "flash attention kernel")
     flash_attention_dense.launches += 1
-    if splits == 1:
-        return o, lse
-    if not softmax:  # sigmoid partials simply add
-        return o.sum(dim=1).to(dt), torch.zeros(qo_len, hq, device=dev)
-    o, lse = merge_states(o, lse)  # split 0's state holds the sink
-    return o.to(dt), lse
+    return o, lse
 
 
 flash_attention_dense.launches = 0

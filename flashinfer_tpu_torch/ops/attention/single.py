@@ -34,6 +34,7 @@ from flashinfer_tpu_torch.utils import (
     PosEncodingMode,
     TensorLayout,
     check_kv_layout,
+    resolve_device,
 )
 
 __all__ = [
@@ -43,9 +44,10 @@ __all__ = [
 ]
 
 
-def default_alibi_slopes(num_heads: int, device="cpu") -> torch.Tensor:
+def default_alibi_slopes(num_heads: int, device="cuda") -> torch.Tensor:
     """The standard ALiBi slope schedule (Press et al.), f32 [num_heads],
     made on ``device`` (no host copy, so a CUDA graph can hold it)."""
+    device = resolve_device(device)
     closest = 2 ** math.floor(math.log2(num_heads))
     base = torch.arange(1, closest + 1, dtype=torch.float32, device=device)
     slopes = 2.0 ** (-8.0 * base / closest)

@@ -16,6 +16,8 @@ GEMM outputs to one bf16 step (2^-7 relative) or 1e-3 relative in f32,
 plus 1e-3 of the output's rms (f32 sums in other orders); fused MoE to
 2e-2 of its largest output (bf16 intermediates on both sides)."""
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -318,11 +320,18 @@ def test_tiny_engine_on_the_card_matches_cpu(dev, kv_dtype, layout):
     assert outs[0] == outs[1]
 
 
-# name: (qo_len, kv_len, causal, window_left)
+# name: (qo_len, kv_len, causal, window_left); with 8 q heads on 2 kv heads
+# a bf16 CTA takes 128 packed rows (32 tokens) and keys come in tiles of
+# 128 (64 for dv > 128 or d 256)
 FLASH_SHAPES = {"prefill": (70, 70, True, -1), "chunk": (37, 150, True, -1),
                 "window": (45, 200, True, 30), "full": (20, 90, False, -1),
                 # causal, more queries than keys: the first rows see no key
-                "qo_gt_kv": (90, 40, True, -1)}
+                "qo_gt_kv": (90, 40, True, -1),
+                # fewer keys than one tile; 80 packed rows
+                "short": (20, 50, True, -1),
+                # keys not a multiple of the tile, more tiles than K/V
+                # stages (the ring wraps), 1200 packed rows
+                "long": (300, 700, True, -1)}
 FLASH_VARIANTS = ["default", "soft_cap", "alibi", "sink", "sigmoid", "mask",
                   "hnd"]
 
@@ -351,14 +360,22 @@ def _flash_case(dev, dtype, shape, variant, d, dv, hq=8, hkv=2, seed=0):
     elif variant == "sink":
         kw["sink"] = torch.randn(hq, device=dev, generator=gen) * 3
     elif variant == "sigmoid":
-        kw["variant"] = FlashSigmoid(0.5, -1.0)
+        # prefill rows over hundreds of keys take sigmoid attention's bias
+        # -log(n), which keeps a row's weights summing to ~1: the bf16 o
+        # limit is set for unit-size P.V sums (with bias -1 over 700 keys
+        # both the mma.sync and the wgmma kernels leave it at one element)
+        long_rows = qo > 1 and kv > 256
+        kw["variant"] = (FlashSigmoid(1.0, -math.log(kv)) if long_rows
+                         else FlashSigmoid(0.5, -1.0))
     elif variant == "mask":
         mask = torch.rand(qo, kv, device=dev, generator=gen) < 0.5
-        mask[1] = False  # a row that sees no key
+        if qo > 1:
+            mask[1] = False  # a row that sees no key
         kw["custom_mask"] = mask
-    elif variant == "hnd":  # a transposed HND view, read through strides
-        k = k.transpose(0, 1).contiguous().transpose(0, 1)
-        v = v.transpose(0, 1).contiguous().transpose(0, 1)
+    elif variant == "hnd":  # transposed HND views, read through strides:
+        # K and V heads-major, and q too (its heads not contiguous)
+        q, k, v = (x.transpose(0, 1).contiguous().transpose(0, 1)
+                   for x in (q, k, v))
     return q, k, v, kw
 
 
@@ -375,7 +392,8 @@ def _check_flash(o, lse, ref_o, ref_lse, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d,dv", [(64, 64), (128, 128), (192, 128),
-                                  (256, 256)])
+                                  (256, 256), (128, 64), (128, 192),
+                                  (128, 256)])
 @pytest.mark.parametrize("shape", list(FLASH_SHAPES))
 @pytest.mark.parametrize("variant", FLASH_VARIANTS)
 def test_flash_kernel_matches_plain(dev, dtype, d, dv, shape, variant):
@@ -394,16 +412,19 @@ def test_flash_kernel_matches_plain(dev, dtype, d, dv, shape, variant):
     _check_flash(o, lse, ref_o, ref_lse, dtype)
     if variant == "mask":
         assert torch.isneginf(lse[1]).all() and not o[1].any()
+    if shape == "qo_gt_kv" and variant not in ("sink", "sigmoid"):
+        qo, kv = FLASH_SHAPES[shape][:2]  # queries before the first key
+        assert torch.isneginf(lse[:qo - kv]).all() and not o[:qo - kv].any()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("kv_len", [100, 3000, 20000])
-@pytest.mark.parametrize("variant", ["default", "sink", "sigmoid", "alibi"])
+@pytest.mark.parametrize("variant", FLASH_VARIANTS)
 @pytest.mark.parametrize("window", [-1, 1000])
 def test_flash_kernel_split_kv(dev, dtype, kv_len, variant, window):
     """Decode-like shapes: one query, the key range split across CTAs (and
-    merged by the wrapper) from 3000 keys on, one pass at 100; with a
-    sliding window the split covers only the window's tiles."""
+    merged by the kernel's merge launch) from 3000 keys on, one pass at
+    100; with a sliding window the split covers only the window's tiles."""
     from flashinfer_tpu_torch.ops.attention.kernels.flash import (
         flash_attention_dense,
         flash_attention_plain,
@@ -419,6 +440,45 @@ def test_flash_kernel_split_kv(dev, dtype, kv_len, variant, window):
     ref_o, ref_lse = flash_attention_plain(q, k, v, **kw)
     torch.cuda.synchronize()
     _check_flash(o, lse, ref_o, ref_lse, dtype)
+
+
+@pytest.mark.parametrize("variant", ["default", "sink", "sigmoid"])
+def test_flash_split_decode_in_a_cuda_graph(dev, variant):
+    """A split decode captured in a CUDA graph and replayed on new inputs
+    matches its plain version; the call allocates its outputs and the split
+    scratch and nothing else (the merge runs in the kernel's second
+    launch, with no PyTorch ops)."""
+    from flashinfer_tpu_torch.ops.attention.kernels.flash import (
+        flash_attention_dense,
+        flash_attention_plain,
+        flash_num_splits,
+    )
+
+    q, k, v, kw = _flash_case(dev, torch.bfloat16, (1, 20000, False, -1),
+                              variant, 128, 128, hq=32, hkv=8)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits = flash_num_splits(1, 20000, 32, 8, torch.bfloat16, sms)
+    assert splits > 1
+    flash_attention_dense(q, k, v, **kw)  # builds and loads the library
+    torch.cuda.synchronize()
+    block = 512  # the caching allocator's rounding
+    want_bytes = sum(-(-n // block) * block for n in (
+        32 * 128 * 2, 32 * 4, splits * 32 * 128 * 4, splits * 32 * 4))
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    out = flash_attention_dense(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated(dev) - base <= want_bytes
+    del out
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        o, lse = flash_attention_dense(q, k, v, **kw)
+    q.copy_(torch.randn_like(q))
+    k.copy_(torch.randn_like(k))
+    g.replay()
+    ref_o, ref_lse = flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    _check_flash(o, lse, ref_o, ref_lse, torch.bfloat16)
 
 
 def test_flash_kernel_refuses_what_it_cannot_run(dev):

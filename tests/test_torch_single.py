@@ -77,6 +77,10 @@ FLASH_CASES = {
     "bf16_window_sink": (16, 48, 4, 1, 32, 32, "bf16", True, 5),
     # a variant's sink_logits hook: the oracle's; both kernels ignore it
     "sink_hook": (12, 40, 4, 2, 32, 32, "f32", True, -1),
+    # DeepSeek-V2-Lite's MHA shape: d 192 (nope 128 + rope 64), dv 128,
+    # group 1 (each q head its own kv head)
+    "d192_group1": (10, 30, 2, 2, 192, 128, "bf16", True, -1),
+    "group1": (12, 40, 3, 3, 32, 32, "f32", True, -1),
 }
 
 
@@ -91,7 +95,7 @@ def test_flash_attention_dense_matches_jax(name):
         jkw["variant"] = jax_variants.make_default_variant(logits_soft_cap=2.)
         tkw["variant"] = variants.make_default_variant(logits_soft_cap=2.)
     elif name == "alibi":
-        slopes = single.default_alibi_slopes(hq).numpy()
+        slopes = single.default_alibi_slopes(hq, device="cpu").numpy()
         jkw["variant"] = jax_variants.make_default_variant(use_alibi=True)
         tkw["variant"] = variants.make_default_variant(use_alibi=True)
         jkw["variant_params"] = {"alibi_slopes": jnp.asarray(slopes)}
@@ -206,7 +210,7 @@ def test_single_backends():
     q, k, v = (torch.zeros(2, 2, 16) for _ in range(3))
     with pytest.raises(ValueError, match="pallas"):
         single.single_prefill_with_kv_cache(q, k, v, backend="pallas")
-    torch.testing.assert_close(single.default_alibi_slopes(12),
+    torch.testing.assert_close(single.default_alibi_slopes(12, device="cpu"),
                                torch.from_numpy(np.array(
                                    jax_single.default_alibi_slopes(12))))
 
@@ -294,10 +298,15 @@ def test_split_kv_merge_equals_one_pass():
     o, s = state.merge_state(o, s, torch.zeros_like(o), sink[None])
     torch.testing.assert_close(o, want, atol=F32_TOL, rtol=F32_TOL)
     torch.testing.assert_close(s, want_lse, atol=F32_TOL, rtol=F32_TOL)
-    # Llama-3-8B heads on 132 SMs: decode splits, prefill does not
-    assert flash_num_splits(1, 32768, 32, 8, torch.bfloat16, 132) == 33
+    # Llama-3-8B heads on 132 SMs: decode splits to fill the card once (8
+    # kv heads x 16 splits, one bf16 CTA an SM; f32 two), prefill does not
+    assert flash_num_splits(1, 32768, 32, 8, torch.bfloat16, 132) == 16
+    assert flash_num_splits(1, 32768, 32, 8, torch.float32, 132) == 33
     assert flash_num_splits(8192, 8192, 32, 8, torch.bfloat16, 132) == 1
     assert flash_num_splits(1, 100, 32, 8, torch.bfloat16, 132) == 1
+    # 64-key tiles where dv 256 does not fit 128: at least 4 tiles a split
+    assert flash_num_splits(1, 1024, 32, 8, torch.bfloat16, 132, 256) == 4
+    assert flash_num_splits(1, 1024, 32, 8, torch.bfloat16, 132, 128) == 2
 
 
 def test_sigmoid_plain_version_within_the_bf16_limit_of_float64():
