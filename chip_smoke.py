@@ -8,8 +8,9 @@ Run from the root of a checkout. Phases, in order:
 1. card: the card's name and power limit from nvidia-smi;
 2. build: every CUDA kernel built with nvcc from ``flashinfer_tpu_torch/csrc``
    (one process per source, all at once); ``cuobjdump -sass`` counts the
-   flash library's wgmma (HGMMA), TMA load (UTMALDG) and mma.sync (HMMA)
-   instructions, and the phase fails without wgmma or TMA;
+   wgmma (HGMMA), TMA load (UTMALDG) and mma.sync (HMMA) instructions of
+   the flash and grouped-GEMM libraries, and the phase fails if either
+   lacks wgmma or TMA, or the grouped GEMM holds an mma.sync;
 3. kernel checks: each kernel against its plain PyTorch version on the card
    with its time (CUDA events), its bound, the plain version's time and,
    where one PyTorch call computes the same function, that call's time:
@@ -187,6 +188,10 @@ def phase_card():
 
 # -------------------------------------------------------------------- build
 
+# the libraries built on wgmma and TMA
+TENSOR_CORE_LIBS = ("flash_attention", "grouped_gemm")
+
+
 def phase_build():
     from flashinfer_tpu_torch import jit
 
@@ -195,24 +200,29 @@ def phase_build():
         log(f"built {name}.cu" + (f" in {secs[name]:.1f} s" if name in secs
                                   else " (cached)"))
         for ln in jit.build_log(name).splitlines():
-            if "registers" in ln or "spill" in ln:
+            if ("registers" in ln or "spill" in ln
+                    or (name == "grouped_gemm" and "C75" in ln)):
                 log("  ptxas:", ln.strip())
-    sass = flash_sass_counts()
-    log(f"flash_attention SASS: {sass}")
-    if not (sass["HGMMA"] and sass["UTMALDG"]):
-        raise AssertionError(f"the flash library lacks wgmma or TMA: {sass}")
+    for name in TENSOR_CORE_LIBS:
+        sass = sass_counts(name)
+        log(f"{name} SASS: {sass}")
+        if not (sass["HGMMA"] and sass["UTMALDG"]):
+            raise AssertionError(f"{name} lacks wgmma or TMA: {sass}")
+        if name == "grouped_gemm" and sass["HMMA"]:
+            raise AssertionError(f"{name} still holds mma.sync: {sass}")
     return secs
 
 
-def flash_sass_counts():
+def sass_counts(name):
     """How many wgmma (HGMMA), TMA load (UTMALDG) and mma.sync (HMMA)
-    instructions ``cuobjdump -sass`` finds in the flash library."""
+    instructions ``cuobjdump -sass`` finds in the library of
+    ``csrc/<name>.cu``."""
     from flashinfer_tpu_torch import jit
 
     cuobjdump = os.path.join(os.path.dirname(jit._nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", str(jit._lib_path(
-        "flash_attention"))], capture_output=True, text=True, check=True,
-        timeout=300).stdout
+    sass = subprocess.run([cuobjdump, "-sass", str(jit._lib_path(name))],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
     ops = []
     for ln in sass.splitlines():  # "/*0090*/ @P0 HGMMA.64x128x16... ;"
         words = [w for w in ln.split("*/", 1)[-1].split()

@@ -1,0 +1,134 @@
+// Hopper (sm_90a) building blocks shared by the tensor-core kernels:
+// shared-memory addresses, wgmma descriptors and fences, mbarriers, TMA
+// loads, and the host's tensor-map encoder (cuTensorMapEncodeTiled reached
+// through the runtime, so the libraries link no -lcuda).
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// wgmma descriptor of a 128-byte-swizzled operand: rows of 128 bytes in
+// 1024-byte atoms of 8 rows (sbo apart); lbo is the distance between
+// 64-element column blocks of an MN-major operand (unused K-major).
+__device__ __forceinline__ uint64_t sw128_desc(const void* smem, uint32_t lbo,
+                                               uint32_t sbo) {
+  return uint64_t((smem_u32(smem) & 0x3FFFF) >> 4) |
+         (uint64_t((lbo >> 4) & 0x3FFF) << 16) |
+         (uint64_t((sbo >> 4) & 0x3FFF) << 32) | (uint64_t(1) << 62);
+}
+
+// Byte offset of 16-byte chunk c (0..7) of row r in a swizzled block.
+__device__ __forceinline__ int sw128(int r, int c) {
+  return r * 128 + ((c ^ (r & 7)) << 4);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Ties registers an in-flight wgmma writes or reads to this point, so the
+// compiler neither reads them early nor reuses them before the wait.
+template <int N>
+__device__ __forceinline__ void hold(float* x) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(x[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void hold(uint32_t* x) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(x[i])::"memory");
+}
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+// Waits until the barrier's phase of this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+// One TMA box of a 2-D tensor map into shared memory, completing on bar.
+__device__ __forceinline__ void tma_load2(void* dst, const CUtensorMap* map,
+                                          uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+// One TMA box of a 3-D tensor map into shared memory, completing on bar.
+__device__ __forceinline__ void tma_load3(void* dst, const CUtensorMap* map,
+                                          uint64_t* bar, int c0, int c1,
+                                          int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime (no -lcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+}  // namespace

@@ -13,7 +13,8 @@ Counterpart of flashinfer_tpu/ops/fused_moe.py: ``RoutingMethodType``,
 
 Both GEMMs run ``grouped_gemm_padded`` (the CUDA kernel on the card, its
 plain version on the CPU). Everything stays on the device: group sizes are
-tensors and ``m_pad`` is static, so no step syncs with the host.
+tensors and ``m_pad`` is static, so no step syncs with the host and a call
+can be captured in a CUDA graph.
 
 Rounding follows the weights' dtype. bf16 or e4m3 weights: the rows, the
 GEMM 1 output and the activation output are bf16, as in the Pallas path
@@ -103,25 +104,31 @@ def route_tokens(
 
 def _permute_by_expert(expert_ids: torch.Tensor, num_experts: int):
     """Stable sort of the (token, k) pairs by expert. Returns (order [m*k],
-    group_sizes [e])."""
+    group_sizes [e]). The counts are an index_add, not ``bincount``, which
+    reads its input's maximum back to the host on CUDA."""
     flat = expert_ids.reshape(-1).long()
     order = torch.argsort(flat, stable=True)
-    group_sizes = torch.bincount(flat, minlength=num_experts)
+    group_sizes = torch.zeros(num_experts, dtype=torch.long,
+                              device=flat.device).index_add_(
+                                  0, flat, torch.ones_like(flat))
     return order, group_sizes
 
 
 def select_moe_tm(rows: int, num_experts: int) -> int:
     """m-tile of the padded layout on the H100: the smallest of 16, 32 and
-    64 rows that holds the average expert's share of the rows. At decode (8
-    tokens x top-6 over 64 experts) that is 16: an expert holds at most 8
-    rows, so each used tile is at most half padding and m_pad = 48 + 64 x
-    16 = 1072 rows, where the TPU's 128-row tile gives 8320. Larger tiles
-    re-read each expert's weights fewer times at prefill."""
+    64 rows that holds the average expert's share of the rows, and 128 once
+    that share reaches 128 rows. At decode (8 tokens x top-6 over 64
+    experts) that is 16: an expert holds at most 8 rows, so each used tile
+    is at most half padding and m_pad = 48 + 64 x 16 = 1072 rows, where the
+    TPU's 128-row tile gives 8320. The tile is the kernel's wgmma N, so
+    larger tiles run the tensor cores nearer their rate and re-read each
+    expert's weights fewer times; 128 pads an expert by 64 rows on average
+    (64: 32) and adds 64 rows an expert to m_pad."""
     avg = rows / max(num_experts, 1)
     for tm in (16, 32):
         if avg <= tm:
             return tm
-    return 64
+    return 128 if avg >= 128 else 64
 
 
 def fused_moe(

@@ -18,7 +18,9 @@ read in place with no transposed copy. bf16, f32, or ``float8_e4m3fn``
 with a per-expert scale (the JAX package's int8 containers of e4m3 bits
 are the same bytes: ``.view(torch.float8_e4m3fn)``). Its K-permutation for
 the TPU bit decode (``fp8_k_permutation``) has no counterpart here: the
-card converts e4m3 in hardware.
+card converts e4m3 to bf16 in registers on its way into the tensor cores.
+The bf16/e4m3 kernel reads through TMA, so its tensors start on 16-byte
+boundaries (PyTorch's allocations do).
 """
 
 from __future__ import annotations
@@ -174,9 +176,9 @@ def grouped_gemm_padded(
                          f"(rhs_nk={rhs_nk}) and {mt} tiles do not fit")
     tm = m_pad // mt
     if rhs.dtype != torch.float32 and (tm not in TENSOR_CORE_TMS or k % 32
-                                       or n % 128):
+                                       or n % 16):
         raise ValueError(f"the tensor-core grouped GEMM takes tm in "
-                         f"{TENSOR_CORE_TMS}, K % 32 == 0 and N % 128 == 0; "
+                         f"{TENSOR_CORE_TMS}, K % 32 == 0 and N % 16 == 0; "
                          f"got tm={tm}, K={k}, N={n}")
     for t, name in ((lhs, "lhs"), (rhs, "rhs"),
                     (expert_of_tile, "expert_of_tile")):

@@ -274,6 +274,170 @@ def test_grouped_gemm_kernel_matches_plain(dev, wdt, tm, nk, out):
     assert not got[pad].any()  # -1 tiles are zeros
 
 
+def _gg_check(got, want, eot, tm, out):
+    rms = float(want.float().pow(2).mean().sqrt())
+    rtol = 2 ** -7 if out == torch.bfloat16 else 1e-3
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=1e-3 * rms)
+    pad = eot.long().repeat_interleave(tm) < 0
+    assert not got[pad].any()  # -1 tiles are zeros
+
+
+def _gg_weights(dev, wdt, e, k, n, nk, gen):
+    w = torch.randn((e, n, k) if nk else (e, k, n), device=dev,
+                    generator=gen) * k ** -0.5
+    return (w * 64).to(wdt) if wdt == torch.float8_e4m3fn else w.to(wdt)
+
+
+@pytest.mark.parametrize("wdt", [torch.bfloat16, torch.float8_e4m3fn])
+@pytest.mark.parametrize("nk", [False, True])
+@pytest.mark.parametrize("tm", [16, 128])
+@pytest.mark.parametrize("k,n", [(96, 384), (160, 400)])
+def test_grouped_gemm_ragged_edges(dev, wdt, nk, tm, k, n):
+    """K not a multiple of the ring's 64-deep stage (the maps fill zeros
+    past K), and a ragged last column tile (zeros past N, a masked store):
+    N = 384 against tm 128's 256-column tiles, N = 400 against both
+    widths (128 columns at tm 16)."""
+    from flashinfer_tpu_torch.ops.gemm_grouped import (
+        grouped_gemm_padded,
+        grouped_gemm_padded_plain,
+    )
+
+    rng = np.random.default_rng(k + n + tm)
+    x, _, eot, sc = _gg_case(dev, torch.bfloat16, tm, k, n, nk, rng)
+    w = _gg_weights(dev, wdt, 6, k, n, nk,
+                    torch.Generator(device=dev).manual_seed(k + n))
+    for out in (torch.bfloat16, torch.float32):
+        got = grouped_gemm_padded(x, w, eot, sc, out_dtype=out, rhs_nk=nk)
+        want = grouped_gemm_padded_plain(x, w, eot, sc, out_dtype=out,
+                                         rhs_nk=nk)
+        torch.cuda.synchronize()
+        _gg_check(got, want, eot, tm, out)
+
+
+@pytest.mark.parametrize("wdt", [torch.bfloat16, torch.float8_e4m3fn])
+@pytest.mark.parametrize("tm", [16, 64, 128])
+def test_grouped_gemm_expert_over_many_tiles(dev, wdt, tm):
+    """One expert's rows span five full m-tiles and part of a sixth, beside
+    experts of a tile or none."""
+    from flashinfer_tpu_torch.ops.gemm_grouped import (
+        grouped_gemm_padded,
+        grouped_gemm_padded_plain,
+        make_group_layout,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(tm)
+    gs = torch.tensor([3, 5 * tm + 3, 0, tm], device=dev)
+    lay = make_group_layout(gs, int(gs.sum()), tm)
+    k, n = 256, 256
+    x = torch.randn(lay.m_pad, k, device=dev, generator=gen)
+    x = torch.where(lay.src_valid[:, None], x, 0).bfloat16()
+    w = _gg_weights(dev, wdt, 4, k, n, True, gen)
+    sc = torch.rand(4, device=dev, generator=gen) + 0.5
+    got = grouped_gemm_padded(x, w, lay.expert_of_tile, sc,
+                              out_dtype=torch.float32, rhs_nk=True)
+    want = grouped_gemm_padded_plain(x, w, lay.expert_of_tile, sc,
+                                     out_dtype=torch.float32, rhs_nk=True)
+    torch.cuda.synchronize()
+    assert int((lay.expert_of_tile == 1).sum()) == 6
+    _gg_check(got, want, lay.expert_of_tile, tm, torch.float32)
+
+
+@pytest.mark.parametrize("wdt", [torch.bfloat16, torch.float8_e4m3fn])
+@pytest.mark.parametrize("out", [torch.bfloat16, torch.float32])
+def test_grouped_gemm_all_tiles_unused(dev, wdt, out):
+    """Every tile -1: the output is zeros over memory that held garbage."""
+    from flashinfer_tpu_torch.ops.gemm_grouped import grouped_gemm_padded
+
+    tm, k, n = 16, 128, 256
+    x = torch.randn(8 * tm, k, device=dev).bfloat16()
+    w = torch.randn(3, n, k, device=dev).to(wdt)
+    eot = torch.full((8,), -1, dtype=torch.int32, device=dev)
+    torch.empty(8 * tm, n, dtype=out, device=dev).fill_(7.0)  # dirty pool
+    got = grouped_gemm_padded(x, w, eot, None, out_dtype=out, rhs_nk=True)
+    torch.cuda.synchronize()
+    assert got.shape == (8 * tm, n) and not got.any()
+
+
+@pytest.mark.parametrize("wdt", [torch.bfloat16, torch.float8_e4m3fn])
+@pytest.mark.parametrize("gemm", ["gate_up", "down"])
+def test_grouped_gemm_v2_lite_decode_routing(dev, wdt, gemm):
+    """chip_smoke's V2-Lite decode case at full width: 8 tokens routed
+    top-6 of 64 experts (48 rows, tm 16), 2048 -> 2816 and 1408 -> 2048,
+    weights in the models' [E, N, K] layout."""
+    from flashinfer_tpu_torch.ops.fused_moe import (
+        RoutingMethodType,
+        _permute_by_expert,
+        route_tokens,
+        select_moe_tm,
+    )
+    from flashinfer_tpu_torch.ops.gemm_grouped import (
+        grouped_gemm_padded,
+        grouped_gemm_padded_plain,
+        make_group_layout,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    m, e, top_k = 8, 64, 6
+    ids, _ = route_tokens(torch.randn(m, e, device=dev, generator=gen), top_k,
+                          RoutingMethodType.DeepSeekV3, n_group=1,
+                          topk_group=1)
+    _, group_sizes = _permute_by_expert(ids, e)
+    tm = select_moe_tm(m * top_k, e)
+    assert tm == 16
+    lay = make_group_layout(group_sizes, m * top_k, tm)
+    k, n, out = ((2048, 2816, torch.bfloat16) if gemm == "gate_up"
+                 else (1408, 2048, torch.float32))
+    x = torch.randn(lay.m_pad, k, device=dev, generator=gen)
+    x = torch.where(lay.src_valid[:, None], x, 0).bfloat16()
+    w = _gg_weights(dev, wdt, e, k, n, True, gen)
+    sc = (torch.full((e,), 1 / 64, device=dev)
+          if wdt == torch.float8_e4m3fn else None)
+    got = grouped_gemm_padded(x, w, lay.expert_of_tile, sc, out_dtype=out,
+                              rhs_nk=True)
+    want = grouped_gemm_padded_plain(x, w, lay.expert_of_tile, sc,
+                                     out_dtype=out, rhs_nk=True)
+    torch.cuda.synchronize()
+    _gg_check(got, want, lay.expert_of_tile, tm, out)
+
+
+@pytest.mark.parametrize("wdt", [torch.bfloat16, torch.float8_e4m3fn])
+def test_fused_moe_in_a_cuda_graph(dev, wdt):
+    """fused_moe captured in a CUDA graph and replayed on a second routing
+    gives what an eager call on that routing gives: no step of the
+    pipeline reads back to the host, and the kernel's tensor maps are
+    recorded by value."""
+    from flashinfer_tpu_torch.ops.fused_moe import fused_moe, route_tokens
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    m, e, hidden, inter, top_k = 24, 8, 256, 128, 2
+    x = torch.randn(m, hidden, device=dev, generator=gen).bfloat16()
+    w13 = _gg_weights(dev, wdt, e, hidden, 2 * inter, True, gen)
+    w2 = _gg_weights(dev, wdt, e, inter, hidden, True, gen)
+    s13 = torch.rand(e, device=dev, generator=gen) + 0.5
+    s2 = torch.rand(e, device=dev, generator=gen) + 0.5
+    routes = [route_tokens(torch.randn(m, e, device=dev, generator=gen),
+                           top_k) for _ in range(2)]
+    ids, sc = (t.clone() for t in routes[0])
+
+    def call():
+        return fused_moe(x, w13, w2, ids, sc, w13_scale=s13, w2_scale=s2,
+                         out_dtype=torch.float32)
+
+    call()  # builds and loads the library
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        got = call()
+    ids.copy_(routes[1][0])
+    sc.copy_(routes[1][1])
+    g.replay()
+    want = call()
+    torch.cuda.synchronize()
+    assert not torch.equal(routes[0][0], routes[1][0])
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("wdt", [torch.bfloat16, torch.float8_e4m3fn])
 def test_fused_moe_on_the_card_matches_cpu(dev, wdt):
     from flashinfer_tpu_torch.ops.fused_moe import fused_moe, route_tokens

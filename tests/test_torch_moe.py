@@ -232,3 +232,28 @@ def test_fused_moe_backend_names():
             2, 16)
     with pytest.raises(ValueError, match="backend"):
         moe.fused_moe(x, w13, w2, ids, sc, backend="cutlass")
+
+
+@pytest.mark.parametrize("m,e,top_k", [(8, 64, 6), (40, 8, 2), (3, 16, 4)])
+def test_permute_by_expert_matches_jax(m, e, top_k):
+    """The stable order and the group sizes (counted with an index_add,
+    which a CUDA graph can capture, where JAX uses bincount), an expert
+    with no pairs included."""
+    rng = np.random.default_rng(m * e)
+    ids = rng.integers(0, e - 1, (m, top_k)).astype(np.int32)  # e-1 unused
+    jorder, jgs = jax_moe._permute_by_expert(jnp.asarray(ids), e)
+    torder, tgs = moe._permute_by_expert(torch.from_numpy(ids), e)
+    np.testing.assert_array_equal(torder.numpy(), np.asarray(jorder))
+    np.testing.assert_array_equal(tgs.numpy(), np.asarray(jgs))
+    assert tgs.shape == (e,) and int(tgs[e - 1]) == 0
+
+
+@pytest.mark.parametrize("rows,experts,tm", [
+    (48, 64, 16),      # V2-Lite decode: 8 tokens x top-6 of 64
+    (96, 4, 32),
+    (12288, 64, 128),  # V2-Lite prefill: 2048 tokens, ~190 rows an expert
+    (6000, 64, 64),    # ~94 rows an expert
+    (8192, 8, 128),    # a Mixtral-8x7B layer: 4096 tokens x top-2 of 8
+])
+def test_select_moe_tm(rows, experts, tm):
+    assert moe.select_moe_tm(rows, experts) == tm
