@@ -9,13 +9,14 @@ Run from the root of a checkout. Phases, in order:
 2. build: every CUDA kernel built with nvcc from ``flashinfer_tpu_torch/csrc``
    (one process per source, all at once); ``cuobjdump -sass`` counts the
    wgmma (HGMMA), TMA load (UTMALDG) and mma.sync (HMMA) instructions of
-   the flash and grouped-GEMM libraries, and the phase fails if either
-   lacks wgmma or TMA, or the grouped GEMM holds an mma.sync;
+   the flash, grouped-GEMM and paged-attention libraries, and the phase
+   fails if one lacks wgmma or TMA, or the grouped GEMM holds an mma.sync;
 3. kernel checks: each kernel against its plain PyTorch version on the card
    with its time (CUDA events), its bound, the plain version's time and,
    where one PyTorch call computes the same function, that call's time:
    paged attention, the sampler and RMSNorm at the shapes the Llama-3-8B
-   engine gives them; MLA attention at DeepSeek-V2-Lite shapes (decode and
+   engine gives them (paged attention also at head_dim 256 and on POD's
+   combined plan); MLA attention at DeepSeek-V2-Lite shapes (decode and
    causal prefill, bf16/e4m3/int8 caches); the grouped GEMM (both MoE GEMMs,
    bf16 and e4m3 weights) at the V2-Lite decode and prefill routings and a
    Mixtral-8x7B layer; the flash kernel at Llama-3-8B prefill (8192 tokens
@@ -189,7 +190,7 @@ def phase_card():
 # -------------------------------------------------------------------- build
 
 # the libraries built on wgmma and TMA
-TENSOR_CORE_LIBS = ("flash_attention", "grouped_gemm")
+TENSOR_CORE_LIBS = ("flash_attention", "grouped_gemm", "paged_attention")
 
 
 def phase_build():
@@ -200,8 +201,11 @@ def phase_build():
         log(f"built {name}.cu" + (f" in {secs[name]:.1f} s" if name in secs
                                   else " (cached)"))
         for ln in jit.build_log(name).splitlines():
-            if ("registers" in ln or "spill" in ln
-                    or (name == "grouped_gemm" and "C75" in ln)):
+            # register and spill reports; C75xx (wgmma serialised, for
+            # one) but C7519, an informational fence the compiler adds
+            if ("Used" in ln and "registers" in ln or "spill" in ln
+                    or (name in TENSOR_CORE_LIBS and "C75" in ln
+                        and "C7519" not in ln)):
                 log("  ptxas:", ln.strip())
     for name in TENSOR_CORE_LIBS:
         sass = sass_counts(name)
@@ -238,16 +242,16 @@ def sass_counts(name):
 LAYERS_ROTATED = 8  # distinct caches per timing loop: 8 layers exceed L2
 
 
-def _engine_like_plans(np, lens_decode, lens_prefill):
+def _engine_like_plans(np, lens_decode, lens_prefill, d=128):
     """Plans built as the engine builds them (engine.py _decode and
-    _prefill) at Llama-3-8B heads, page 16, chunk 512."""
+    _prefill) at Llama-3-8B heads (head_dim ``d``), page 16, chunk 512."""
     from flashinfer_tpu_torch.ops.attention.batch import (
         BatchDecodeWithPagedKVCacheWrapper,
         BatchPrefillWithPagedKVCacheWrapper,
     )
     from flashinfer_tpu_torch.utils import next_power_of_2
 
-    ps, hq, hkv, d, chunk, page_bucket = 16, 32, 8, 128, 512, 1024
+    ps, hq, hkv, chunk, page_bucket = 16, 32, 8, 512, 1024
 
     def table(lens):
         npages = -(-np.asarray(lens) // ps)
@@ -326,25 +330,78 @@ def _attn_check(torch, got, want):
                 ok=ratio <= 1.0 and err_lse <= ATTN_TOL_LSE and same_inf)
 
 
+def _pod_combined_case(np):
+    """The POD phase's combined plan (its decodes, its chunk at the tail of
+    its prompt, page 16, KV chunk 512): (plan, pages, kv_lens, qo_lens)."""
+    from flashinfer_tpu_torch.ops.attention.pod import (
+        PODWithPagedKVCacheWrapper,
+    )
+
+    hq, hkv, d = LLAMA_HEADS
+    ps = POD_PAGE
+    rng = np.random.default_rng(16)  # phase_pod's lengths and pages
+    kv_lens = rng.integers(POD_KV_RANGE[0], POD_KV_RANGE[1] + 1, POD_DECODES)
+    npages = -(-kv_lens // ps)
+    indptr = np.concatenate([[0], np.cumsum(npages)])
+    num_pages = int(indptr[-1]) + -(-POD_PROMPT // ps)
+    perm = rng.permutation(num_pages)
+    w = PODWithPagedKVCacheWrapper(device=DEVICE).plan(
+        indptr, perm[:indptr[-1]], kv_lens - (npages - 1) * ps, hq, hkv, d,
+        ps, kv_len_arr=kv_lens, kv_chunk_size=POD_KV_CHUNK,
+        prefill_qo_len=POD_CHUNK, prefill_kv_len=POD_PROMPT,
+        prefill_page_indices=perm[indptr[-1]:])
+    return (w._attn.device_plan, num_pages,
+            np.concatenate([[POD_PROMPT], kv_lens]),
+            np.concatenate([[POD_CHUNK], np.ones_like(kv_lens)]))
+
+
+def _paged_plain(torch, q, kc, vc, kv_idx, plan, items=256, **kw):
+    """``paged_attention_plain`` over the work list ``items`` items at a
+    time (POD's combined plan holds ~1000 items of 256 rows x 512 keys)."""
+    from flashinfer_tpu_torch.ops.attention.kernels.paged import (
+        paged_attention_plain,
+    )
+
+    rows = plan.reshape(12, -1)
+    outs = [paged_attention_plain(
+                q, kc, vc, kv_idx,
+                rows[:, a:a + items].contiguous().reshape(-1), **kw)
+            for a in range(0, rows.shape[1], items)]
+    return tuple(torch.cat(x) for x in zip(*outs))
+
+
 def check_paged_attention(torch, np, lens_decode, lens_prefill):
+    """The paged kernel against its plain version on every row (padding
+    rows: the identity in both), timed, at the engine's Llama-3-8B decode
+    and prefill plans (NHD and HND; bf16, e4m3 and int8 caches), the same
+    decode at head_dim 256, and POD's combined plan (HND, Llama-3-8B widths:
+    32 decodes in 256-row tiles beside a 2048-token chunk)."""
+    from flashinfer_tpu_torch.ops.attention.batch import pack_queries
     from flashinfer_tpu_torch.ops.attention.kernels.paged import (
         batch_paged_attention_run,
-        paged_attention_plain,
     )
     from flashinfer_tpu_torch.utils import TensorLayout
 
-    hq, hkv, d, ps = 32, 8, 128, 16
+    hq, hkv, ps = 32, 8, 16
     group = hq // hkv
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(7)
-    plans = _engine_like_plans(np, lens_decode, lens_prefill)
+    cases = [(mode, 128, plan, ("NHD", "HND")) for mode, plan in
+             _engine_like_plans(np, lens_decode, lens_prefill).items()]
+    cases.append(("decode", 256, _engine_like_plans(
+        np, lens_decode, lens_prefill, d=256)["decode"], ("NHD", "HND")))
+    cases.append(("pod_combined", 128, _pod_combined_case(np), ("HND",)))
     rows = []
-    for mode, (dp, pages, kv_lens, qo_lens) in plans.items():
+    for mode, d, (dp, pages, kv_lens, qo_lens), layouts in cases:
         m = dp.meta
-        q = torch.randn(hkv, m.bucket_rows, d, device=dev, generator=gen,
-                        dtype=torch.bfloat16)
+        if mode == "pod_combined":  # the real packing: padding rows are 0
+            q = pack_queries(dp, torch.randn(
+                m.nnz, hq, d, device=dev, generator=gen, dtype=torch.bfloat16))
+        else:
+            q = torch.randn(hkv, m.bucket_rows, d, device=dev, generator=gen,
+                            dtype=torch.bfloat16)
         plan, kv_idx = dp.segment("plan"), dp.segment("kv_indices")
-        for layout in ("NHD", "HND"):
+        for layout in layouts:
             shape = ((LAYERS_ROTATED * pages, hkv, ps, d) if layout == "HND"
                      else (LAYERS_ROTATED * pages, ps, hkv, d))
             for kv_dtype in ("bf16", "e4m3", "int8"):
@@ -362,7 +419,8 @@ def check_paged_attention(torch, np, lens_decode, lens_prefill):
                           "e4m3": (0.25, 0.25)}[kv_dtype]
                 kw = dict(tile_q=m.tile_q, group=group, causal=m.causal,
                           sm_scale=m.sm_scale, k_scale=scales[0],
-                          v_scale=scales[1], kv_layout=TensorLayout[layout])
+                          v_scale=scales[1], kv_layout=TensorLayout[layout],
+                          row_valid=dp.segment("row_valid"))
                 layer = [0]
 
                 def call(fn, rotate=True):
@@ -372,8 +430,11 @@ def check_paged_attention(torch, np, lens_decode, lens_prefill):
                     return fn(q, kc, vc, kv_idx, plan, kv_indices_offset=off,
                               **kw)
 
+                def plain(*args, **kw_):
+                    return _paged_plain(torch, *args, **kw_)
+
                 got = call(batch_paged_attention_run, rotate=False)
-                want = call(paged_attention_plain, rotate=False)
+                want = call(plain, rotate=False)
                 torch.cuda.synchronize()
                 chk = _attn_check(torch, got, want)
                 del got, want
@@ -381,22 +442,22 @@ def check_paged_attention(torch, np, lens_decode, lens_prefill):
                              20, graph=True)
                 call_ms = cuda_ms(
                     torch, lambda: call(batch_paged_attention_run), 20)
-                plain_ms = cuda_ms(torch, lambda: call(paged_attention_plain),
-                                   3, warmup=1)
+                plain_ms = cuda_ms(torch, lambda: call(plain), 3, warmup=1)
                 nbytes = _attention_bytes(plan, pages, kv_lens, m.tile_q, hkv,
                                           d, kc.element_size())
                 ops = 4 * d * _attention_work(kv_lens, qo_lens, hq)
                 b_ms, b_by = bound_ms(nbytes, ops)
-                row = dict(mode=mode, layout=layout, kv=kv_dtype,
+                row = dict(mode=mode, d=d, layout=layout, kv=kv_dtype,
                            q_shape=list(q.shape), kv_tokens=int(kv_lens.sum()),
                            T=m.num_work_items, tile_q=m.tile_q,
                            splits=m.max_splits, err_o=chk["err_o"],
                            o_ratio=chk["o_ratio"], err_lse=chk["err_lse"],
                            same_inf=chk["same_inf"], ms=ms, call_ms=call_ms,
                            plain_ms=plain_ms, bound_bytes=nbytes,
-                           bound_ms=b_ms, bound_by=b_by, ok=chk["ok"])
+                           bound_ops=ops, bound_ms=b_ms, bound_by=b_by,
+                           ok=chk["ok"])
                 rows.append(row)
-                log(f"paged_attention {mode:7s} {layout} {kv_dtype:4s} "
+                log(f"paged_attention {mode:12s} d={d} {layout} {kv_dtype:4s} "
                     f"q={list(q.shape)} kv_tokens={int(kv_lens.sum())} "
                     f"T={m.num_work_items} tile_q={m.tile_q} "
                     f"splits={m.max_splits} err_o={chk['err_o']:.2e} "
@@ -406,6 +467,7 @@ def check_paged_attention(torch, np, lens_decode, lens_prefill):
                     f"plain_ms={plain_ms:.3f} bound_ms={b_ms:.5f} ({b_by}) "
                     f"{'ok' if chk['ok'] else 'MISMATCH'}")
                 del kc, vc, caches
+        torch.cuda.empty_cache()
     bad = [r for r in rows if not r["ok"]]
     if bad:
         raise AssertionError(f"paged attention kernel disagrees with its "
@@ -1415,7 +1477,9 @@ POD_PATH = ("flash_attention", "paged_attention")
 
 def _family(name):
     name = name.lower()
-    for fam, keys in (("paged_attention", ("paged_attention",)),
+    for fam, keys in (("paged_attention", ("paged_tc_kernel",
+                                           "paged_dec_kernel",
+                                           "paged_f32_kernel")),
                       ("flash_attention", ("flash_tc_kernel",
                                            "flash_f32_kernel",
                                            "merge_splits_kernel")),
@@ -2024,7 +2088,8 @@ def main() -> int:
     kernels = []
     if attn:
         main_row = next(r for r in attn if r["mode"] == "decode"
-                        and r["layout"] == "NHD" and r["kv"] == "bf16")
+                        and r["d"] == 128 and r["layout"] == "NHD"
+                        and r["kv"] == "bf16")
         kernels.append(dict(
             name="paged_attention", route="cuda",
             source="flashinfer_tpu_torch/csrc/paged_attention.cu",

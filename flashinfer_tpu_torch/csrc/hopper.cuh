@@ -105,6 +105,18 @@ __device__ __forceinline__ void tma_load3(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// One TMA box of a 4-D tensor map into shared memory, completing on bar.
+__device__ __forceinline__ void tma_load4(void* dst, const CUtensorMap* map,
+                                          uint64_t* bar, int c0, int c1,
+                                          int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);

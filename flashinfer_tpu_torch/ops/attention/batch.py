@@ -12,7 +12,7 @@ This slice covers paged caches with the default softmax variant (sm_scale,
 logits soft cap), causal and sliding-window masks, and an explicit
 ``kv_chunk_size``. Ragged KV, custom and multi-item masks, other variants,
 attention sinks and pages smaller than 8 raise ``NotImplementedError``
-(ROADMAP Queue 1, item 2).
+(ROADMAP Queue 1, item 7).
 """
 
 from __future__ import annotations
@@ -48,10 +48,11 @@ __all__ = [
     "BatchDecodeWithPagedKVCacheWrapper",
     "DevicePlan",
     "PlanMeta",
+    "pack_queries",
     "run_device_plan",
 ]
 
-_NOT_IN_SLICE = "not in this slice of the port (ROADMAP Queue 1, item 2)"
+_NOT_IN_SLICE = "not in this slice of the port (ROADMAP Queue 1, item 7)"
 
 
 def _bucket(n: int, minimum: int = 1) -> int:
@@ -127,6 +128,20 @@ class DevicePlan:
         raise KeyError(name)
 
 
+def pack_queries(dplan: DevicePlan, q: torch.Tensor) -> torch.Tensor:
+    """q [nnz, hq, d] in the plan's GQA-packed layout [kvh, bucket_rows,
+    d] (row = token * group + head in group, each request's rows
+    tile_q-aligned); padding rows are 0."""
+    m = dplan.meta
+    nnz, hq, d = q.shape
+    kvh = m.num_kv_heads
+    q_r = (q.reshape(nnz, kvh, hq // kvh, d).permute(1, 0, 2, 3)
+           .reshape(kvh, nnz * (hq // kvh), d))
+    row_src = dplan.segment("row_src").long()
+    row_valid = dplan.segment("row_valid") != 0
+    return torch.where(row_valid[None, :, None], q_r[:, row_src], 0)
+
+
 def run_device_plan(
     dplan: DevicePlan,
     q: torch.Tensor,
@@ -153,19 +168,14 @@ def run_device_plan(
     nnz, hq, d = q.shape
     kvh = m.num_kv_heads
 
-    q_r = (q.reshape(nnz, kvh, group, d).permute(1, 0, 2, 3)
-           .reshape(kvh, nnz * group, d))
-    row_src = dplan.segment("row_src").long()
-    row_valid = dplan.segment("row_valid") != 0
-    packed = torch.where(row_valid[None, :, None], q_r[:, row_src], 0)
-
     partial_o, partial_lse = batch_paged_attention_run(
-        packed, k, v, dplan.segment("kv_indices"), dplan.segment("plan"),
-        tile_q=m.tile_q, group=m.gqa_group, causal=m.causal,
-        sm_scale=m.sm_scale, k_scale=k_scale, v_scale=v_scale,
-        window_left=m.window_left,
+        pack_queries(dplan, q), k, v, dplan.segment("kv_indices"),
+        dplan.segment("plan"), tile_q=m.tile_q, group=m.gqa_group,
+        causal=m.causal, sm_scale=m.sm_scale, k_scale=k_scale,
+        v_scale=v_scale, window_left=m.window_left,
         logits_soft_cap=logits_soft_cap, kv_layout=kv_layout,
         kv_indices_offset=kv_indices_offset,
+        row_valid=dplan.segment("row_valid"),
     )
     dv = partial_o.shape[3]
     out_map = dplan.segment("out_map").long()

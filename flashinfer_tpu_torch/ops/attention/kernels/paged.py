@@ -10,8 +10,10 @@ Both versions read the same int32 plan (``AttentionPlan.prefetch_arrays``,
 12 rows of T work items) and write the same split-KV partials:
 ``partial_o [T, kvh, tile_q, dv]`` in q's dtype and ``partial_lse
 [T, kvh, tile_q]`` f32 in natural log. A padding item (request < 0), an
-empty KV range, and a row that sees no key give o = 0 and lse = -inf, the
-identity of the merge.
+empty KV range, a padding row (``row_valid`` 0: the plan blob's segment of
+that name, which ``out_map`` never reads) and a row that sees no key give
+o = 0 and lse = -inf, the identity of the merge. Both versions write that
+identity on padding rows, so their outputs agree on every row.
 
 KV caches: the model dtype, ``torch.float8_e4m3fn`` (e4m3; an int8 tensor
 holding the JAX package's e4m3 bits is read through
@@ -23,7 +25,7 @@ softmax scale and ``v_scale`` multiplies the output, as on the TPU.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -69,6 +71,7 @@ def paged_attention_plain(
     logits_soft_cap: float = 0.0,
     kv_layout: TensorLayout = TensorLayout.NHD,
     kv_indices_offset: int = 0,
+    row_valid: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The work list in plain PyTorch, all items at once: each item's KV
     chunk is gathered page by page into [T, kvh, C, d] and attended in one
@@ -76,7 +79,9 @@ def paged_attention_plain(
 
     Rounding as on the TPU: K and V are upcast exactly; P goes into the PV
     product in the dtype of the V operand (q's dtype; bf16 for e4m3,
-    whose decode the TPU kernel runs in bf16, so q is rounded to bf16 too)."""
+    whose decode the TPU kernel runs in bf16, so q is rounded to bf16 too),
+    rounded as 2^(s - ceil(max s)) in the base-2 domain, which the kernel's
+    online softmax reproduces exactly."""
     fmt = _kv_format(k_cache)
     kvh, q_rows, d = q_packed.shape
     dev = q_packed.device
@@ -91,6 +96,10 @@ def paged_attention_plain(
     span = torch.where(req >= 0, (kv_end - kv_start).clamp(min=0), 0)
     out_o = torch.zeros(T, kvh, tile_q, dv, dtype=q_packed.dtype, device=dev)
     out_lse = torch.full((T, kvh, tile_q), float("-inf"), device=dev)
+    rows = (p[_QO_START][:, None] + torch.arange(tile_q, device=dev)[None, :])
+    real = rows < q_rows  # [T, tile_q]
+    if row_valid is not None:
+        real = real & (row_valid.reshape(-1)[rows.clamp(max=q_rows - 1)] != 0)
     max_span = int(span.max()) if T else 0
     if max_span == 0:
         return out_o, out_lse
@@ -112,7 +121,6 @@ def paged_attention_plain(
 
     kf, vf = gather(k_cache), gather(v_cache)
 
-    rows = (p[_QO_START][:, None] + torch.arange(tile_q, device=dev)[None, :])
     q = q_packed[:, rows.clamp(max=q_rows - 1)].permute(1, 0, 2, 3)
     pv_dtype = torch.bfloat16 if fmt == "e4m3" else q_packed.dtype
     qf = q.to(pv_dtype).float()  # [T, kvh, tile_q, d]
@@ -137,15 +145,20 @@ def paged_attention_plain(
         mask = mask & (kv_pos[:, None, :] > q_tok[:, :, None] - window_left - 1)
     mask = mask[:, None]  # [T, 1, tile_q | 1, C]
     s2 = torch.where(mask, s, float("-inf"))
+    # the ceiling of the base-2 max, as the kernel takes it (an integer,
+    # so its online rescales are exact powers of two)
     m = s2.amax(dim=-1, keepdim=True)
-    m_safe = torch.where(torch.isneginf(m), 0.0, m)
+    m_safe = torch.where(torch.isneginf(m), 0.0, torch.ceil(m))
     pr = torch.where(mask, torch.exp2(s2 - m_safe), 0.0)
     l = pr.sum(dim=-1, keepdim=True)
     pv = torch.einsum("thrc,thcd->thrd", pr.to(pv_dtype).float(), vf)
     safe_l = torch.where(l > 0, l, 1.0)
     o = pv / safe_l * v_scale
     lse = torch.where(l > 0, m_safe * _LN2 + torch.log(safe_l), float("-inf"))
-    return o.to(q_packed.dtype), lse[..., 0]
+    real = real[:, None, :]  # [T, 1, tile_q]: padding rows get the identity
+    o = torch.where(real[..., None], o, 0.0)
+    lse = torch.where(real, lse[..., 0], float("-inf"))
+    return o.to(q_packed.dtype), lse
 
 
 def _lib():
@@ -153,9 +166,11 @@ def _lib():
     fn = lib.fi_paged_attention
     if fn.argtypes is None:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [P, P, P, P, P, P, P,  # q k v plan kv_indices o lse
-                       I, I, I, I, I, I, I, I, I,  # T kvh rows tq d ps hnd off grp
-                       F, F, I, I, F, I, I, P]  # scales causal window cap dtypes stream
+        fn.argtypes = [P, P, P, P, P, P, P, P,  # q k v plan idx valid o lse
+                       # T kvh rows tq d dv ps pages hnd off grp
+                       I, I, I, I, I, I, I, I, I, I, I,
+                       # scales causal window cap dtypes stream
+                       F, F, I, I, F, I, I, P]
         fn.restype = I
     return fn
 
@@ -177,16 +192,22 @@ def batch_paged_attention_run(
     logits_soft_cap: float = 0.0,
     kv_layout: TensorLayout = TensorLayout.NHD,
     kv_indices_offset: int = 0,
+    row_valid: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run the planned work list. q_packed [kvh, rows, d] (GQA-packed, per
-    request tile_q-aligned); k/v caches NHD [P, ps, kvh, d] or HND
-    [P, kvh, ps, d]; kv_indices int32 page table; plan int32 [12 * T].
+    request tile_q-aligned); k caches NHD [P, ps, kvh, d] or HND
+    [P, kvh, ps, d], v caches the same with dv columns; kv_indices int32
+    page table; plan int32 [12 * T]; row_valid int32 [rows] or None (every
+    row real): a 64-row block of padding rows is skipped.
 
     A CUDA tensor launches the kernel (or raises); a CPU tensor takes
-    ``paged_attention_plain``."""
+    ``paged_attention_plain``. bf16 numerics (bf16 q, or an e4m3 cache) run
+    on the tensor cores and need pages of a multiple of 8 tokens; f32 q
+    with an f32 or int8 cache runs on the CUDA cores."""
     kw = dict(tile_q=tile_q, group=group, causal=causal, sm_scale=sm_scale,
-              k_scale=k_scale, v_scale=v_scale, window_left=window_left, logits_soft_cap=logits_soft_cap,
-              kv_layout=kv_layout, kv_indices_offset=kv_indices_offset)
+              k_scale=k_scale, v_scale=v_scale, window_left=window_left,
+              logits_soft_cap=logits_soft_cap, kv_layout=kv_layout,
+              kv_indices_offset=kv_indices_offset, row_valid=row_valid)
     if not q_packed.is_cuda:
         return paged_attention_plain(q_packed, k_cache, v_cache, kv_indices,
                                      plan, **kw)
@@ -197,26 +218,42 @@ def batch_paged_attention_run(
     if fmt == "model" and k_cache.dtype != q_packed.dtype:
         raise TypeError(f"cache {k_cache.dtype} does not match q "
                         f"{q_packed.dtype}")
-    if v_cache.dtype != k_cache.dtype or v_cache.shape != k_cache.shape:
-        raise ValueError("k and v caches differ in dtype or shape")
-    if d > 128 or d % 16 or tile_q % 8 or (tile_q >= 32 and tile_q % 32):
-        raise ValueError(f"paged kernel takes head_dim <= 128 (a multiple "
-                         f"of 16) and tile_q 8, 16 or a multiple of 32; got "
-                         f"d={d}, tile_q={tile_q}")
     hnd = kv_layout == TensorLayout.HND
     ps = k_cache.shape[2] if hnd else k_cache.shape[1]
+    dv = v_cache.shape[3]
+    if (v_cache.dtype != k_cache.dtype or k_cache.dim() != 4
+            or v_cache.shape[:3] != k_cache.shape[:3]):
+        raise ValueError("k and v caches differ in dtype, or in shape "
+                         "outside the last (head) dimension")
+    if (d > 256 or d % 16 or dv > 256 or dv % 16 or tile_q <= 0
+            or tile_q % 8):
+        raise ValueError(f"paged kernel takes head_dim and v head_dim <= "
+                         f"256 (multiples of 16) and tile_q a multiple of "
+                         f"8; got d={d}, dv={dv}, tile_q={tile_q}")
     if k_cache.shape[1 if hnd else 2] != kvh or k_cache.shape[3] != d:
         raise ValueError(f"cache {tuple(k_cache.shape)} does not fit q "
                          f"[{kvh}, *, {d}] in layout {kv_layout.name}")
+    tensor_cores = q_packed.dtype == torch.bfloat16 or fmt == "e4m3"
+    if tensor_cores and (ps % 8 or k_cache.data_ptr() % 16
+                         or v_cache.data_ptr() % 16):
+        raise ValueError(f"the tensor-core paged kernel takes pages of a "
+                         f"multiple of 8 tokens in 16-byte-aligned caches; "
+                         f"got page_size={ps}")
     for t, name in ((k_cache, "k"), (v_cache, "v"), (kv_indices, "kv_indices"),
                     (plan, "plan")):
         if not t.is_cuda or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous CUDA tensor")
     if kv_indices.dtype != torch.int32 or plan.dtype != torch.int32:
         raise TypeError("plan and kv_indices must be int32")
+    if row_valid is not None:
+        if (row_valid.dtype != torch.int32 or not row_valid.is_cuda
+                or not row_valid.is_contiguous()
+                or row_valid.numel() < q_rows):
+            raise ValueError(f"row_valid must be a contiguous int32 CUDA "
+                             f"tensor of {q_rows} rows")
     T = plan.numel() // 12
     q_packed = q_packed.contiguous()
-    o = torch.empty(T, kvh, tile_q, d, dtype=q_packed.dtype,
+    o = torch.empty(T, kvh, tile_q, dv, dtype=q_packed.dtype,
                     device=q_packed.device)
     lse = torch.empty(T, kvh, tile_q, dtype=torch.float32,
                       device=q_packed.device)
@@ -224,11 +261,13 @@ def batch_paged_attention_run(
                "int8": _KV_I8}[fmt]
     err = _lib()(
         q_packed.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        plan.data_ptr(), kv_indices.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        T, kvh, q_rows, tile_q, d, ps, int(hnd), int(kv_indices_offset),
-        group, float(sm_scale * k_scale), float(v_scale), int(causal),
-        int(window_left), float(logits_soft_cap), _Q_CODES[q_packed.dtype],
-        kv_code, torch.cuda.current_stream(q_packed.device).cuda_stream)
+        plan.data_ptr(), kv_indices.data_ptr(),
+        None if row_valid is None else row_valid.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), T, kvh, q_rows, tile_q, d, dv, ps, k_cache.shape[0],
+        int(hnd), int(kv_indices_offset), group, float(sm_scale * k_scale),
+        float(v_scale), int(causal), int(window_left), float(logits_soft_cap),
+        _Q_CODES[q_packed.dtype], kv_code,
+        torch.cuda.current_stream(q_packed.device).cuda_stream)
     jit.check(err, "paged attention kernel")
     batch_paged_attention_run.launches += 1
     return o, lse

@@ -20,6 +20,16 @@ Rounding follows the weights' dtype. bf16 or e4m3 weights: the rows, the
 GEMM 1 output and the activation output are bf16, as in the Pallas path
 (fused_moe.py:287, :291, :302). f32 weights: f32 throughout, as the JAX
 package's ragged_dot path computes for f32.
+
+A call the grouped-GEMM kernel cannot take (bf16/e4m3 weights with a GEMM's
+K % 32 or N % 16, or a scale with more than one value an expert) takes the
+counterpart of JAX's ragged_dot route instead (fused_moe.py:371-413), as
+``backend="xla"`` does for any call: the weights dequantized to bf16 as
+JAX's ``deq`` does, one ``torch.matmul`` an expert's group of rows, the
+activation, the inverse gather and the combine. JAX computes that route
+outside any Pallas kernel, so it is plain PyTorch here too, on the card as
+on the CPU; it reads the group sizes back to the host (one sync), so it
+cannot be captured in a CUDA graph.
 """
 
 from __future__ import annotations
@@ -131,6 +141,71 @@ def select_moe_tm(rows: int, num_experts: int) -> int:
     return 128 if avg >= 128 else 64
 
 
+def _scales_1d(s) -> bool:
+    return s is None or torch.as_tensor(s).dim() <= 1
+
+
+def _kernel_takes(w13: torch.Tensor, w2: torch.Tensor, w13_scale,
+                  w2_scale) -> bool:
+    """Whether the grouped-GEMM kernel takes both GEMMs of the call, from
+    shapes, dtypes and scale ranks alone: one scale an expert (or one in
+    all), and for bf16/e4m3 weights K % 32 == 0 and N % 16 == 0 (GEMM 1:
+    K = hidden, N = 2 * inter; GEMM 2: K = inter, N = hidden). f32 weights
+    run on the CUDA cores at any width."""
+    if not (_scales_1d(w13_scale) and _scales_1d(w2_scale)):
+        return False
+    for w in (w13, w2):  # [e, N, K]
+        if w.dtype != torch.float32 and (w.shape[2] % 32 or w.shape[1] % 16):
+            return False
+    return True
+
+
+def _dequant(w: torch.Tensor, s) -> torch.Tensor:
+    """JAX's ``deq`` (fused_moe.py:371-382): e4m3 weights, or any weights
+    given a scale, become bf16, times the scale (one an expert, or one a
+    weight row or column, broadcast over [e, N, K]) in f32."""
+    if w.dtype == torch.float8_e4m3fn or s is not None:
+        w = w.to(torch.bfloat16)
+        if s is not None:
+            s = torch.as_tensor(s, dtype=torch.float32, device=w.device)
+            s = s.reshape(-1, 1, 1) if s.dim() <= 1 else s
+            w = (w.float() * s).to(torch.bfloat16)
+    return w
+
+
+def _ragged_matmul(x: torch.Tensor, w: torch.Tensor, sizes, out_dtype):
+    """``lax.ragged_dot(x, w^T, sizes)``: rows sorted by expert, expert e's
+    rows times w[e]^T ([N, K] -> [K, N]), one f32 ``torch.matmul`` a group,
+    rounded once to ``out_dtype``."""
+    out = torch.zeros(x.shape[0], w.shape[1], dtype=out_dtype,
+                      device=x.device)
+    start = 0
+    for e, n in enumerate(sizes):
+        if n:
+            out[start:start + n] = torch.matmul(
+                x[start:start + n].float(), w[e].float().T).to(out_dtype)
+        start += n
+    return out
+
+
+def _fused_moe_ragged(hidden_states, w13, w2, expert_ids, expert_scales,
+                      gated_act, w13_scale, w2_scale, out_dtype):
+    """JAX's ragged_dot route (fused_moe.py:371-413) in plain PyTorch."""
+    m, hidden = hidden_states.shape
+    e = w13.shape[0]
+    top_k = expert_ids.shape[1]
+    w13, w2 = _dequant(w13, w13_scale), _dequant(w2, w2_scale)
+    order, group_sizes = _permute_by_expert(expert_ids, e)
+    sizes = group_sizes.tolist()  # the host loops over the groups
+    x_sorted = hidden_states[order // top_k]
+    h1 = _ragged_matmul(x_sorted, w13, sizes, hidden_states.dtype)
+    act = silu_and_mul if gated_act == GatedActType.SwiGlu else gelu_and_mul
+    h2 = _ragged_matmul(act(h1), w2, sizes, torch.float32)
+    h2_tok = h2[torch.argsort(order)].reshape(m, top_k, hidden)
+    out = (h2_tok * expert_scales.float()[:, :, None]).sum(dim=1)
+    return out.to(out_dtype)
+
+
 def fused_moe(
     hidden_states: torch.Tensor,  # [m, hidden]
     w13: torch.Tensor,  # [e, 2*inter, hidden] (gate || up rows)
@@ -147,17 +222,28 @@ def fused_moe(
     """Single-device fused MoE. Weights bf16, f32 or ``float8_e4m3fn``, read
     in their [e, N, K] layout with no transposed copy.
 
-    ``backend`` is kept for parity with the JAX package and must be
-    "auto", "pallas" or "xla". There "pallas" names the TPU kernel and
-    "xla" the ragged_dot lowering of XLA; here neither has a separate route:
-    on a CUDA tensor every call runs the grouped-GEMM kernel, and on a CPU
-    tensor its plain version."""
+    ``backend`` is "auto", "pallas" or "xla", as in the JAX package.
+    "pallas" runs the grouped-GEMM pipeline (the kernel on a CUDA tensor,
+    its plain version on a CPU tensor) and raises ``ValueError`` for a call
+    the kernel cannot take; "xla" runs the ragged_dot route; "auto" the
+    pipeline where the kernel takes the call, else the ragged_dot route
+    (``_kernel_takes``, decided before any launch)."""
     if backend not in ("auto", "pallas", "xla"):
         raise ValueError(f"unknown backend {backend!r}")
+    out_dtype = out_dtype or hidden_states.dtype
+    takes = _kernel_takes(w13, w2, w13_scale, w2_scale)
+    if backend == "pallas" and not takes:
+        raise ValueError(
+            "fused_moe backend='pallas' needs one scale an expert and, for "
+            "bf16/e4m3 weights, K % 32 == 0 and N % 16 == 0 in both GEMMs; "
+            f"got w13 {tuple(w13.shape)}, w2 {tuple(w2.shape)}")
+    if backend == "xla" or not takes:
+        return _fused_moe_ragged(hidden_states, w13, w2, expert_ids,
+                                 expert_scales, gated_act, w13_scale,
+                                 w2_scale, out_dtype)
     m, hidden = hidden_states.shape
     e = w13.shape[0]
     top_k = expert_ids.shape[1]
-    out_dtype = out_dtype or hidden_states.dtype
     work = torch.float32 if w13.dtype == torch.float32 else torch.bfloat16
 
     order, group_sizes = _permute_by_expert(expert_ids, e)

@@ -14,7 +14,7 @@ This slice serves model-dtype weights with KV caches in the model dtype,
 e4m3 (``torch.float8_e4m3fn``) or linear int8, in the NHD or HND layout,
 greedy or sampled. Weight quantization, speculative decoding, the multi-step
 decode window, ``score()`` and ``calibrate_kv_scales`` raise
-``NotImplementedError`` (ROADMAP Queue 1, items 6 and 8).
+``NotImplementedError`` (ROADMAP Queue 1, items 3 and 5).
 """
 
 from __future__ import annotations
@@ -131,11 +131,11 @@ class LlamaServingEngine:
         if config.kv_layout not in ("NHD", "HND"):
             raise ValueError(f"unknown kv_layout {config.kv_layout!r}")
         if config.weight_dtype != "model":
-            raise _not_in_slice(f"weight_dtype={config.weight_dtype!r}", 6)
+            raise _not_in_slice(f"weight_dtype={config.weight_dtype!r}", 3)
         if config.spec_tokens > 0:
-            raise _not_in_slice("speculative decoding (spec_tokens > 0)", 8)
+            raise _not_in_slice("speculative decoding (spec_tokens > 0)", 5)
         if config.decode_window > 1:
-            raise _not_in_slice("the multi-step decode window", 8)
+            raise _not_in_slice("the multi-step decode window", 5)
         if config.page_size < 8:
             raise ValueError(
                 f"engine page_size must be >= 8, got {config.page_size}")
@@ -210,7 +210,7 @@ class LlamaServingEngine:
             self.step()
 
     def score(self, prompt) -> np.ndarray:
-        raise _not_in_slice("score()", 8)
+        raise _not_in_slice("score()", 5)
 
     def step(self) -> List[Tuple[int, int]]:
         """Admit pending requests (prefill), then decode one token for every
@@ -498,4 +498,4 @@ class LlamaServingEngine:
 
 
 def calibrate_kv_scales(*args, **kwargs):
-    raise _not_in_slice("calibrate_kv_scales", 8)
+    raise _not_in_slice("calibrate_kv_scales", 5)

@@ -42,13 +42,14 @@ def _batch(rng, mode):
     return qo, kv, indptr, indices, last, total
 
 
-def _caches(rng, layout, kv_dtype, pages):
-    """f32 caches, quantised for the 8-bit containers: (numpy for JAX,
-    tensor for the port). e4m3 goes to JAX as int8 bits, to the port as
-    torch.float8_e4m3fn holding the same bits."""
-    shape = ((pages, HKV, PS, D) if layout == "HND" else (pages, PS, HKV, D))
+def _caches(rng, layout, kv_dtype, pages, d=D, dv=D):
+    """f32 caches (K with d columns, V with dv), quantised for the 8-bit
+    containers: (numpy for JAX, tensor for the port). e4m3 goes to JAX as
+    int8 bits, to the port as torch.float8_e4m3fn holding the same bits."""
     out = []
-    for scale in SCALES[kv_dtype]:
+    for scale, width in zip(SCALES[kv_dtype], (d, dv)):
+        shape = ((pages, HKV, PS, width) if layout == "HND"
+                 else (pages, PS, HKV, width))
         x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
         if kv_dtype == "int8":
             t = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
@@ -67,24 +68,39 @@ def _caches(rng, layout, kv_dtype, pages):
                                         ("prefill", 16)])
 def test_run_device_plan_matches_jax(mode, chunk, layout, kv_dtype):
     rng = np.random.default_rng([mode == "decode", chunk, layout == "HND"])
+    _check_against_jax(rng, mode, chunk, layout, kv_dtype)
+
+
+@pytest.mark.parametrize("kv_dtype", ["model", "e4m3"])
+@pytest.mark.parametrize("mode,chunk", [("decode", 16), ("prefill", 16)])
+@pytest.mark.parametrize("d,dv", [(256, 256), (192, 128)])
+def test_run_device_plan_wide_heads_match_jax(d, dv, mode, chunk, kv_dtype):
+    """head_dim 256, and d 192 with dv 128 (V read at its own width), which
+    the paged kernel serves on the card."""
+    rng = np.random.default_rng([d, dv, mode == "decode"])
+    _check_against_jax(rng, mode, chunk, "NHD" if d == dv else "HND",
+                       kv_dtype, d, dv)
+
+
+def _check_against_jax(rng, mode, chunk, layout, kv_dtype, d=D, dv=D):
     qo, kv, indptr, indices, last, pages = _batch(rng, mode)
     # a layer-stacked cache: this "layer" owns pages [pages, 2 * pages)
     offset = pages
-    (kj, kt), (vj, vt) = _caches(rng, layout, kv_dtype, 2 * pages)
-    q = rng.standard_normal((int(qo.sum()), HQ, D)).astype(np.float32)
+    (kj, kt), (vj, vt) = _caches(rng, layout, kv_dtype, 2 * pages, d, dv)
+    q = rng.standard_normal((int(qo.sum()), HQ, d)).astype(np.float32)
     k_scale, v_scale = SCALES[kv_dtype]
     causal = mode == "prefill"
     if mode == "decode":
-        args = (indptr, indices, last, HQ, HKV, D, PS)
-        kw = dict(kv_chunk_size=chunk)
+        args = (indptr, indices, last, HQ, HKV, d, PS)
+        kw = dict(kv_chunk_size=chunk, head_dim_vo=dv)
         jw = jax_batch.BatchDecodeWithPagedKVCacheWrapper(
             kv_layout=layout, backend="pallas")
         tw = torch_batch.BatchDecodeWithPagedKVCacheWrapper(
             kv_layout=layout, device="cpu")
     else:
         qo_indptr = np.concatenate([[0], np.cumsum(qo)])
-        args = (qo_indptr, indptr, indices, last, HQ, HKV, D, PS)
-        kw = dict(kv_chunk_size=chunk, causal=True)
+        args = (qo_indptr, indptr, indices, last, HQ, HKV, d, PS)
+        kw = dict(kv_chunk_size=chunk, causal=True, head_dim_vo=dv)
         jw = jax_batch.BatchPrefillWithPagedKVCacheWrapper(
             kv_layout=layout, backend="pallas", tile_q=16)
         tw = torch_batch.BatchPrefillWithPagedKVCacheWrapper(

@@ -112,6 +112,245 @@ def test_paged_kernel_soft_cap_and_window(dev, cap, window):
     torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-4)
 
 
+# int8 caches hold round(20 x) with a scale of 1/20, so their values are
+# unit-size like the other kinds' (f32 sums of 256 products of int8-sized
+# values differ in their order by more than the f32 tolerance)
+INT8_UNIT = 1 / 20
+
+
+def _paged_caches(dev, gen, layout, kv, qdt, pages, ps, hkv, d, dv):
+    """K (d columns) and V (dv columns) paged caches in ``layout``, in q's
+    dtype, e4m3 or int8 (to be read with a scale of INT8_UNIT), from
+    ``gen`` (the tests here leave the global CUDA generator alone, so the
+    tests after them see the numbers they always saw)."""
+    out = []
+    for width in (d, dv):
+        shape = ((pages, hkv, ps, width) if layout == "HND"
+                 else (pages, ps, hkv, width))
+        x = torch.randn(shape, device=dev, generator=gen)
+        if kv == "int8":
+            x = (x * 20).round().clamp(-127, 127).to(torch.int8)
+        elif kv == "e4m3":
+            x = x.to(torch.float8_e4m3fn)
+        else:
+            x = x.to(qdt)
+        out.append(x)
+    return out
+
+
+def _paged_check(dev, dp, kc, vc, q, hq, hkv, d, k_scale=1.0, v_scale=1.0,
+                 **kw):
+    """The kernel against its plain version on every row of a planned
+    batch (padding rows: the identity in both), with the plan's
+    row_valid; one launch counted. An int8 cache's scales take INT8_UNIT."""
+    unit = INT8_UNIT if kc.dtype == torch.int8 else 1.0
+    kw = dict(tile_q=dp.meta.tile_q, group=hq // hkv, causal=dp.meta.causal,
+              sm_scale=d ** -0.5, row_valid=dp.segment("row_valid"),
+              k_scale=k_scale * unit, v_scale=v_scale * unit, **kw)
+    args = (q, kc, vc, dp.segment("kv_indices"), dp.segment("plan"))
+    before = batch_paged_attention_run.launches
+    o, lse = batch_paged_attention_run(*args, **kw)
+    assert batch_paged_attention_run.launches == before + 1
+    ref_o, ref_lse = paged_attention_plain(*args, **kw)
+    torch.cuda.synchronize()
+    f32 = q.dtype == torch.float32 and kc.dtype != torch.float8_e4m3fn
+    tol = 1e-4 if f32 else 2e-2
+    assert o.shape == ref_o.shape and o.dtype == q.dtype
+    torch.testing.assert_close(o.float(), ref_o.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-4)
+    return o, lse
+
+
+@pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv", ["model", "e4m3", "int8"])
+@pytest.mark.parametrize("layout", ["NHD", "HND"])
+@pytest.mark.parametrize("mode,tile_q", [("decode", None), ("prefill", 64)])
+@pytest.mark.parametrize("d,dv", [(256, 256), (192, 128)])
+def test_paged_kernel_wide_heads(dev, qdt, kv, layout, mode, tile_q, d, dv):
+    """head_dim 256, and d 192 with dv 128 (V at its own width), on the
+    tensor cores (bf16 q, e4m3 caches) and the CUDA cores (f32 q)."""
+    rng = np.random.default_rng(d + dv)
+    gen = torch.Generator(device=dev).manual_seed(d + dv)
+    ps, hq, hkv = 16, 8, 2
+    dp, pages, _ = _plan(mode, ps, hq, hkv, d, rng, tile_q)
+    kc, vc = _paged_caches(dev, gen, layout, kv, qdt, 2 * pages, ps, hkv, d,
+                           dv)
+    q = torch.randn(hkv, dp.meta.bucket_rows, d, device=dev,
+                    generator=gen).to(qdt)
+    _paged_check(dev, dp, kc, vc, q, hq, hkv, d, k_scale=0.7, v_scale=1.3,
+                 kv_layout=TensorLayout[layout], kv_indices_offset=pages)
+
+
+@pytest.mark.parametrize("kv", ["model", "e4m3"])
+@pytest.mark.parametrize("ps", [8, 16, 32])
+@pytest.mark.parametrize("tile_q", [8, 16, 64, 256])
+def test_paged_kernel_tiles_and_pages(dev, kv, ps, tile_q):
+    """Every row-block geometry (one consumer warpgroup below 128 rows, two
+    from 128, a padding block skipped) over pages of 8, 16 and 32."""
+    rng = np.random.default_rng(ps * tile_q)
+    gen = torch.Generator(device=dev).manual_seed(ps * tile_q)
+    hq, hkv, d = 8, 2, 128
+    mode = "decode" if tile_q == 8 else "prefill"
+    dp, pages, _ = _plan(mode, ps, hq, hkv, d, rng, tile_q)
+    kc, vc = _paged_caches(dev, gen, "NHD", kv, torch.bfloat16, pages, ps,
+                           hkv, d, d)
+    q = torch.randn(hkv, dp.meta.bucket_rows, d, device=dev,
+                    generator=gen).bfloat16()
+    _paged_check(dev, dp, kc, vc, q, hq, hkv, d)
+
+
+@pytest.mark.parametrize("kv", ["model", "e4m3", "int8"])
+def test_paged_kernel_pod_shaped_plan(dev, kv):
+    """POD's combined plan: decodes in 256-row tiles (4 real rows each)
+    beside a causal chunk at the tail of a long prompt, in one launch."""
+    from flashinfer_tpu_torch.ops.attention.batch import pack_queries
+    from flashinfer_tpu_torch.ops.attention.pod import (
+        PODWithPagedKVCacheWrapper,
+    )
+
+    rng = np.random.default_rng(9)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    hq, hkv, d, ps = 8, 2, 128, 16
+    kv_lens = rng.integers(40, 400, 6)
+    npages = -(-kv_lens // ps)
+    indptr = np.concatenate([[0], np.cumsum(npages)])
+    prompt, chunk = 900, 300
+    num_pages = int(indptr[-1]) + -(-prompt // ps)
+    perm = rng.permutation(num_pages)
+    indices, free = perm[: indptr[-1]], perm[indptr[-1]:]
+    w = PODWithPagedKVCacheWrapper(device="cuda").plan(
+        indptr, indices, kv_lens - (npages - 1) * ps, hq, hkv, d, ps,
+        kv_len_arr=kv_lens, kv_chunk_size=128, prefill_qo_len=chunk,
+        prefill_kv_len=prompt, prefill_page_indices=free)
+    dp = w._attn.device_plan
+    assert dp.meta.tile_q == 256 and dp.meta.causal
+    kc, vc = _paged_caches(dev, gen, "HND", kv, torch.bfloat16, num_pages, ps,
+                           hkv, d, d)
+    q = torch.randn(chunk + len(kv_lens), hq, d, device=dev,
+                    generator=gen).bfloat16()
+    _paged_check(dev, dp, kc, vc, pack_queries(dp, q), hq, hkv, d,
+                 kv_layout=TensorLayout.HND)
+
+
+@pytest.mark.parametrize("kv", ["model", "e4m3"])
+@pytest.mark.parametrize("cap,window", [(0.0, 20), (30.0, -1), (30.0, 50)])
+def test_paged_tensor_core_kernel_soft_cap_and_window(dev, kv, cap, window):
+    rng = np.random.default_rng(1)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    hq, hkv, d = 4, 2, 64
+    dp, pages, _ = _plan("prefill", 16, hq, hkv, d, rng, 128)
+    kc, vc = _paged_caches(dev, gen, "NHD", kv, torch.bfloat16, pages, 16,
+                           hkv, d, d)
+    q = (torch.randn(hkv, dp.meta.bucket_rows, d, device=dev, generator=gen)
+         * 3).bfloat16()
+    _paged_check(dev, dp, kc, vc, q, hq, hkv, d, window_left=window,
+                 logits_soft_cap=cap)
+
+
+@pytest.mark.parametrize("d", [32, 64])
+def test_paged_tensor_core_kernel_narrow_heads(dev, d):
+    rng = np.random.default_rng(d)
+    gen = torch.Generator(device=dev).manual_seed(d)
+    dp, pages, _ = _plan("prefill", 16, 8, 2, d, rng, 16)
+    kc, vc = _paged_caches(dev, gen, "HND", "model", torch.bfloat16, pages,
+                           16, 2, d, d)
+    q = torch.randn(2, dp.meta.bucket_rows, d, device=dev,
+                    generator=gen).bfloat16()
+    _paged_check(dev, dp, kc, vc, q, 8, 2, d, kv_layout=TensorLayout.HND)
+
+
+@pytest.mark.parametrize("kv", ["model", "e4m3"])
+def test_paged_kernel_in_a_cuda_graph(dev, kv):
+    """A decode launch captured in a CUDA graph and replayed on a second
+    plan blob of the same shape (new lengths, pages and queries) matches
+    its plain version; the call allocates its outputs and nothing else."""
+    hq, hkv, d, ps = 32, 8, 128, 16
+    rng = np.random.default_rng(3)
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def decode_plan(lens):
+        npages = -(-lens // ps)
+        indptr = np.concatenate([[0], np.cumsum(npages)])
+        indices = rng.permutation(400)[: indptr[-1]]
+        w = attn_batch.BatchDecodeWithPagedKVCacheWrapper(
+            kv_layout="NHD", device="cuda")
+        w.plan(indptr, indices, lens - (npages - 1) * ps, hq, hkv, d, ps,
+               kv_chunk_size=256, work_capacity=32)
+        return w.device_plan
+
+    # the longest request (4 chunks) sets the merge's width: keep it
+    plans = [decode_plan(np.concatenate([[900], rng.integers(100, 900, 7)]))
+             for _ in range(2)]
+    assert plans[0].blob.shape == plans[1].blob.shape
+    kc, vc = _paged_caches(dev, gen, "NHD", kv, torch.bfloat16, 400, ps, hkv,
+                           d, d)
+    dp = plans[0]
+    blob = dp.blob.clone()
+    dp = attn_batch.DevicePlan(blob, dp.meta)
+    q = torch.randn(hkv, dp.meta.bucket_rows, d, device=dev,
+                    generator=gen).bfloat16()
+    kw = dict(tile_q=dp.meta.tile_q, group=hq // hkv, causal=False,
+              sm_scale=d ** -0.5, row_valid=dp.segment("row_valid"))
+    args = (q, kc, vc, dp.segment("kv_indices"), dp.segment("plan"))
+    batch_paged_attention_run(*args, **kw)  # builds and loads the library
+    torch.cuda.synchronize()
+    T = dp.meta.num_work_items
+    block = 512  # the caching allocator's rounding
+    want_bytes = sum(-(-n // block) * block for n in (
+        T * hkv * dp.meta.tile_q * d * 2, T * hkv * dp.meta.tile_q * 4))
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    out = batch_paged_attention_run(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated(dev) - base <= want_bytes
+    del out
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        o, lse = batch_paged_attention_run(*args, **kw)
+    blob.copy_(plans[1].blob)
+    q.copy_(torch.randn(q.shape, device=dev, generator=gen).bfloat16())
+    g.replay()
+    ref_o, ref_lse = paged_attention_plain(*args, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o.float(), ref_o.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.parametrize("case", ["k96_n200_bf16", "per_channel_e4m3"])
+def test_fused_moe_ragged_route_on_the_card(dev, case):
+    """Calls the grouped-GEMM kernel cannot take (K 96 / N 200 in bf16;
+    e4m3 weights with a scale a weight row) run the ragged_dot route on the
+    card as on the CPU, and launch no grouped GEMM."""
+    from flashinfer_tpu_torch.ops.fused_moe import fused_moe, route_tokens
+    from flashinfer_tpu_torch.ops.gemm_grouped import grouped_gemm_padded
+
+    gen = torch.Generator().manual_seed(6)
+    m, e, top_k = 40, 8, 2
+    hidden, inter = (96, 100) if case == "k96_n200_bf16" else (256, 128)
+    x = torch.randn(m, hidden, generator=gen).bfloat16()
+    w13 = torch.randn(e, 2 * inter, hidden, generator=gen) * 0.1
+    w2 = torch.randn(e, hidden, inter, generator=gen) * 0.1
+    kw = {}
+    if case == "k96_n200_bf16":
+        w13, w2 = w13.bfloat16(), w2.bfloat16()
+    else:
+        s13 = torch.rand(e, 2 * inter, 1, generator=gen) * 0.02 + 0.01
+        s2 = torch.rand(e, hidden, 1, generator=gen) * 0.02 + 0.01
+        w13 = (w13 / s13).to(torch.float8_e4m3fn)
+        w2 = (w2 / s2).to(torch.float8_e4m3fn)
+        kw = dict(w13_scale=s13, w2_scale=s2)
+    ids, sc = route_tokens(torch.randn(m, e, generator=gen), top_k)
+    want = fused_moe(x, w13, w2, ids, sc, out_dtype=torch.float32, **kw)
+    before = grouped_gemm_padded.launches
+    got = fused_moe(*(t.to(dev) for t in (x, w13, w2, ids, sc)),
+                    out_dtype=torch.float32,
+                    **{k: v.to(dev) for k, v in kw.items()})
+    torch.cuda.synchronize()
+    assert grouped_gemm_padded.launches == before
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-2,
+                               atol=2e-2 * float(want.abs().max()))
+
+
 @pytest.mark.parametrize("filt", ["none", "top_k", "top_p", "min_p",
                                   "top_k_top_p_joint", "top_k_top_p_seq"])
 def test_sampler_kernel_matches_plain(dev, filt):

@@ -257,3 +257,51 @@ def test_permute_by_expert_matches_jax(m, e, top_k):
 ])
 def test_select_moe_tm(rows, experts, tm):
     assert moe.select_moe_tm(rows, experts) == tm
+
+
+def _ragged_case(case, rng):
+    """(x, w13, w2, scales of w13 and w2, logits) as numpy for the calls the
+    grouped-GEMM kernel cannot take: K 96 / N 200 in bf16 (GEMM 2 then has
+    K 100), and e4m3 weights with one scale a weight row (per channel)."""
+    if case == "k96_n200_bf16":
+        m, e, hidden, inter, top_k = 12, 4, 96, 100, 2
+        x, w13, w2, logits = _moe_inputs(rng, m, e, hidden, inter, top_k)
+        return x, w13, w2, None, None, logits, top_k
+    m, e, hidden, inter, top_k = 12, 4, 128, 128, 2
+    x, w13, w2, logits = _moe_inputs(rng, m, e, hidden, inter, top_k)
+    s13 = (0.01 + 0.02 * rng.random((e, 2 * inter, 1))).astype(np.float32)
+    s2 = (0.01 + 0.02 * rng.random((e, hidden, 1))).astype(np.float32)
+    return x, w13 / s13, w2 / s2, s13, s2, logits, top_k
+
+
+@pytest.mark.parametrize("case", ["k96_n200_bf16", "per_channel_e4m3"])
+def test_fused_moe_ragged_route_matches_jax_xla(case):
+    """Calls the grouped-GEMM kernel cannot take run the ragged_dot route,
+    held to JAX's backend="xla" (the route JAX gives them), and
+    backend="pallas" refuses them as JAX's does."""
+    rng = np.random.default_rng(11)
+    x, w13, w2, s13, s2, logits, top_k = _ragged_case(case, rng)
+    ids, sc = jax_moe.route_tokens(jnp.asarray(logits), top_k)
+    jx, tx = _bf16(x)
+    if s13 is None:
+        (j13, t13), (j2, t2) = _bf16(w13), _bf16(w2)
+        kw_j, kw_t = {}, {}
+    else:
+        t13, t2 = (torch.from_numpy(w).to(torch.float8_e4m3fn)
+                   for w in (w13, w2))
+        j13, j2 = (jnp.asarray(t.view(torch.int8).numpy()) for t in (t13, t2))
+        kw_j = dict(w13_scale=jnp.asarray(s13), w2_scale=jnp.asarray(s2))
+        kw_t = dict(w13_scale=torch.from_numpy(s13),
+                    w2_scale=torch.from_numpy(s2))
+    assert not moe._kernel_takes(t13, t2, kw_t.get("w13_scale"),
+                                 kw_t.get("w2_scale"))
+    want = jax_moe.fused_moe(jx, j13, j2, ids, sc, backend="xla",
+                             out_dtype=jnp.float32, **kw_j)
+    tids, tsc = (torch.from_numpy(np.asarray(a)) for a in (ids, sc))
+    got = moe.fused_moe(tx, t13, t2, tids, tsc, out_dtype=torch.float32,
+                        **kw_t)
+    want = np.asarray(want)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-2,
+                               atol=2e-2 * np.abs(want).max())
+    with pytest.raises(ValueError, match="pallas"):
+        moe.fused_moe(tx, t13, t2, tids, tsc, backend="pallas", **kw_t)

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Write ``flashinfer_tpu_torch/csrc/wgmma.cuh``: the Hopper ``wgmma``
-wrappers the flash and grouped-GEMM kernels use, one per instruction shape
+wrappers the flash, grouped-GEMM and paged kernels use, one per instruction shape
 (PTX lists every accumulator register, so each N needs its own operand
 list).
 
@@ -18,9 +18,10 @@ list).
 
 from pathlib import Path
 
-# the grouped GEMM's m-tiles (its wgmma N; the flash kernel's key tiles
-# are two of them) and the flash kernel's value widths
-TM_N = (16, 32, 64, 128)
+# the grouped GEMM's m-tiles and the paged kernel's decode tiles (their
+# wgmma N; the flash kernel's key tiles are two of them) and the flash
+# kernel's value widths
+TM_N = (8, 16, 32, 64, 128)
 RS_N = (64, 128, 192, 256)
 OUT = (Path(__file__).resolve().parent.parent / "flashinfer_tpu_torch" /
        "csrc" / "wgmma.cuh")
