@@ -475,59 +475,104 @@ def check_paged_attention(torch, np, lens_decode, lens_prefill):
     return rows
 
 
-def check_sampler(torch, vocabs=(128256, 102400), batch=8):
-    """The sampler at the two main paths' shapes: [8, 128256] (Llama-3-8B)
-    and [8, 102400] (DeepSeek-V2-Lite)."""
-    from flashinfer_tpu_torch.ops.sampling import (
-        family_call,
-        family_plain,
-        softmax,
-    )
+# (name, batch, vocab, filter, out mode): the seq draw at both paths'
+# shapes (the DeepSeek path draws for one row when one request emits), and
+# the row-writing modes at the Llama shape
+SAMPLER_CASES = (
+    ("llama", 8, 128256, "top_k_top_p_seq", "sample"),
+    ("deepseek", 8, 102400, "top_k_top_p_seq", "sample"),
+    ("deepseek_one", 1, 102400, "top_k_top_p_seq", "sample"),
+    ("llama_renorm", 8, 128256, "top_k_top_p_seq", "renorm"),
+    ("llama_mask", 8, 128256, "top_k", "mask_logits"),
+)
+
+
+def sampler_cases(torch):
+    """The sampler check's inputs, one dict a case of ``SAMPLER_CASES``:
+    probabilities (a softmax of 4 x randn logits) or, for mask_logits, the
+    logits; top-k 40, top-p 0.9; with the case's byte bound (rows read and
+    written once, k, p and tokens)."""
+    from flashinfer_tpu_torch.ops.sampling import softmax
 
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(3)
+    for name, batch, vocab, filt, mode in SAMPLER_CASES:
+        logits = torch.randn(batch, vocab, device=dev, generator=gen) * 4
+        x = logits if mode == "mask_logits" else softmax(logits)
+        nbytes = x.numel() * 4 * (1 if mode == "sample" else 2) + batch * 12
+        b_ms, b_by = bound_ms(nbytes, 0)
+        yield dict(name=name, batch=batch, vocab=vocab, filt=filt, mode=mode,
+                   x=x, k=torch.full((batch, 1), 40, dtype=torch.int32,
+                                     device=dev),
+                   p=torch.full((batch, 1), 0.9, device=dev),
+                   bound_ms=b_ms, bound_by=b_by)
+
+
+def check_sampler(torch):
+    """The sampler at the main paths' shapes (``SAMPLER_CASES``): draws at
+    five seeds (the seed's 32 bits: -1 and 2**32 - 1 among them) held to
+    the plain version's tokens, renorm to ``SAMPLER_RENORM_TOL``, masks
+    exactly; each case's route, cluster size and bisection steps a pass
+    (``sampler_route``) and what a launch did (``sampler_stats``: its
+    cluster reductions, the bisection steps one warp took alone on the list
+    the top-k search gathered, and that list's length, each the largest
+    over the rows); the kernel's time in a CUDA graph and eager."""
+    from flashinfer_tpu_torch.ops.sampling import (
+        family_call,
+        family_plain,
+        sampler_route,
+        sampler_stats,
+    )
+
     out = []
-    for vocab in vocabs:
-        probs = softmax(torch.randn(batch, vocab, device=dev, generator=gen)
-                        * 4)
-        k = torch.full((batch, 1), 40, dtype=torch.int32, device=dev)
-        p = torch.full((batch, 1), 0.9, device=dev)
-        mismatches = 0
-        for seed in (12345, 2**31 - 2, 7):
-            got = family_call(probs, seed, k, p, filt="top_k_top_p_seq",
-                              out_mode="sample")
-            want = family_plain(probs, seed, k, p, filt="top_k_top_p_seq",
-                                out_mode="sample")
-            mismatches += int((got != want).sum())
-            log(f"sampler vocab={vocab} seed={seed} kernel={got.tolist()} "
-                f"plain={want.tolist()}")
-        got = family_call(probs, 0, k, p, filt="top_k_top_p_seq",
-                          out_mode="renorm")
-        want = family_plain(probs, 0, k, p, filt="top_k_top_p_seq",
-                            out_mode="renorm")
-        err = float((got - want).abs().max())
+    for case in sampler_cases(torch):
+        x, k, p, filt, mode = (case[n] for n in ("x", "k", "p", "filt",
+                                                 "mode"))
+        batch, vocab = x.shape
+        mismatches, err = 0, 0.0
+        seeds = ((12345, 2**31 - 2, 7, -1, 2**32 - 1) if mode == "sample"
+                 else (0,))
+        for seed in seeds:
+            got = family_call(x, seed, k, p, filt=filt, out_mode=mode)
+            want = family_plain(x, seed, k, p, filt=filt, out_mode=mode)
+            if mode == "renorm":
+                err = max(err, float((got - want).abs().max()))
+            else:
+                mismatches += int((got != want).sum())
+            if mode == "sample":
+                log(f"sampler {case['name']} seed={seed} kernel="
+                    f"{got.tolist()} plain={want.tolist()}")
 
         def run(fn):
-            return lambda: fn(probs, 12345, k, p, filt="top_k_top_p_seq",
-                              out_mode="sample")
+            return lambda: fn(x, 12345, k, p, filt=filt, out_mode=mode)
 
         ms = cuda_ms(torch, run(family_call), 20, graph=True)
         call_ms = cuda_ms(torch, run(family_call), 20)
         plain_ms = cuda_ms(torch, run(family_plain), 3, warmup=1)
-        nbytes = probs.numel() * 4 + k.numel() * 4 + p.numel() * 4 + batch * 4
-        b_ms, b_by = bound_ms(nbytes, 0)
+        route = sampler_route(vocab)
+        st = sampler_stats(x, k, p, filt=filt, out_mode=mode)
+        route.update(cluster_passes=int(st[:, 0].max()),
+                     warp_steps=int(st[:, 1].max()),
+                     gathered=int(st[:, 2].max()))
         ok = mismatches == 0 and err <= SAMPLER_RENORM_TOL
-        log(f"sampler_family batch={batch} vocab={vocab} token_mismatches="
-            f"{mismatches} renorm_err={err:.2e} ms={ms:.4f} call_ms="
-            f"{call_ms:.4f} plain_ms="
-            f"{plain_ms:.3f} bound_ms={b_ms:.5f} ({b_by}) "
+        log(f"sampler_family {case['name']} batch={batch} vocab={vocab} "
+            f"{filt} {mode} route={route['route']} C={route['cluster']} "
+            f"s={route['levels']} threads={route['threads']} "
+            f"gathered={route['gathered']} max_active_clusters="
+            f"{route['max_active_clusters']} token_mismatches={mismatches} "
+            f"renorm_err={err:.2e} ms={ms:.4f} call_ms={call_ms:.4f} "
+            f"plain_ms={plain_ms:.3f} bound_ms={case['bound_ms']:.5f} "
+            f"({case['bound_by']}); held by {route['cluster_passes']} cluster "
+            f"reductions and {route['warp_steps']} single-warp steps "
             f"{'ok' if ok else 'MISMATCH'}")
         if not ok:
             raise AssertionError(f"sampler kernel disagrees with its plain "
-                                 f"version at vocab {vocab}")
-        out.append(dict(batch=batch, vocab=vocab, err=err,
-                        mismatches=mismatches, ms=ms, call_ms=call_ms,
-                        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by))
+                                 f"version at {case['name']}")
+        out.append(dict(case=case["name"], batch=batch, vocab=vocab,
+                        filt=filt, mode=mode, err=err, mismatches=mismatches,
+                        ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                        bound_ms=case["bound_ms"], bound_by=case["bound_by"],
+                        **route))
     return out
 
 
@@ -609,7 +654,9 @@ def check_mla(torch, np):
     """MLA at DeepSeek-V2-Lite shapes (16 heads, ckv 512, kpe 64, page 16):
     decode of 8 requests of 512-4096 keys (KV chunk 256, so split-KV
     partials merge) and causal prefill of 8 prompts of 64-512 tokens (KV
-    chunk 512), each on bf16, e4m3 and linear int8 caches."""
+    chunk 512), each on bf16, e4m3 and linear int8 caches; and the decode
+    the DeepSeek path serves (``deepseek_serve``): 8 requests of 33-160
+    keys, KV chunk 64, bf16 caches."""
     from flashinfer_tpu_torch.ops.attention.mla import (
         mla_paged_plain,
         mla_paged_run,
@@ -620,13 +667,17 @@ def check_mla(torch, np):
     rng = np.random.default_rng(4)
     kv_dec = rng.integers(512, 4097, 8)
     qo_pre = rng.integers(64, 513, 8)
+    served_rng = np.random.default_rng(14)
+    kv_served = served_rng.integers(33, 161, 8)
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(9)
     rows = []
-    for mode, qo, kv, causal, chunk in (
-            ("decode", np.ones(8, np.int64), kv_dec, False, 256),
-            ("prefill", qo_pre, qo_pre, True, 512)):
-        w, pages = _mla_plan(np, qo, kv, causal, chunk, rng)
+    ones, all_kv = np.ones(8, np.int64), ("bf16", "e4m3", "int8")
+    for mode, qo, kv, causal, chunk, page_rng, kv_dtypes in (
+            ("decode", ones, kv_dec, False, 256, rng, all_kv),
+            ("prefill", qo_pre, qo_pre, True, 512, rng, all_kv),
+            ("served", ones, kv_served, False, 64, served_rng, ("bf16",))):
+        w, pages = _mla_plan(np, qo, kv, causal, chunk, page_rng)
         dp = w.device_plan
         m = dp.meta
         q_ckv = torch.randn(m.bucket_rows, d_ckv, device=dev, generator=gen,
@@ -634,7 +685,7 @@ def check_mla(torch, np):
         q_pe = torch.randn(m.bucket_rows, d_kpe, device=dev, generator=gen,
                            dtype=torch.bfloat16)
         plan, kv_idx = dp.segment("plan"), dp.segment("kv_indices")
-        for kv_dtype in ("bf16", "e4m3", "int8"):
+        for kv_dtype in kv_dtypes:
             caches = []
             for d in (d_ckv, d_kpe):
                 x = torch.randn(LAYERS_ROTATED, pages, MLA_PAGE, d,
@@ -668,7 +719,7 @@ def check_mla(torch, np):
             same_inf = bool(torch.equal(finite, torch.isfinite(lse)))
             err_lse = (float((lse[finite] - ref_lse[finite]).abs().max())
                        if bool(finite.any()) else 0.0)
-            iters = 20 if mode == "decode" else 5
+            iters = 5 if mode == "prefill" else 20
             ms = cuda_ms(torch, lambda: call(mla_paged_run), iters,
                          graph=True)
             plain_ms = cuda_ms(torch, lambda: call(mla_paged_plain), 3,
@@ -1485,7 +1536,8 @@ def _family(name):
                                            "merge_splits_kernel")),
                       ("mla_attention", ("mla_attention",)),
                       ("grouped_gemm", ("grouped_gemm",)),
-                      ("sampler_family", ("family_kernel",)),
+                      ("sampler_family", ("family_cluster_kernel",
+                                          "family_stream_kernel")),
                       ("rmsnorm", ("rmsnorm",)),
                       ("matmul", ("gemm", "gemv", "xmma", "cutlass", "nvjet",
                                   "splitk")),

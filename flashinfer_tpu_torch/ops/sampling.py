@@ -6,8 +6,13 @@ on a CUDA tensor it launches the kernel ``csrc/sampling.cu`` (which replaces
 the TPU kernel ``_family_kernel``, sampling.py:484), on a CPU tensor it runs
 ``family_plain``. Both follow the TPU kernel step for step (32-step pivot
 bisections, renorm between top-k and top-p, a Gumbel-max draw whose noise is
-a murmur3 finalizer of (seed, row, lane)), so the same seed draws the same
-tokens as the JAX package.
+a murmur3 finalizer of (seed, row, lane) on the seed's 32 bits), so the same
+int32 seed draws the same tokens as the JAX package.
+
+The kernel has two routes, which its C entry chooses from the vocabulary
+(``sampler_route`` reports the choice): a row held in the shared memory of
+a cluster of CTAs where the row's slices fit, else one CTA a row streaming
+it from L2 on every step.
 
 Filters: ``none``, ``top_k``, ``top_p``, ``min_p``, ``top_k_top_p_joint`` and
 ``top_k_top_p_seq`` (top-k, renormalise, top-p: the engine's order). Output
@@ -29,6 +34,9 @@ __all__ = [
     "softmax",
     "family_call",
     "family_plain",
+    "pivot_search_plain",
+    "sampler_route",
+    "sampler_stats",
     "top_k_top_p_sampling_from_probs",
     "draw_seed",
 ]
@@ -72,6 +80,34 @@ def _bisect(vals, ok_fn, lo, hi):
         ok = ok_fn(vals, mid)
         lo = torch.where(ok, mid, lo)
         hi = torch.where(ok, hi, mid)
+    return lo
+
+
+def pivot_search_plain(vals, ok_fn, lo, hi, levels: int):
+    """``_bisect``'s 32 steps taken ``levels`` at a time, as the cluster
+    kernel takes them: each sweep evaluates ``ok_fn`` at the 2**levels - 1
+    midpoints the next ``levels`` steps could visit (each ``(lo + hi) *
+    0.5`` from its own path's lo and hi; node n's children are 2n, not ok,
+    and 2n + 1, ok), then walks the decisions. Gives ``_bisect``'s pivots
+    bit for bit. lo, hi [B, 1]."""
+    done = 0
+    while done < BISECT_ITERS:
+        nl, nh, mids, oks = [lo], [hi], [], []
+        for n in range(1, 2 ** levels):
+            if n > 1:
+                par = n // 2 - 1
+                nl.append(mids[par] if n & 1 else nl[par])
+                nh.append(nh[par] if n & 1 else mids[par])
+            mids.append((nl[n - 1] + nh[n - 1]) * 0.5)
+            oks.append(ok_fn(vals, mids[-1]))
+        mids, oks = torch.cat(mids, -1), torch.cat(oks, -1)
+        node = torch.zeros_like(lo, dtype=torch.int64)  # 0-based: n - 1
+        for _ in range(min(levels, BISECT_ITERS - done)):
+            mid, ok = mids.gather(-1, node), oks.gather(-1, node)
+            lo = torch.where(ok, mid, lo)
+            hi = torch.where(ok, hi, mid)
+            node = 2 * node + 1 + ok.long()
+        done += levels
     return lo
 
 
@@ -157,28 +193,57 @@ def family_plain(x: torch.Tensor, seed: int, k: torch.Tensor,
     return scored.argmax(dim=-1).to(torch.int32)
 
 
+def _seed32(seed) -> int:
+    """A seed in [-2**31, 2**32) as the int32 of its low 32 bits."""
+    s = int(seed)
+    if not -2**31 <= s < 2**32:
+        raise ValueError(f"seed {s} is outside [-2**31, 2**32)")
+    s &= _MASK32
+    return s - 2**32 if s >= 2**31 else s
+
+
 def _lib():
     fn = jit.load("sampling").fi_sampling_family
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, P, P, I, I, I, I, I, P, P, P]
+        fn.argtypes = [P, P, P, I, I, I, I, P, I, P, P, P, P]
         fn.restype = I
     return fn
 
 
-def family_call(x: torch.Tensor, seed: int, k, p, *, filt: str,
-                out_mode: str) -> torch.Tensor:
-    """The sampler family. x [B, V] (probabilities, or logits for
-    ``mask_logits``); k top-k per row (scalar, [B] or [B, 1]); p top-p or
-    min-p per row; seed the int32 of the Gumbel noise.
+def sampler_route(vocab: int) -> dict:
+    """The route the kernel takes for rows of ``vocab`` entries, as its C
+    entry chooses it (needs the card): ``cluster`` (the row in the shared
+    memory of ``cluster`` CTAs, ``levels`` bisection steps a cluster pass,
+    ``max_active_clusters`` clusters on the card at once) where the row's
+    slices fit, else ``stream`` (cluster 0)."""
+    fn = jit.load("sampling").fi_sampling_route
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    info = (ctypes.c_int * 5)()
+    jit.check(fn(vocab, info), "sampler route query")
+    cluster, levels, threads, slice_, clusters = info
+    return dict(route="cluster" if cluster else "stream", cluster=cluster,
+                levels=levels, threads=threads, slice=slice_,
+                max_active_clusters=clusters)
 
-    A CUDA tensor launches the kernel (or raises); a CPU tensor takes
-    ``family_plain``."""
+
+def _launch(x, seed, k, p, filt, out_mode, stats=None):
+    """One launch of the kernel on CUDA rows (counted in
+    ``family_call.launches``), or ``family_plain`` on CPU rows; ``stats``
+    [B, 3] int32 takes the cluster route's pass counts."""
     if filt not in _FILTS or out_mode not in _OUTS:
         raise ValueError(f"unknown filter {filt!r} or out_mode {out_mode!r}")
     batch, vocab = x.shape
     k = _row_param(k, batch, torch.int32, x.device)
     p = _row_param(p, batch, torch.float32, x.device)
+    seed_dev = x.is_cuda and isinstance(seed, torch.Tensor) and seed.is_cuda
+    if seed_dev:
+        if (seed.dtype != torch.int32 or seed.numel() != 1
+                or seed.device != x.device):
+            raise TypeError("a tensor seed is one int32 on the rows' device")
+    else:
+        seed = _seed32(seed)
     if not x.is_cuda:
         return family_plain(x, seed, k, p, filt=filt, out_mode=out_mode)
     if x.dtype != torch.float32:
@@ -189,15 +254,46 @@ def family_call(x: torch.Tensor, seed: int, k, p, *, filt: str,
     row = (torch.empty_like(x) if out_mode != "sample"
            else torch.empty(0, device=x.device))
     err = _lib()(x.data_ptr(), k.data_ptr(), p.data_ptr(), batch, vocab,
-                 _FILTS[filt], _OUTS[out_mode], int(seed) & 0x7FFFFFFF,
-                 tok.data_ptr(), row.data_ptr(),
+                 _FILTS[filt], _OUTS[out_mode],
+                 seed.data_ptr() if seed_dev else None,
+                 0 if seed_dev else seed, tok.data_ptr(), row.data_ptr(),
+                 None if stats is None else stats.data_ptr(),
                  torch.cuda.current_stream(x.device).cuda_stream)
     jit.check(err, "sampler kernel")
     family_call.launches += 1
     return tok if out_mode == "sample" else row
 
 
+def family_call(x: torch.Tensor, seed, k, p, *, filt: str,
+                out_mode: str) -> torch.Tensor:
+    """The sampler family. x [B, V] (probabilities, or logits for
+    ``mask_logits``); k top-k per row (scalar, [B] or [B, 1]); p top-p or
+    min-p per row; seed the Gumbel noise's seed: an int in [-2**31, 2**32)
+    (its low 32 bits, passed by value), or an int32 tensor of one element on
+    x's device, which the kernel reads when it runs (so a CUDA graph can
+    replay with a new seed).
+
+    A CUDA tensor launches the kernel on the route ``sampler_route`` names
+    (or raises); a CPU tensor takes ``family_plain``."""
+    return _launch(x, seed, k, p, filt, out_mode)
+
+
 family_call.launches = 0
+
+
+def sampler_stats(x: torch.Tensor, k, p, *, filt: str,
+                  out_mode: str) -> torch.Tensor:
+    """What one launch on CUDA rows x did, per row: its cluster reductions
+    (barriers), the bisection steps warp 0 of a CTA took alone, and the
+    length of the list the top-k search gathered for them (-1: none); [B,
+    3] int32. The streaming route reports nothing (every entry -1). The
+    launch counts in ``family_call.launches``, as any other does."""
+    if not x.is_cuda:
+        raise ValueError("only a launch on CUDA rows reports its passes")
+    stats = torch.full((x.shape[0], 3), -1, dtype=torch.int32,
+                       device=x.device)
+    _launch(x, 0, k, p, filt, out_mode, stats)
+    return stats
 
 
 def top_k_top_p_sampling_from_probs(

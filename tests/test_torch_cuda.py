@@ -28,7 +28,12 @@ from flashinfer_tpu_torch.ops.attention.kernels.paged import (
     paged_attention_plain,
 )
 from flashinfer_tpu_torch.ops.norm import rmsnorm, rmsnorm_plain
-from flashinfer_tpu_torch.ops.sampling import family_call, family_plain
+from flashinfer_tpu_torch.ops import sampling as sampling_mod
+from flashinfer_tpu_torch.ops.sampling import (
+    family_call,
+    family_plain,
+    sampler_route,
+)
 from flashinfer_tpu_torch.utils import TensorLayout
 
 pytestmark = pytest.mark.cuda
@@ -382,6 +387,183 @@ def test_sampler_kernel_mask_logits(dev):
     want = family_plain(x, 0, k, torch.ones(4, 1, device=dev), filt="top_k",
                         out_mode="mask_logits")
     torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+SAMPLER_FILTS = ["none", "top_k", "top_p", "min_p", "top_k_top_p_joint",
+                 "top_k_top_p_seq"]
+# beyond the cluster route's shared memory at 8 CTAs a row
+SAMPLER_STREAM_VOCAB = 500_000
+
+
+def _sampler_rows(dev, batch, vocab, seed, filt="top_k"):
+    """Peaked probability rows with a uniform row (all ties) and a one-hot
+    row; k cycles over 1, 40, V - 1, V, V + 5 and p over 0.9, 1.0."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    probs = torch.softmax(
+        torch.randn(batch, vocab, device=dev, generator=gen) * 4, -1)
+    if batch > 1:
+        probs[1] = 1.0 / vocab
+    if batch > 2:
+        probs[2] = 0.0
+        probs[2, vocab // 3] = 1.0
+    ks = [1, 40, vocab - 1, vocab, vocab + 5]
+    k = torch.tensor([[ks[i % 5]] for i in range(batch)], dtype=torch.int32,
+                     device=dev)
+    p = torch.tensor([[(0.9, 1.0)[i % 2]] for i in range(batch)], device=dev)
+    if filt == "min_p":
+        p = p * 0.2
+    return probs, k, p
+
+
+def _sampler_check(probs, k, p, filt, seeds=(1, -1)):
+    for seed in seeds:
+        before = family_call.launches
+        got = family_call(probs, seed, k, p, filt=filt, out_mode="sample")
+        assert family_call.launches == before + 1
+        want = family_plain(probs, seed, k, p, filt=filt, out_mode="sample")
+        torch.testing.assert_close(got, want, atol=0, rtol=0)
+    got = family_call(probs, 0, k, p, filt=filt, out_mode="renorm")
+    want = family_plain(probs, 0, k, p, filt=filt, out_mode="renorm")
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-5)
+
+
+@pytest.mark.parametrize("filt", SAMPLER_FILTS)
+@pytest.mark.parametrize("vocab", [5000, 32000, 102400, 128256, 151937])
+@pytest.mark.parametrize("batch", [1, 3, 8, 17])
+def test_sampler_cluster_route_matches_plain(dev, batch, vocab, filt):
+    """The cluster route at the served vocabularies and an odd one, one
+    cluster a row (17 rows: more clusters than the card runs at once)."""
+    assert sampler_route(vocab)["route"] == "cluster"
+    probs, k, p = _sampler_rows(dev, batch, vocab, batch * 7 + vocab, filt)
+    _sampler_check(probs, k, p, filt)
+
+
+@pytest.mark.parametrize("filt", SAMPLER_FILTS)
+def test_sampler_stream_route_matches_plain(dev, filt):
+    """Rows beyond the cluster's shared memory take the streaming route."""
+    assert sampler_route(SAMPLER_STREAM_VOCAB)["route"] == "stream"
+    probs, k, p = _sampler_rows(dev, 3, SAMPLER_STREAM_VOCAB, 11, filt)
+    _sampler_check(probs, k, p, filt)
+
+
+@pytest.mark.parametrize("vocab", [3000, 128256, 151937,
+                                   SAMPLER_STREAM_VOCAB])
+def test_sampler_mask_logits_both_routes(dev, vocab):
+    gen = torch.Generator(device=dev).manual_seed(vocab)
+    x = torch.randn(5, vocab, device=dev, generator=gen) * 3
+    x[1] = 0.5  # all ties
+    k = torch.tensor([[1], [40], [vocab - 1], [vocab], [vocab + 5]],
+                     device=dev, dtype=torch.int32)
+    got = family_call(x, 0, k, 1.0, filt="top_k", out_mode="mask_logits")
+    want = family_plain(x, 0, k, torch.ones(5, 1, device=dev), filt="top_k",
+                        out_mode="mask_logits")
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("vocab", [128256, SAMPLER_STREAM_VOCAB])
+@pytest.mark.parametrize("seed", [-1, 2**31 - 1, 2**32 - 1])
+def test_sampler_seed_takes_all_32_bits(dev, vocab, seed):
+    """The seed's 32 bits reach the noise as they are (2**32 - 1 is -1),
+    on both routes, as in the plain version and JAX's kernel."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    probs = torch.softmax(torch.randn(4, vocab, device=dev, generator=gen),
+                          -1)
+    for filt in ("none", "top_k_top_p_seq"):
+        got = family_call(probs, seed, 40, 0.9, filt=filt,
+                          out_mode="sample")
+        want = family_plain(probs, seed, torch.full((4, 1), 40, device=dev),
+                            torch.full((4, 1), 0.9, device=dev), filt=filt,
+                            out_mode="sample")
+        torch.testing.assert_close(got, want, atol=0, rtol=0)
+        assert torch.equal(got, family_call(probs, seed - 2**32 if seed
+                                            >= 2**31 else seed, 40, 0.9,
+                                            filt=filt, out_mode="sample"))
+
+
+@pytest.mark.parametrize("vocab", [128256, SAMPLER_STREAM_VOCAB])
+def test_sampler_seed_from_device_memory_in_a_cuda_graph(dev, vocab):
+    """A draw captured with a device seed replays with the seed that memory
+    holds at replay: the plain version's tokens for the new seed."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    probs = torch.softmax(
+        torch.randn(8, vocab, device=dev, generator=gen) * 4, -1)
+    k = torch.full((8, 1), 40, dtype=torch.int32, device=dev)
+    p = torch.full((8, 1), 0.9, device=dev)
+    seed = torch.tensor([5], dtype=torch.int32, device=dev)
+    kw = dict(filt="top_k_top_p_seq", out_mode="sample")
+    family_call(probs, seed, k, p, **kw)  # builds and loads the library
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        tok = family_call(probs, seed, k, p, **kw)
+    for new in (123, -7, 2**31 - 1):
+        seed.fill_(new)
+        g.replay()
+        torch.testing.assert_close(tok, family_plain(probs, new, k, p, **kw),
+                                   atol=0, rtol=0)
+
+
+def test_sampler_gathers_the_candidates_of_a_peaked_row(dev):
+    """A peaked row's top-k search gathers the entries above its lo into
+    one list (at least its 40 entries) after a few cluster passes and
+    finishes in warp 0 of each CTA alone; a uniform row (all ties) keeps
+    every entry above lo and never gathers."""
+    probs, k, p = _sampler_rows(dev, 2, 128256, 5)
+    k[:] = 40
+    p[:] = 0.9
+    stats = sampling_mod.sampler_stats(probs, k, p, filt="top_k_top_p_seq",
+                                       out_mode="sample")
+    assert stats[0, 2] >= 40 and stats[0, 0] < 19 and stats[0, 1] > 0
+    assert stats[1, 2] == -1 and stats[1, 1] == 0
+
+
+def test_sampler_route_by_vocabulary(dev):
+    """The C entry's route: a cluster of 8 CTAs, 4 bisection steps a pass,
+    while a row's slices fit in shared memory (at most 200 KB a CTA), else
+    the streaming route."""
+    for vocab in (5000, 102400, 128256, 151937, 409600):
+        r = sampler_route(vocab)
+        assert (r["route"], r["cluster"], r["levels"]) == ("cluster", 8, 4)
+        assert r["slice"] * 8 >= vocab and r["max_active_clusters"] >= 1
+    r = sampler_route(409601)
+    assert (r["route"], r["cluster"], r["slice"]) == ("stream", 0, 0)
+
+
+def _plateau_rows(dev, batch, vocab, seed, filt):
+    """_sampler_rows with 2048 entries of each row tied at its top: more
+    than the top-k search gathers, so it stays on cluster passes to its
+    end."""
+    probs, k, p = _sampler_rows(dev, batch, vocab, seed, filt)
+    top = probs.amax(-1, keepdim=True)
+    idx = torch.randperm(vocab, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(
+                             seed))[:2048]
+    probs[:, idx] = top
+    return probs / probs.sum(-1, keepdim=True), k, p
+
+
+@pytest.mark.parametrize("rows", ["peaked", "plateau"])
+def test_sampler_cluster_shapes_agree(dev, rows):
+    """Both ends of a top-k search on the cluster route draw the plain
+    version's tokens and masks: peaked rows gather their candidates into
+    one warp's list, rows with 2048 entries tied at the top keep the search
+    on cluster passes to its end."""
+    make = _sampler_rows if rows == "peaked" else _plateau_rows
+    for filt in ("top_k_top_p_seq", "top_k_top_p_joint"):
+        probs, k, p = make(dev, 5, 128256, 8, filt)
+        k[0] = 40
+        stats = sampling_mod.sampler_stats(probs, k, p, filt=filt,
+                                           out_mode="sample")
+        assert (int(stats[0, 2]) >= 40) == (rows == "peaked")
+        _sampler_check(probs, k, p, filt)
+    probs, _, _ = make(dev, 5, 32000, 1, "top_k")
+    x = torch.log(probs + 1e-30)
+    k = torch.tensor([[1], [40], [31999], [32000], [32005]], device=dev,
+                     dtype=torch.int32)
+    torch.testing.assert_close(
+        family_call(x, 0, k, 1.0, filt="top_k", out_mode="mask_logits"),
+        family_plain(x, 0, k, torch.ones(5, 1, device=dev), filt="top_k",
+                     out_mode="mask_logits"), atol=0, rtol=0)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -21,9 +21,12 @@ from flashinfer_tpu.ops import sampling as jax_sampling
 from flashinfer_tpu_torch.ops.activation import silu_and_mul
 from flashinfer_tpu_torch.ops.norm import rmsnorm, rmsnorm_plain
 from flashinfer_tpu_torch.ops.rope import apply_rope_pos_ids
+from flashinfer_tpu_torch.ops import sampling as torch_sampling
 from flashinfer_tpu_torch.ops.sampling import (
     family_call,
     gumbel_noise,
+    pivot_search_plain,
+    sampler_stats,
     softmax,
     top_k_top_p_sampling_from_probs,
 )
@@ -190,6 +193,115 @@ def test_gumbel_noise_is_the_murmur3_hash():
             + np.float32(1e-7)
         want = -np.log(-np.log(np.float32(u)))
         assert abs(float(g[row, lane]) - float(want)) < 1e-5
+
+
+def _pivot_rows():
+    """Rows a pivot search must get right, [6, 300] f32 with k and p: a
+    peaked row, one with ties, one with k >= V and p >= 1, one with
+    denormal entries, and a one-hot row."""
+    rng = np.random.default_rng(11)
+    x = _probs(rng, 6, 300)
+    x[1] = np.repeat(rng.dirichlet(np.ones(30)), 10) / 10  # tied pairs
+    x[3, :200] = np.float32(1e-40)  # denormals
+    x[3, 200:] /= x[3, 200:].sum()
+    x[4] = 0.0
+    x[4, 123] = 1.0
+    k = np.asarray([[40], [7], [300], [25], [40], [299]], np.int32)
+    p = np.asarray([[0.9], [0.5], [1.0], [0.8], [0.9], [0.99]], np.float32)
+    return torch.from_numpy(x), torch.from_numpy(k), torch.from_numpy(p)
+
+
+@pytest.mark.parametrize("mode", ["count", "mass"])
+@pytest.mark.parametrize("levels", [1, 2, 3, 4, 5])
+def test_pivot_search_takes_the_bisections_steps(levels, mode):
+    """Steps taken ``levels`` a sweep, as the cluster kernel takes them,
+    give the 32-step loop's pivots bit for bit: on the rows, on the rows
+    padded to 384 lanes as a kernel pads them (0, or -inf for logits), and
+    on logits between the row min and max. Counts are exact, so a padded
+    row's count pivots are the row's."""
+    x, k, p = _pivot_rows()
+    if mode == "count":
+        def ok(v, mid):
+            return (v > mid).sum(dim=-1, keepdim=True) >= k
+    else:
+        def ok(v, mid):
+            return torch.where(v > mid, v, 0.0).sum(dim=-1,
+                                                   keepdim=True) >= p
+
+    def both(v, lo, hi):
+        want = torch_sampling._bisect(v, ok, lo, hi)
+        got = pivot_search_plain(v, ok, lo, hi, levels)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        return got
+
+    lo, hi = torch.zeros(6, 1), x.amax(dim=-1, keepdim=True)
+    row = both(x, lo, hi)
+    padded = both(torch.cat([x, torch.zeros(6, 84)], -1), lo, hi)
+    logits = torch.log(x + 1e-30)
+    lo, hi = logits.amin(-1, keepdim=True), logits.amax(-1, keepdim=True)
+    both(torch.cat([logits, torch.full((6, 84), float("-inf"))], -1), lo, hi)
+    if mode == "count":
+        assert torch.equal(padded, row)
+
+
+def _int32_hash_noise(seed, batch, vocab):
+    """The TPU kernel's noise as ``_family_kernel`` writes it
+    (flashinfer_tpu/ops/sampling.py:577-590): int32 arithmetic with
+    wrap-around, logical shifts, in numpy."""
+    with np.errstate(over="ignore"):
+        row = np.arange(batch, dtype=np.int32)[:, None]
+        lane = np.arange(vocab, dtype=np.int32)[None, :]
+        x = (np.int32(seed) + row * np.int32(-1640531527)
+             + lane * np.int32(40503))
+
+        def srl(h, n):
+            return (h.view(np.uint32) >> np.uint32(n)).view(np.int32)
+
+        def mix(h):
+            h = h ^ srl(h, 16)
+            h = h * np.int32(-2048144789)
+            h = h ^ srl(h, 13)
+            h = h * np.int32(-1028477387)
+            return h ^ srl(h, 16)
+
+        u24 = srl(mix(mix(x)), 8)
+    u = u24.astype(np.float32) * np.float32(1.0 / (1 << 24)) \
+        + np.float32(1e-7)
+    return -np.log(-np.log(u))
+
+
+@pytest.mark.parametrize("seed", [-1, 0, 2**31 - 1])
+def test_gumbel_noise_is_the_int32_hash_of_the_seed(seed):
+    """The plain version's noise takes the seed's 32 bits as the TPU
+    kernel's int32 arithmetic does, negative seeds included."""
+    got = gumbel_noise(seed, 3, 5000).numpy()
+    want = _int32_hash_noise(seed, 3, 5000)
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+def test_family_call_takes_the_seeds_low_32_bits():
+    probs = torch.from_numpy(_probs(np.random.default_rng(12), 4, 700))
+    kw = dict(filt="top_k_top_p_seq", out_mode="sample")
+    a = family_call(probs, -1, 40, 0.9, **kw)
+    assert torch.equal(a, family_call(probs, 2**32 - 1, 40, 0.9, **kw))
+    assert torch.equal(a, family_call(probs, torch.tensor([-1],
+                                                          dtype=torch.int32),
+                                      40, 0.9, **kw))
+    for bad in (2**32, -2**31 - 1):
+        with pytest.raises(ValueError):
+            family_call(probs, bad, 40, 0.9, **kw)
+
+
+def test_sampler_on_cpu_rows_counts_no_launch():
+    """CPU rows take the plain version: no kernel launch is counted, and
+    only a launch on CUDA rows reports its passes."""
+    probs = torch.from_numpy(_probs(np.random.default_rng(13), 2, 300))
+    before = family_call.launches
+    family_call(probs, 3, 40, 0.9, filt="top_k_top_p_seq", out_mode="sample")
+    assert family_call.launches == before
+    with pytest.raises(ValueError):
+        sampler_stats(probs, 40, 0.9, filt="top_k_top_p_seq",
+                      out_mode="sample")
 
 
 def test_sampling_needs_a_seed_or_generator():
