@@ -190,7 +190,8 @@ def phase_card():
 # -------------------------------------------------------------------- build
 
 # the libraries built on wgmma and TMA
-TENSOR_CORE_LIBS = ("flash_attention", "grouped_gemm", "paged_attention")
+TENSOR_CORE_LIBS = ("flash_attention", "grouped_gemm", "paged_attention",
+                    "mla_attention")
 
 
 def phase_build():
@@ -617,9 +618,10 @@ def check_rmsnorm(torch, shapes=((8, 4096, 1e-5), (4096, 4096, 1e-5),
     return out
 
 
-def _mla_plan(np, qo_lens, kv_lens, causal, chunk, page_rng):
+def _mla_plan(np, qo_lens, kv_lens, causal, chunk, page_rng, tile_q=None):
     """An MLA plan at V2-Lite heads, page 16, with a page table drawn from
-    ``page_rng``. Returns (wrapper, pages)."""
+    ``page_rng`` (tile_q None: the wrapper's choice). Returns (wrapper,
+    pages)."""
     from flashinfer_tpu_torch.ops.attention.mla import (
         BatchMLAPagedAttentionWrapper,
     )
@@ -629,7 +631,7 @@ def _mla_plan(np, qo_lens, kv_lens, causal, chunk, page_rng):
     indptr = np.concatenate([[0], np.cumsum(npages)])
     pages = int(indptr[-1])
     indices = page_rng.permutation(pages)
-    w = BatchMLAPagedAttentionWrapper(device=DEVICE)
+    w = BatchMLAPagedAttentionWrapper(device=DEVICE, tile_q=tile_q)
     w.plan(np.concatenate([[0], np.cumsum(qo_lens)]), indptr, indices,
            np.asarray(kv_lens), c["num_heads"], c["head_dim_ckv"],
            c["head_dim_kpe"], MLA_PAGE, causal=causal, kv_chunk_size=chunk,
@@ -650,18 +652,18 @@ def _mla_bytes(plan, kv_lens, tile_q, d_ckv, d_kpe, kv_itemsize, pages):
     return kv + q + out + p.size * 4 + pages * 4
 
 
-def check_mla(torch, np):
-    """MLA at DeepSeek-V2-Lite shapes (16 heads, ckv 512, kpe 64, page 16):
-    decode of 8 requests of 512-4096 keys (KV chunk 256, so split-KV
-    partials merge) and causal prefill of 8 prompts of 64-512 tokens (KV
-    chunk 512), each on bf16, e4m3 and linear int8 caches; and the decode
+def mla_cases(torch, np):
+    """The MLA check's inputs, one dict a (shape, cache type), at
+    DeepSeek-V2-Lite shapes (16 heads, ckv 512, kpe 64, page 16): decode of
+    8 requests of 512-4096 keys (KV chunk 256, so split-KV partials merge)
+    and causal prefill of 8 prompts of 64-512 tokens (KV chunk 512; tile_q
+    128, the wrapper's choice, and again at tile_q 64), each on bf16, e4m3
+    and linear int8 caches over ``LAYERS_ROTATED`` layers; and the decode
     the DeepSeek path serves (``deepseek_serve``): 8 requests of 33-160
-    keys, KV chunk 64, bf16 caches."""
-    from flashinfer_tpu_torch.ops.attention.mla import (
-        mla_paged_plain,
-        mla_paged_run,
-    )
-
+    keys, KV chunk 64, bf16 caches. ``call(fn, rotate=True)`` runs ``fn``
+    (the kernel's wrapper or its plain version) on the case, on the next
+    layer's caches when ``rotate``; each case has its byte and operation
+    bound."""
     c = V2_LITE
     d_ckv, d_kpe, heads = c["head_dim_ckv"], c["head_dim_kpe"], c["num_heads"]
     rng = np.random.default_rng(4)
@@ -671,13 +673,15 @@ def check_mla(torch, np):
     kv_served = served_rng.integers(33, 161, 8)
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(9)
-    rows = []
     ones, all_kv = np.ones(8, np.int64), ("bf16", "e4m3", "int8")
-    for mode, qo, kv, causal, chunk, page_rng, kv_dtypes in (
-            ("decode", ones, kv_dec, False, 256, rng, all_kv),
-            ("prefill", qo_pre, qo_pre, True, 512, rng, all_kv),
-            ("served", ones, kv_served, False, 64, served_rng, ("bf16",))):
-        w, pages = _mla_plan(np, qo, kv, causal, chunk, page_rng)
+    for mode, qo, kv, causal, chunk, page_rng, kv_dtypes, tile_q in (
+            ("decode", ones, kv_dec, False, 256, rng, all_kv, None),
+            ("prefill", qo_pre, qo_pre, True, 512, rng, all_kv, None),
+            ("served", ones, kv_served, False, 64, served_rng, ("bf16",),
+             None),
+            ("prefill64", qo_pre, qo_pre, True, 512,
+             np.random.default_rng(4), all_kv, 64)):
+        w, pages = _mla_plan(np, qo, kv, causal, chunk, page_rng, tile_q)
         dp = w.device_plan
         m = dp.meta
         q_ckv = torch.randn(m.bucket_rows, d_ckv, device=dev, generator=gen,
@@ -702,49 +706,68 @@ def check_mla(torch, np):
                       sm_scale=m.sm_scale * deq, v_scale=deq)
             layer = [0]
 
-            def call(fn, rotate=True):
+            def call(fn, rotate=True, ckv=ckv, kpe=kpe, kw=kw, layer=layer):
                 li = layer[0] % LAYERS_ROTATED
                 if rotate:
                     layer[0] += 1
                 return fn(q_ckv, q_pe, ckv[li], kpe[li], kv_idx, plan, **kw)
 
-            o, lse = call(mla_paged_run, rotate=False)
-            ref_o, ref_lse = call(mla_paged_plain, rotate=False)
-            torch.cuda.synchronize()
-            diff_o = (o.float() - ref_o.float()).abs()
-            err_o = float(diff_o.max())
-            o_ratio = float((diff_o / (ATTN_RTOL_O * ref_o.float().abs()
-                                       + ATTN_ATOL_O)).max())
-            finite = torch.isfinite(ref_lse)
-            same_inf = bool(torch.equal(finite, torch.isfinite(lse)))
-            err_lse = (float((lse[finite] - ref_lse[finite]).abs().max())
-                       if bool(finite.any()) else 0.0)
-            iters = 5 if mode == "prefill" else 20
-            ms = cuda_ms(torch, lambda: call(mla_paged_run), iters,
-                         graph=True)
-            plain_ms = cuda_ms(torch, lambda: call(mla_paged_plain), 3,
-                               warmup=1)
             nbytes = _mla_bytes(plan, kv, m.tile_q, d_ckv, d_kpe,
                                 ckv.element_size(), pages)
             # QK over ckv + kpe and P.V over ckv, 2 operations a product
             ops = 2 * (2 * d_ckv + d_kpe) * _attention_work(kv, qo, heads)
             kind = {"bf16": "bf16", "e4m3": "fp8", "int8": "int8"}[kv_dtype]
             b_ms, b_by = bound_ms(nbytes, ops, kind)
-            ok = o_ratio <= 1.0 and err_lse <= ATTN_TOL_LSE and same_inf
-            row = dict(mode=mode, kv=kv_dtype, q_rows=m.bucket_rows,
-                       kv_tokens=int(kv.sum()), T=m.num_work_items,
-                       tile_q=m.tile_q, splits=m.max_splits, err_o=err_o,
-                       o_ratio=o_ratio, err_lse=err_lse, ms=ms,
-                       plain_ms=plain_ms, bound_bytes=nbytes, bound_ops=ops,
-                       bound_ms=b_ms, bound_by=b_by, ok=ok)
-            rows.append(row)
-            log(f"mla_attention {mode:7s} {kv_dtype:4s} q_rows={m.bucket_rows}"
-                f" kv_tokens={int(kv.sum())} T={m.num_work_items} tile_q="
-                f"{m.tile_q} splits={m.max_splits} err_o={err_o:.2e} (limit "
-                f"ratio {o_ratio:.3f}) err_lse={err_lse:.2e} ms={ms:.4f} "
-                f"plain_ms={plain_ms:.3f} bound_ms={b_ms:.5f} ({b_by}) "
-                f"{'ok' if ok else 'MISMATCH'}")
-            del ckv, kpe, caches
+            yield dict(mode=mode, kv=kv_dtype, meta=m, call=call,
+                       q_dtype=q_ckv.dtype, kv_dtype=ckv.dtype,
+                       on_card=q_ckv.is_cuda,
+                       kv_tokens=int(kv.sum()),
+                       iters=5 if mode.startswith("prefill") else 20,
+                       bound_bytes=nbytes, bound_ops=ops, bound_ms=b_ms,
+                       bound_by=b_by)
+            del ckv, kpe, caches, call
+
+
+def check_mla(torch, np):
+    """The MLA kernel on each of ``mla_cases``, held against its plain
+    version and timed beside it; each row names the route the C entry
+    took."""
+    from flashinfer_tpu_torch.ops.attention.mla import (
+        mla_paged_plain,
+        mla_paged_run,
+        mla_route,
+    )
+
+    c = V2_LITE
+    rows = []
+    for case in mla_cases(torch, np):
+        m, call = case["meta"], case["call"]
+        chk = _attn_check(torch, call(mla_paged_run, rotate=False),
+                          call(mla_paged_plain, rotate=False))
+        ms = cuda_ms(torch, lambda: call(mla_paged_run), case["iters"],
+                     graph=True)
+        plain_ms = cuda_ms(torch, lambda: call(mla_paged_plain), 3,
+                           warmup=1)
+        route = (mla_route(case["q_dtype"], case["kv_dtype"], m.tile_q,
+                           c["head_dim_ckv"], c["head_dim_kpe"], MLA_PAGE)
+                 if case["on_card"] else "plain")
+        row = dict(mode=case["mode"], kv=case["kv"], route=route,
+                   q_rows=m.bucket_rows, kv_tokens=case["kv_tokens"],
+                   T=m.num_work_items, tile_q=m.tile_q, splits=m.max_splits,
+                   err_o=chk["err_o"], o_ratio=chk["o_ratio"],
+                   err_lse=chk["err_lse"], ms=ms, plain_ms=plain_ms,
+                   **{k: case[k] for k in ("bound_bytes", "bound_ops",
+                                           "bound_ms", "bound_by")},
+                   ok=chk["ok"])
+        rows.append(row)
+        log(f"mla_attention {row['mode']:9s} {row['kv']:4s} route={route} "
+            f"q_rows={m.bucket_rows} kv_tokens={row['kv_tokens']} "
+            f"T={m.num_work_items} tile_q={m.tile_q} splits={m.max_splits} "
+            f"err_o={chk['err_o']:.2e} (limit ratio {chk['o_ratio']:.3f}) "
+            f"err_lse={chk['err_lse']:.2e} ms={ms:.4f} "
+            f"plain_ms={plain_ms:.3f} bound_ms={row['bound_ms']:.5f} "
+            f"({row['bound_by']}) {'ok' if chk['ok'] else 'MISMATCH'}")
+        del case, call
     bad = [r for r in rows if not r["ok"]]
     if bad:
         raise AssertionError(f"MLA kernel disagrees with its plain version: "
@@ -1534,7 +1557,8 @@ def _family(name):
                       ("flash_attention", ("flash_tc_kernel",
                                            "flash_f32_kernel",
                                            "merge_splits_kernel")),
-                      ("mla_attention", ("mla_attention",)),
+                      ("mla_attention", ("mla_attention_kernel",
+                                         "mla_dec_kernel", "mla_pre_kernel")),
                       ("grouped_gemm", ("grouped_gemm",)),
                       ("sampler_family", ("family_cluster_kernel",
                                           "family_stream_kernel")),

@@ -7,11 +7,12 @@ query heads are packed as rows of one KV stream (kv heads 1, ``gqa_group``
 = num_heads), so the plan is the paged attention plan (``PlanMeta``,
 ``DevicePlan``, the same int32 blob as the JAX package's).
 
-``mla_paged_run`` launches the CUDA kernel ``flashinfer_tpu_torch/csrc/
-mla_attention.cu``, which replaces the TPU kernel ``_mla_kernel``
-(mla.py:67, launched by ``_mla_paged_run`` :372); ``mla_paged_plain`` is
-its plain version. The cache's dtype says how it is read: the model dtype,
-``torch.float8_e4m3fn`` (e4m3; the JAX package's int8 containers of e4m3
+``mla_paged_run`` launches the CUDA kernels of ``flashinfer_tpu_torch/csrc/
+mla_attention.cu``, which replace the TPU kernel ``_mla_kernel`` (mla.py:67,
+launched by ``_mla_paged_run`` :372): wgmma tiles fed by TMA for bf16 q at
+DeepSeek's widths, the CUDA cores otherwise (``mla_route`` says which);
+``mla_paged_plain`` is their plain version. The cache's dtype says how it
+is read: the model dtype, ``torch.float8_e4m3fn`` (e4m3; the JAX package's int8 containers of e4m3
 bits are the same bytes, ``.view(torch.float8_e4m3fn)``), or int8 as the
 linear container (value = q * scale).
 """
@@ -37,7 +38,7 @@ from flashinfer_tpu_torch.utils import (
 )
 
 __all__ = ["BatchMLAPagedAttentionWrapper", "mla_paged_run",
-           "mla_paged_plain"]
+           "mla_paged_plain", "mla_route"]
 
 # rows of the plan that the kernels read (AttentionPlan.prefetch_arrays)
 _REQ, _QO_TILE, _QO_START, _KV_START, _KV_END, _KV_PAGE_START, _Q_POS_BASE = (
@@ -74,8 +75,11 @@ def mla_paged_plain(
     """The work list in plain PyTorch, all items at once: each item's KV
     chunk is gathered page by page and attended in one softmax pass.
     Rounding as on the TPU: keys convert exactly; P goes into P.V in bf16
-    unless the cache is f32; q is rounded to bf16 against an e4m3 cache.
-    sm_scale and v_scale arrive with the 8-bit scales folded in."""
+    unless the cache is f32, against the row's max as the TPU kernel
+    rounds it below 8 keys (the kernels round against their exact running
+    max: a bf16 step apart on some P); q is rounded to bf16 against an
+    e4m3 cache. sm_scale and v_scale arrive with the 8-bit
+    scales folded in."""
     fmt = _kv_format(ckv_cache)
     q_rows, d_ckv = q_ckv.shape
     d_kpe = q_pe.shape[1]
@@ -138,6 +142,25 @@ def _lib():
     return fn
 
 
+_ROUTES = ("cuda_cores", "decode", "prefill")
+
+
+def mla_route(q_dtype: torch.dtype, kv_dtype: torch.dtype, tile_q: int,
+              d_ckv: int, d_kpe: int, page_size: int) -> str:
+    """The kernel ``mla_paged_run`` launches for these arguments, as the
+    library's C entry chooses it: "decode" (swap-AB wgmma tiles, tile_q
+    8/16/32) or "prefill" (64-row wgmma tiles, tile_q a multiple of 64) for
+    bf16 q at DeepSeek's widths (d_ckv 512, d_kpe 64) on pages of a multiple
+    of 8 tokens, else "cuda_cores". Needs the library (a CUDA machine)."""
+    fn = jit.load("mla_attention").fi_mla_route
+    fn.argtypes = [ctypes.c_int] * 6
+    fn.restype = ctypes.c_int
+    kv_code = {torch.float8_e4m3fn: _KV_E4M3, torch.int8: _KV_I8}.get(
+        kv_dtype, _Q_CODES.get(kv_dtype, -1))
+    return _ROUTES[fn(_Q_CODES.get(q_dtype, -1), kv_code, tile_q, d_ckv,
+                      d_kpe, page_size)]
+
+
 def mla_paged_run(
     q_ckv: torch.Tensor,
     q_pe: torch.Tensor,
@@ -192,6 +215,9 @@ def mla_paged_run(
                     (kv_indices, "kv_indices"), (plan, "plan")):
         if not t.is_cuda or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous CUDA tensor")
+    if ckv_cache.data_ptr() % 16 or kpe_cache.data_ptr() % 16:
+        raise ValueError("the MLA kernels read the caches in 16-byte vectors "
+                         "(and through TMA): they must start on 16 bytes")
     if kv_indices.dtype != torch.int32 or plan.dtype != torch.int32:
         raise TypeError("plan and kv_indices must be int32")
     T = plan.numel() // 12

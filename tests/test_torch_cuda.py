@@ -74,6 +74,8 @@ def _plan(mode, ps, hq, hkv, d, rng, tile_q=None):
 @pytest.mark.parametrize("mode,tile_q", [("decode", None),
                                          ("prefill", 16), ("prefill", 64)])
 def test_paged_kernel_matches_plain(dev, qdt, kv, layout, mode, tile_q):
+    # its caches and q come from the global CUDA generator, which PyTorch
+    # seeds anew in every process: each run draws other numbers
     rng = np.random.default_rng(0)
     ps, hq, hkv, d = 16, 8, 2, 64
     dp, pages, nnz = _plan(mode, ps, hq, hkv, d, rng, tile_q)
@@ -88,8 +90,15 @@ def test_paged_kernel_matches_plain(dev, qdt, kv, layout, mode, tile_q):
     else:
         kc, vc = kc.to(qdt), vc.to(qdt)
     q = torch.randn(hkv, dp.meta.bucket_rows, d, device=dev).to(qdt)
+    # an int8 cache holds values x 20: its dequant scale 1/20 folds into
+    # both scales, as in the file's other int8 tests. Read at x 20, P's bf16
+    # rounding at a key whose f32 score lies on a rounding boundary (taken
+    # one way by the kernel's sums, the other by the plain version's) moves
+    # o by up to ~0.13, past the absolute tolerance near 0
+    # (tools/paged_int8_witness.py)
+    unit = INT8_UNIT if kv == "int8" else 1.0
     kw = dict(tile_q=dp.meta.tile_q, group=hq // hkv, causal=dp.meta.causal,
-              sm_scale=d ** -0.5, k_scale=0.7, v_scale=1.3,
+              sm_scale=d ** -0.5, k_scale=0.7 * unit, v_scale=1.3 * unit,
               kv_layout=TensorLayout[layout], kv_indices_offset=pages)
     args = (q, kc, vc, dp.segment("kv_indices"), dp.segment("plan"))
     before = batch_paged_attention_run.launches
@@ -164,6 +173,28 @@ def _paged_check(dev, dp, kc, vc, q, hq, hkv, d, k_scale=1.0, v_scale=1.0,
     torch.testing.assert_close(o.float(), ref_o.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-4)
     return o, lse
+
+
+@pytest.mark.parametrize("mode,tile_q,layout", [
+    ("decode", None, "NHD"), ("decode", None, "HND"), ("prefill", 16, "NHD"),
+    ("prefill", 16, "HND"), ("prefill", 64, "NHD")])
+def test_paged_kernel_int8_runs_are_bit_identical(dev, mode, tile_q, layout):
+    """The int8 / bf16-q shapes of test_paged_kernel_matches_plain that
+    failed now and then: 20 launches in one process on the same inputs give
+    the same bits, each matching the plain version."""
+    rng = np.random.default_rng(20)
+    gen = torch.Generator(device=dev).manual_seed(20)
+    ps, hq, hkv, d = 16, 8, 2, 64
+    dp, pages, _ = _plan(mode, ps, hq, hkv, d, rng, tile_q)
+    kc, vc = _paged_caches(dev, gen, layout, "int8", torch.bfloat16,
+                           2 * pages, ps, hkv, d, d)
+    q = torch.randn(hkv, dp.meta.bucket_rows, d, device=dev,
+                    generator=gen).to(torch.bfloat16)
+    runs = [_paged_check(dev, dp, kc, vc, q, hq, hkv, d, k_scale=0.7,
+                         v_scale=1.3, kv_layout=TensorLayout[layout],
+                         kv_indices_offset=pages) for _ in range(20)]
+    for o, lse in runs[1:]:
+        assert torch.equal(o, runs[0][0]) and torch.equal(lse, runs[0][1])
 
 
 @pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16])
@@ -646,6 +677,126 @@ def test_mla_kernel_matches_plain(dev, qdt, kv, mode, heads, d_ckv, d_kpe,
     tol = 1e-4 if (qdt == torch.float32 and kv == "model") else 2e-2
     torch.testing.assert_close(o.float(), ref_o.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-4)
+
+
+# DeepSeek's MLA widths, on the tensor-core routes for bf16 q:
+# (q dtype, cache kind) of each case
+MLA_KINDS = {"bf16": (torch.bfloat16, "model"),
+             "e4m3": (torch.bfloat16, "e4m3"),
+             "int8": (torch.bfloat16, "int8"),
+             "f32": (torch.float32, "model"),
+             "f32_int8": (torch.float32, "int8")}
+
+
+def _mla_tc_case(dev, gen, qdt, kv, tile_q, chunk, kpe_width, qo, kv_lens,
+                 causal):
+    """A planned 16-head MLA batch (d_ckv 512, d_kpe 64, pages of 16) drawn
+    from ``gen``: (packed q_ckv, q_pe, ckv, kpe, kv_indices, plan, meta)."""
+    from flashinfer_tpu_torch.ops.attention.mla import (
+        BatchMLAPagedAttentionWrapper,
+    )
+
+    ps, heads = 16, 16
+    qo, kv_lens = np.asarray(qo), np.asarray(kv_lens)
+    npages = -(-kv_lens // ps)
+    indptr = np.concatenate([[0], np.cumsum(npages)])
+    pages = int(indptr[-1]) + 3
+    indices = np.random.default_rng(chunk).permutation(pages)[
+        : int(indptr[-1])]
+    w = BatchMLAPagedAttentionWrapper(device="cuda", tile_q=tile_q)
+    w.plan(np.concatenate([[0], np.cumsum(qo)]), indptr, indices, kv_lens,
+           heads, 512, 64, ps, causal=causal, kv_chunk_size=chunk)
+    dp = w.device_plan
+    caches = []
+    for width in (512, kpe_width):
+        c = torch.randn(pages, ps, width, device=dev, generator=gen)
+        if kv == "int8":
+            c = (c * 20).round().clamp(-127, 127).to(torch.int8)
+        elif kv == "e4m3":
+            c = c.to(torch.float8_e4m3fn)
+        else:
+            c = c.to(qdt)
+        caches.append(c)
+    rows = dp.meta.bucket_rows
+    q_ckv = torch.randn(rows, 512, device=dev, generator=gen).to(qdt)
+    q_pe = torch.randn(rows, 64, device=dev, generator=gen).to(qdt)
+    return (q_ckv, q_pe, caches[0], caches[1], dp.segment("kv_indices"),
+            dp.segment("plan"), dp.meta)
+
+
+@pytest.mark.parametrize("kind", list(MLA_KINDS))
+@pytest.mark.parametrize("chunk", [16, 64, 256])
+@pytest.mark.parametrize("tile_q", [8, 16, 32, 64, 128])
+def test_mla_kernel_routes_match_plain(dev, kind, chunk, tile_q):
+    """Every route at DeepSeek's widths: the swap-AB decode tiles (8, 16, 32
+    rows) and the 64-row tiles (64, 128) for bf16 q on bf16, e4m3 and int8
+    caches, the CUDA cores for f32 q; KV chunks of 16, 64 and 256 keys over
+    spans that end inside a page and inside a 64-key tile, padding items
+    (every plan but tile_q 128 / chunk 256 has some), causal rows that see
+    no key (a request of fewer keys than tokens), and a kpe cache read
+    through a row stride of 128 (chunk 64)."""
+    from flashinfer_tpu_torch.ops.attention.mla import (
+        mla_paged_plain,
+        mla_paged_run,
+        mla_route,
+    )
+
+    qdt, kv = MLA_KINDS[kind]
+    gen = torch.Generator(device=dev).manual_seed(tile_q * 1000 + chunk)
+    kpe_width = 128 if chunk == 64 else 64
+    *args, m = _mla_tc_case(dev, gen, qdt, kv, tile_q, chunk, kpe_width,
+                            qo=[1, 3, 40, 1], kv_lens=[77, 300, 30, 129],
+                            causal=True)
+    assert m.tile_q == tile_q
+    want = ("cuda_cores" if qdt == torch.float32
+            else "decode" if tile_q <= 32 else "prefill")
+    assert mla_route(qdt, args[2].dtype, tile_q, 512, 64, 16) == want
+    # an int8 cache holds values x 20: its dequant scale folds into both
+    deq = INT8_UNIT if kv == "int8" else 1.0
+    kw = dict(tile_q=m.tile_q, group=m.gqa_group, causal=m.causal,
+              sm_scale=0.7 * deq / 576 ** 0.5, v_scale=1.3 * deq)
+    before = mla_paged_run.launches
+    o, lse = mla_paged_run(*args, **kw)
+    assert mla_paged_run.launches == before + 1
+    ref_o, ref_lse = mla_paged_plain(*args, **kw)
+    torch.cuda.synchronize()
+    tol = 1e-4 if (qdt == torch.float32 and kv == "model") else 2e-2
+    torch.testing.assert_close(o.float(), ref_o.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-4)
+
+
+def test_mla_served_decode_in_a_cuda_graph(dev):
+    """The decode the DeepSeek path serves (8 requests of 33-160 keys, 16
+    heads, KV chunk 64, tile_q 16, bf16) captured in a CUDA graph: each
+    replay on new q (written in place) matches the plain version."""
+    from flashinfer_tpu_torch.ops.attention.mla import (
+        mla_paged_plain,
+        mla_paged_run,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    kv_lens = np.random.default_rng(14).integers(33, 161, 8)
+    *args, m = _mla_tc_case(dev, gen, torch.bfloat16, "model", None, 64, 64,
+                            qo=np.ones(8, np.int64), kv_lens=kv_lens,
+                            causal=False)
+    assert m.tile_q == 16
+    q_ckv, q_pe = args[0], args[1]
+    kw = dict(tile_q=m.tile_q, group=m.gqa_group, causal=False,
+              sm_scale=576 ** -0.5)
+    mla_paged_run(*args, **kw)  # build and warm up outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        o, lse = mla_paged_run(*args, **kw)
+    for _ in range(3):
+        q_ckv.copy_(torch.randn(q_ckv.shape, device=dev, generator=gen))
+        q_pe.copy_(torch.randn(q_pe.shape, device=dev, generator=gen))
+        graph.replay()
+        ref_o, ref_lse = mla_paged_plain(*args, **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(o.float(), ref_o.float(), atol=2e-2,
+                                   rtol=2e-2)
+        torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-4)
 
 
 def _gg_case(dev, wdt, tm, k, n, nk, rng):

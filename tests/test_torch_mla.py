@@ -3,7 +3,10 @@ port (plain versions of the kernels on the CPU) against the JAX package,
 its Pallas MLA kernel in interpret mode (tile_k 8), on the same numpy
 inputs and plans.
 
-Tolerances: f32 caches to 2e-5 (the two sum in different orders). The
+Tolerances: f32 caches to 2e-5 (the two sum in different orders); bf16
+q and caches to 2e-2, since both round P to bf16 (the TPU kernel against
+the running maximum of each 8-key sub-tile, the port's plain version
+against the row's maximum) and round o to bf16. The
 8-bit caches see the same quantised values on both sides, but the TPU
 kernel rounds P to bf16 before P.V (its 8-bit caches decode to bf16)
 against the running maximum of each 8-key sub-tile, the port's plain
@@ -36,8 +39,9 @@ page = importlib.import_module("flashinfer_tpu_torch.ops.page")
 rope = importlib.import_module("flashinfer_tpu_torch.ops.rope")
 
 PS, HEADS, D_CKV, D_KPE, PAGES = 4, 4, 64, 32, 40
-SCALES = {"f32": (1.0, 1.0), "e4m3": (0.11, 0.07), "int8": (0.02, 0.03)}
-TOL = {"f32": 2e-5, "e4m3": 1e-2, "int8": 1e-2}
+SCALES = {"f32": (1.0, 1.0), "e4m3": (0.11, 0.07), "int8": (0.02, 0.03),
+          "bf16": (1.0, 1.0)}
+TOL = {"f32": 2e-5, "e4m3": 1e-2, "int8": 1e-2, "bf16": 2e-2}
 
 
 def _page_table(rng, kv_lens):
@@ -59,6 +63,9 @@ def _cache(rng, dtype, scale, width):
         t = torch.from_numpy(np.clip(np.round(x / scale), -127, 127)).to(
             torch.int8)
         return t.numpy(), t
+    if dtype == "bf16":  # the same bf16 values on both sides
+        t = torch.from_numpy(x).bfloat16()
+        return jnp.asarray(t.float().numpy()).astype(jnp.bfloat16), t
     return x, torch.from_numpy(x)
 
 
@@ -71,7 +78,7 @@ CASES = {
 }
 
 
-@pytest.mark.parametrize("dtype", ["f32", "e4m3", "int8"])
+@pytest.mark.parametrize("dtype", ["f32", "e4m3", "int8", "bf16"])
 @pytest.mark.parametrize("case", list(CASES))
 def test_mla_wrapper_matches_jax_pallas(case, dtype):
     kv_lens, qo_lens, causal, chunk, kpe_width = CASES[case]
@@ -83,6 +90,12 @@ def test_mla_wrapper_matches_jax_pallas(case, dtype):
     nnz = sum(qo_lens)
     q_nope = rng.standard_normal((nnz, HEADS, D_CKV)).astype(np.float32)
     q_pe = rng.standard_normal((nnz, HEADS, D_KPE)).astype(np.float32)
+    q_t = [torch.from_numpy(q_nope), torch.from_numpy(q_pe)]
+    q_j = [jnp.asarray(q_nope), jnp.asarray(q_pe)]
+    if dtype == "bf16":  # bf16 q: the served path's numerics
+        q_t = [t.bfloat16() for t in q_t]
+        q_j = [jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+               for t in q_t]
     qo_indptr = np.concatenate([[0], np.cumsum(qo_lens)])
     args = (qo_indptr, indptr, indices, np.asarray(kv_lens), HEADS, D_CKV,
             D_KPE, PS)
@@ -92,19 +105,19 @@ def test_mla_wrapper_matches_jax_pallas(case, dtype):
 
     jw = JaxMLA(backend="pallas", tile_k=8)
     jw.plan(*args, **kw)
-    want, want_lse = jw.run(jnp.asarray(q_nope), jnp.asarray(q_pe),
-                            jnp.asarray(ckv_j), jnp.asarray(kpe_j),
+    want, want_lse = jw.run(*q_j, jnp.asarray(ckv_j), jnp.asarray(kpe_j),
                             return_lse=True, interpret=True,
                             cache_dtype=jax_cache_dtype, **scales)
     tw = BatchMLAPagedAttentionWrapper(device="cpu")
     tw.plan(*args, **kw)
     if case == "split_kv":
         assert tw.device_plan.meta.max_splits > 1  # the merge runs
-    got, got_lse = tw.run(torch.from_numpy(q_nope), torch.from_numpy(q_pe),
-                          ckv_t, kpe_t, return_lse=True, **scales)
+    got, got_lse = tw.run(*q_t, ckv_t, kpe_t, return_lse=True, **scales)
     tol = TOL[dtype]
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=tol,
-                               rtol=tol)
+    assert got.dtype == q_t[0].dtype
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               atol=tol, rtol=tol)
     np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse),
                                atol=tol, rtol=tol)
 

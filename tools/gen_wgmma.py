@@ -10,6 +10,8 @@ list).
   accumulators, A and B from shared memory through descriptors, both
   K-major; ``scale_d`` 0 overwrites D.
 - ``wgmma_ss_ta<N>``: the same with A MN-major (``tnspA`` = 1).
+- ``wgmma_ss_tb<N>``: the same with B MN-major (``tnspB`` = 1): D[64 x N]
+  (+)= A[64 x 16] . B[16 x N], B's N columns contiguous in shared memory.
 - ``wgmma_rs<N>``: D[64 x N] += A[64 x 16] . B[16 x N], A from registers
   (the m16n8k16 A fragment of each warp's 16 rows), B from shared memory
   MN-major (``tnspB`` = 1); ``scale_d`` 0 overwrites D.
@@ -23,6 +25,8 @@ from pathlib import Path
 # kernel's value widths
 TM_N = (8, 16, 32, 64, 128)
 RS_N = (64, 128, 192, 256)
+# the MLA prefill kernel's P.V: half of d_ckv (512) a consumer warpgroup
+TB_N = (256,)
 OUT = (Path(__file__).resolve().parent.parent / "flashinfer_tpu_torch" /
        "csrc" / "wgmma.cuh")
 
@@ -35,7 +39,7 @@ def _outs(count):
     return ", ".join(f'"+f"(d[{i}])' for i in range(count))
 
 
-def ss(n, name="wgmma_ss", trans_a=0):
+def ss(n, name="wgmma_ss", trans_a=0, trans_b=0):
     r = n // 2
     return f"""template <>
 __device__ __forceinline__ void {name}<{n}>(float* d, uint64_t da,
@@ -44,7 +48,7 @@ __device__ __forceinline__ void {name}<{n}>(float* d, uint64_t da,
       "{{\\n.reg .pred p;\\nsetp.ne.b32 p, %{r + 2}, 0;\\n"
       "wgmma.mma_async.sync.aligned.m64n{n}k16.f32.bf16.bf16 "
       "{{{_regs(0, r)}}}, "
-      "%{r}, %{r + 1}, p, 1, 1, {trans_a}, 0;\\n}}\\n"
+      "%{r}, %{r + 1}, p, 1, 1, {trans_a}, {trans_b};\\n}}\\n"
       : {_outs(r)}
       : "l"(da), "l"(db), "r"(scale_d));
 }}
@@ -77,6 +81,8 @@ def main():
         "uint64_t db, int scale_d);\n",
         "template <int N>\n__device__ void wgmma_ss_ta(float* d, uint64_t da, "
         "uint64_t db, int scale_d);\n",
+        "template <int N>\n__device__ void wgmma_ss_tb(float* d, uint64_t da, "
+        "uint64_t db, int scale_d);\n",
         "template <int N>\n__device__ void wgmma_rs(float* d, "
         "const uint32_t* a, uint64_t db,\n"
         "                         int scale_d);\n",
@@ -86,6 +92,7 @@ def main():
     ]
     parts += [ss(n) for n in TM_N]
     parts += [ss(n, "wgmma_ss_ta", 1) for n in TM_N]
+    parts += [ss(n, "wgmma_ss_tb", 0, 1) for n in TB_N]
     parts += [rs(n) for n in RS_N]
     parts += [rs(n, "wgmma_rs_kb", 0) for n in TM_N]
     OUT.write_text("\n".join(parts))

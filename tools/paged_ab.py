@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the paged-attention kernel of several checkouts in turns on one card.
 
-    python3 tools/paged_ab.py DIR[:NAME=VALUE] [DIR ...] [--out FILE]
+    python3 tools/paged_ab.py DIR [DIR ...] [--out FILE]
 
 Each DIR is the root of a checkout (``git archive`` of a commit unpacked
 into a gitignored directory, say). For each DIR, in the order given (name
@@ -14,34 +14,25 @@ POD's combined plan (HND), each on bf16, e4m3 and int8 caches rotated over
 ``LAYERS_ROTATED`` layers, 20 calls in one CUDA graph. A version whose
 wrapper takes the plan's ``row_valid`` gets it, as ``run_device_plan``
 passes it. Prints the card, then a line per case with each run's ms and
-the first run's bound; exits 1 if a run fails. ``DIR:NAME=VALUE`` runs
-DIR with that environment variable set (an A/B of a knob within one tree).
+the first run's bound (``tools/ab.py``); exits 1 if a run fails.
 """
 
 from __future__ import annotations
 
-import argparse
+import inspect
 import json
 import os
-import subprocess
 import sys
 
-HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+import ab
 
 
 def child() -> None:
     """One run, from the root of the checkout under test."""
-    import importlib.util
-    import inspect
-
     import numpy as np
     import torch
 
-    sys.path.insert(0, os.getcwd())
-    spec = importlib.util.spec_from_file_location(
-        "ab_chip_smoke", os.path.join(HERE, "chip_smoke.py"))
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
+    cs = ab.chip_smoke()
     from flashinfer_tpu_torch.ops.attention.kernels.paged import (
         batch_paged_attention_run as run,
     )
@@ -106,47 +97,10 @@ def child() -> None:
     print("ROWS " + json.dumps(rows), flush=True)
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("dirs", nargs="+")
-    ap.add_argument("--out", help="also write every run's rows here (JSON)")
-    args = ap.parse_args()
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-        timeout=60).stdout.strip().splitlines()[0]
-    runs = []
-    for arg in args.dirs:
-        d, _, setting = arg.partition(":")
-        env = dict(os.environ)
-        if setting:
-            name, value = setting.split("=", 1)
-            env[name] = value
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                               "--child"], cwd=d, env=env,
-                              capture_output=True, text=True, timeout=900)
-        rows = next((json.loads(ln[5:]) for ln in proc.stdout.splitlines()
-                     if ln.startswith("ROWS ")), None)
-        if rows is None:
-            print(f"run in {d} failed (exit {proc.returncode}):\n"
-                  f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
-            return 1
-        runs.append((os.path.basename(os.path.normpath(d))
-                     + (f":{setting}" if setting else ""), rows))
-    print(card)
-    print("case | " + " | ".join(name for name, _ in runs) + " | bound")
-    for i, r in enumerate(runs[0][1]):
-        ms = " | ".join(f"{rows[i]['ms']:.4f}" for _, rows in runs)
-        print(f"{r['case']} | {ms} | {r['bound_ms']:.5f} ({r['bound_by']})")
-    if args.out:
-        with open(args.out, "w") as f:
-            json.dump(dict(card=card, runs=runs), f, indent=1)
-    return 0
-
-
 if __name__ == "__main__":
     if sys.argv[1:] == ["--child"]:
         child()
     else:
-        sys.exit(main())
+        args = ab.parse_args(__doc__)
+        sys.exit(ab.run(args.dirs, [os.path.abspath(__file__), "--child"],
+                        args.out))

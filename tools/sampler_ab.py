@@ -12,33 +12,26 @@ draw (top-k 40, top-p 0.9) at [8, 128256] (Llama-3-8B), [8, 102400] and
 [1, 102400] (DeepSeek-V2-Lite), and renorm and mask_logits at [8, 128256],
 each held to that checkout's plain version (tokens and masks exact,
 renorm to ``chip_smoke.SAMPLER_RENORM_TOL``) and timed over 20 calls in one
-CUDA graph. Prints the card, a line per case with each run's ms and the
-bound, then how many of each run's clusters the card runs at once at the
-first case's vocabulary (where the checkout's ``sampler_route`` reports
-it). Exits 1 if a run fails or disagrees with the plain version.
+CUDA graph. Prints the card and a line per case with each run's ms (and, in
+brackets, how many of its clusters the card runs at once, where the
+checkout's ``sampler_route`` reports it) and the bound (``tools/ab.py``).
+Exits 1 if a run fails or disagrees with the plain version.
 """
 
 from __future__ import annotations
 
-import argparse
-import importlib.util
 import json
 import os
-import subprocess
 import sys
 
-HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+import ab
 
 
 def child() -> None:
     """One run, from the root of the checkout under test."""
     import torch
 
-    sys.path.insert(0, os.getcwd())
-    spec = importlib.util.spec_from_file_location(
-        "ab_chip_smoke", os.path.join(HERE, "chip_smoke.py"))
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
+    cs = ab.chip_smoke()
     from flashinfer_tpu_torch.ops import sampling as mod
 
     route = getattr(mod, "sampler_route", None)
@@ -66,48 +59,11 @@ def child() -> None:
     print("ROWS " + json.dumps(rows), flush=True)
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("dirs", nargs="+")
-    ap.add_argument("--out", help="also write every run's rows here (JSON)")
-    args = ap.parse_args()
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-        timeout=60).stdout.strip().splitlines()[0]
-    runs, bad = [], []
-    for d in args.dirs:
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                               "--child"], cwd=d,
-                              capture_output=True, text=True, timeout=900)
-        rows = next((json.loads(ln[5:]) for ln in proc.stdout.splitlines()
-                     if ln.startswith("ROWS ")), None)
-        if rows is None:
-            print(f"run in {d} failed (exit {proc.returncode}):\n"
-                  f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
-            return 1
-        name = os.path.basename(os.path.normpath(os.path.abspath(d)))
-        bad += [f"{name} {r['case']}" for r in rows if not r["ok"]]
-        runs.append((name, rows))
-    print(card)
-    print("case | " + " | ".join(name for name, _ in runs) + " | bound")
-    for i, r in enumerate(runs[0][1]):
-        ms = " | ".join(f"{rows[i]['ms']:.4f}" for _, rows in runs)
-        print(f"{r['case']} | {ms} | {r['bound_ms']:.5f} ({r['bound_by']})")
-    print("clusters at once | " + " | ".join(
-        str(rows[0]["clusters"]) for _, rows in runs))
-    if args.out:
-        with open(args.out, "w") as f:
-            json.dump(dict(card=card, runs=runs), f, indent=1)
-    if bad:
-        print(f"disagree with the plain version: {bad}")
-        return 1
-    return 0
-
-
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--child"]:
+    if sys.argv[1:] == ["--child"]:
         child()
     else:
-        sys.exit(main())
+        args = ab.parse_args(__doc__)
+        sys.exit(ab.run(args.dirs, [os.path.abspath(__file__), "--child"],
+                        args.out, cell=lambda r: f"{r['ms']:.4f} "
+                        f"[{r['clusters']}]"))
