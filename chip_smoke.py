@@ -580,41 +580,85 @@ def check_sampler(torch):
 def check_rmsnorm(torch, shapes=((8, 4096, 1e-5), (4096, 4096, 1e-5),
                                  (8, 2048, 1e-6))):
     """RMSNorm at the main paths' shapes (rows, hidden, eps): Llama-3-8B
-    decode and prefill rows, DeepSeek-V2-Lite decode rows."""
+    decode and prefill rows, DeepSeek-V2-Lite decode rows; both modes,
+    weight_bias 0 and 1. The fused residual must equal the plain version's
+    bits, out must hold NORM_TOL. Times (one CUDA graph, and eager for
+    ``call_ms``): the plain and the fused launch, the empty kernel of the
+    same layout, the add + norm pair the serving steps ran before the fused
+    form, ``F.rms_norm`` (the library call of the plain mode) and, for the
+    fused mode, which no one PyTorch call computes, ``x + r`` then
+    ``F.rms_norm``."""
     import torch.nn.functional as F
 
-    from flashinfer_tpu_torch.ops.norm import rmsnorm, rmsnorm_plain
+    from flashinfer_tpu_torch.ops.norm import (
+        fused_add_rmsnorm,
+        fused_add_rmsnorm_plain,
+        rmsnorm,
+        rmsnorm_empty,
+        rmsnorm_plain,
+    )
 
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(5)
     out = []
     for rows, hidden, eps in shapes:
-        x = torch.randn(rows, hidden, device=dev, generator=gen,
-                        dtype=torch.bfloat16)
-        w = (1 + 0.1 * torch.randn(hidden, device=dev, generator=gen)).to(
-            torch.bfloat16)
-        got = rmsnorm(x, w, eps)
-        want = rmsnorm_plain(x, w, eps)
-        diff = (got.float() - want.float()).abs()
-        err = float(diff.max())
-        ok = bool((diff <= NORM_TOL * want.float().abs() + 1e-6).all())
-        ms = cuda_ms(torch, lambda: rmsnorm(x, w, eps), 50, graph=True)
-        call_ms = cuda_ms(torch, lambda: rmsnorm(x, w, eps), 50)
-        plain_ms = cuda_ms(torch, lambda: rmsnorm_plain(x, w, eps), 20)
-        lib_ms = cuda_ms(torch, lambda: F.rms_norm(x, (hidden,), w, eps),
-                         50, graph=True)
-        nbytes = 2 * x.numel() * 2 + hidden * 2
-        b_ms, b_by = bound_ms(nbytes, 4 * x.numel())
-        log(f"rmsnorm rows={rows} hidden={hidden} err={err:.2e} ms={ms:.4f} "
-            f"call_ms={call_ms:.4f} "
-            f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
-            f"bound_ms={b_ms:.5f} ({b_by}) {'ok' if ok else 'MISMATCH'}")
-        if not ok:
+        def randn(*shape):
+            return torch.randn(*shape, device=dev, generator=gen,
+                               dtype=torch.bfloat16)
+
+        x, r = randn(rows, hidden), randn(rows, hidden)
+        w = (1 + 0.1 * randn(hidden).float()).to(torch.bfloat16)
+        err, bad = 0.0, []
+        for bias in (0.0, 1.0):
+            got = rmsnorm(x, w, eps, weight_bias=bias)
+            want = rmsnorm_plain(x, w, eps, weight_bias=bias)
+            (f_got, f_res), (f_want, f_res_want) = (
+                fn(x, r, w, eps, weight_bias=bias)
+                for fn in (fused_add_rmsnorm, fused_add_rmsnorm_plain))
+            for mode, g, wt in (("plain", got, want),
+                                ("fused", f_got, f_want)):
+                diff = (g.float() - wt.float()).abs()
+                err = max(err, float(diff.max()))
+                if not bool((diff <= NORM_TOL * wt.float().abs()
+                             + 1e-6).all()):
+                    bad.append(f"{mode} out at weight_bias {bias}")
+            if not torch.equal(f_res, f_res_want):
+                bad.append(f"fused residual at weight_bias {bias}")
+        t = dict(
+            ms=lambda: rmsnorm(x, w, eps),
+            fused_ms=lambda: fused_add_rmsnorm(x, r, w, eps),
+            empty_ms=lambda: rmsnorm_empty(x, w),
+            pair_ms=lambda: rmsnorm(r + x, w, eps),
+            library_ms=lambda: F.rms_norm(x, (hidden,), w, eps),
+            library_pair_ms=lambda: F.rms_norm(r + x, (hidden,), w, eps))
+        row = {k: cuda_ms(torch, fn, 50, graph=True) for k, fn in t.items()}
+        row.update(
+            call_ms=cuda_ms(torch, t["ms"], 50),
+            fused_call_ms=cuda_ms(torch, t["fused_ms"], 50),
+            plain_ms=cuda_ms(torch, lambda: rmsnorm_plain(x, w, eps), 20),
+            fused_plain_ms=cuda_ms(
+                torch, lambda: fused_add_rmsnorm_plain(x, r, w, eps), 20))
+        # x (and r) read, out (and r') written, w read; 4 (5) operations a
+        # value: square, sum, scale, weight (and the add)
+        n = x.numel()
+        b_ms, b_by = bound_ms(2 * n * 2 + hidden * 2, 4 * n)
+        fb_ms, fb_by = bound_ms(4 * n * 2 + hidden * 2, 5 * n)
+        log(f"rmsnorm rows={rows} hidden={hidden} "
+            f"err={err:.2e} ms={row['ms']:.5f} fused_ms="
+            f"{row['fused_ms']:.5f} empty_ms={row['empty_ms']:.5f} "
+            f"pair_ms={row['pair_ms']:.5f} call_ms={row['call_ms']:.5f} "
+            f"fused_call_ms={row['fused_call_ms']:.5f} plain_ms="
+            f"{row['plain_ms']:.4f} fused_plain_ms={row['fused_plain_ms']:.4f}"
+            f" library_ms={row['library_ms']:.5f} library_pair_ms="
+            f"{row['library_pair_ms']:.5f} bound_ms={b_ms:.7f} ({b_by}) "
+            f"fused_bound_ms={fb_ms:.7f} ({fb_by}) "
+            f"{'MISMATCH ' + str(bad) if bad else 'ok'}")
+        if bad:
             raise AssertionError(f"rmsnorm kernel disagrees with its plain "
-                                 f"version at [{rows}, {hidden}]")
-        out.append(dict(rows=rows, hidden=hidden, err=err, ms=ms,
-                        call_ms=call_ms, plain_ms=plain_ms,
-                        library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
+                                 f"version at [{rows}, {hidden}]: {bad}")
+        out.append(dict(rows=rows, hidden=hidden, err=err,
+                        bound_ms=b_ms, bound_by=b_by, fused_bound_ms=fb_ms,
+                        fused_bound_by=fb_by, **row))
     return out
 
 
@@ -1715,7 +1759,8 @@ def phase_engine(torch, np, card):
             f"[{card}]")
         if prof:
             log(f"engine {mode} profile, per decode step at batch 8: "
-                f"device {prof['device_ms_per_step']:.2f} ms (traced wall "
+                f"device {prof['device_ms_per_step']:.2f} ms in "
+                f"{prof['device_ops_per_step']} device ops (traced wall "
                 f"{prof['profiled_wall_ms_per_step']:.2f} ms), busy share "
                 f"{prof.get('busy_share')}; by family "
                 f"{json.dumps(prof['ms_per_step'])}")
@@ -1874,19 +1919,24 @@ def deepseek_serve(torch, np, cfg, params, prompts, n_new, *, device,
 @contextlib.contextmanager
 def _step_recorder(torch, fake_e4m3_scale=None):
     """While open, ``deepseek_decode_step`` records the residual stream
-    that enters each rmsnorm (two a layer, then the final norm) and the
-    experts each layer's routing picks. With ``fake_e4m3_scale`` s, the new
-    c_kv and k_pe are rounded as an e4m3 cache of scale s holds them
-    (e4m3(v / s) * s) before they are appended to a bf16 cache."""
+    that enters each rmsnorm, after the add the norm makes (two a layer,
+    then the final norm), and the experts each layer's routing picks. With
+    ``fake_e4m3_scale`` s, the new c_kv and k_pe are rounded as an e4m3
+    cache of scale s holds them (e4m3(v / s) * s) before they are appended
+    to a bf16 cache."""
     from flashinfer_tpu_torch.models import deepseek as mod
 
-    orig = {n: getattr(mod, n) for n in ("rmsnorm", "route_tokens",
-                                         "append_paged_mla_kv_cache")}
+    names = ("add_rmsnorm", "fused_add_rmsnorm", "route_tokens",
+             "append_paged_mla_kv_cache")
+    orig = {n: getattr(mod, n) for n in names}
     rec = dict(x=[], ids=[])
 
-    def rmsnorm(x, *args, **kw):
-        rec["x"].append(x.float())
-        return orig["rmsnorm"](x, *args, **kw)
+    def recorded(norm):
+        def fn(*args, **kw):
+            xn, x = orig[norm](*args, **kw)
+            rec["x"].append(x.float())
+            return xn, x
+        return fn
 
     def route_tokens(*args, **kw):
         ids, scales = orig["route_tokens"](*args, **kw)
@@ -1900,8 +1950,9 @@ def _step_recorder(torch, fake_e4m3_scale=None):
                           .mul(s).to(v.dtype) for v in (c_kv, k_pe))
         return orig["append_paged_mla_kv_cache"](c_kv, k_pe, *args, **kw)
 
-    for name, fn in (("rmsnorm", rmsnorm), ("route_tokens", route_tokens),
-                     ("append_paged_mla_kv_cache", append_paged_mla_kv_cache)):
+    for name, fn in zip(names, (recorded("add_rmsnorm"),
+                                recorded("fused_add_rmsnorm"), route_tokens,
+                                append_paged_mla_kv_cache)):
         setattr(mod, name, fn)
     try:
         yield rec
@@ -2186,13 +2237,16 @@ def main() -> int:
     if norm:
         r = norm[0]
         kernels.append(dict(
-            name="rmsnorm", route="triton",
-            source="flashinfer_tpu_torch/ops/norm.py",
+            name="rmsnorm", route="cuda",
+            source="flashinfer_tpu_torch/csrc/norm.cu",
             replaces="flashinfer_tpu/ops/norm.py:80",
             launches=launches("rmsnorm"),
             max_abs_err=max(x["err"] for x in norm), ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-            bound_by=r["bound_by"], library_ms=r["library_ms"]))
+            bound_by=r["bound_by"], library_ms=r["library_ms"],
+            # the fused mode, which 64 of 65 Llama and 54 of 55 DeepSeek
+            # norms a step launch
+            fused_ms=r["fused_ms"], fused_bound_ms=r["fused_bound_ms"]))
     if mla:
         main_row = next(r for r in mla if r["mode"] == "decode"
                         and r["kv"] == "bf16")

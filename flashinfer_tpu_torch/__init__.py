@@ -11,6 +11,12 @@ from flashinfer_tpu_torch.ops.attention.single import (
     single_decode_with_kv_cache,
     single_prefill_with_kv_cache,
 )
+from flashinfer_tpu_torch.ops.norm import (
+    fused_add_rmsnorm,
+    gemma_fused_add_rmsnorm,
+    gemma_rmsnorm,
+    rmsnorm,
+)
 from flashinfer_tpu_torch.serving.engine import (
     EngineConfig,
     GenerationRequest,
@@ -19,5 +25,6 @@ from flashinfer_tpu_torch.serving.engine import (
 
 __all__ = ["EngineConfig", "GenerationRequest", "LlamaConfig",
            "LlamaServingEngine", "PODWithPagedKVCacheWrapper",
-           "params_from_numpy", "single_decode_with_kv_cache",
+           "fused_add_rmsnorm", "gemma_fused_add_rmsnorm", "gemma_rmsnorm",
+           "params_from_numpy", "rmsnorm", "single_decode_with_kv_cache",
            "single_prefill_with_kv_cache"]

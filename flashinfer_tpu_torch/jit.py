@@ -27,7 +27,7 @@ __all__ = ["KERNEL_SOURCES", "build_all", "load", "check", "build_log"]
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 KERNEL_SOURCES = ("paged_attention", "sampling", "mla_attention",
-                  "grouped_gemm", "flash_attention")
+                  "grouped_gemm", "flash_attention", "norm")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -13,7 +13,8 @@ Two paths:
   * ``deepseek_decode_step``: one paged decode step over (ckv, kpe) caches
     through ``BatchMLAPagedAttentionWrapper`` (the MLA kernel) and
     ``append_paged_mla_kv_cache``; ``fused_moe`` runs the grouped-GEMM
-    kernel, ``rmsnorm`` its Triton kernel.
+    kernel, and every norm after the first adds the residual in the norm
+    kernel's launch (``fused_add_rmsnorm``).
 
 MLA (matrix-absorbed, DeepSeek-V2 section 2.1):
   c_kv = x W_dkv (cached), k_pe = RoPE(x W_kpe) (cached)
@@ -35,7 +36,11 @@ from flashinfer_tpu_torch.ops.fused_moe import (
     fused_moe,
     route_tokens,
 )
-from flashinfer_tpu_torch.ops.norm import rmsnorm, rmsnorm_plain
+from flashinfer_tpu_torch.ops.norm import (
+    add_rmsnorm,
+    fused_add_rmsnorm,
+    rmsnorm_plain,
+)
 from flashinfer_tpu_torch.ops.page import append_paged_mla_kv_cache
 from flashinfer_tpu_torch.ops.rope import (
     apply_rope_pos_ids,
@@ -227,10 +232,11 @@ def deepseek_decode_step(
     B = token_ids.shape[0]
     x = params["embedding"][token_ids]
     batch_indices = torch.arange(B, dtype=torch.int32, device=x.device)
+    ffn = None  # the sublayer output the next norm adds to x
     for layer in range(cfg.num_layers):
         w = (mla_wrappers[layer] if isinstance(mla_wrappers, (list, tuple))
              else mla_wrappers)
-        xn = rmsnorm(x, params["attn_norm"][layer], cfg.rms_eps)
+        xn, x = add_rmsnorm(ffn, x, params["attn_norm"][layer], cfg.rms_eps)
         if fp8:
             q_abs, q_pe_raw, c_kv, k_pe_raw = _mla_qkv(
                 params, cfg, layer, xn, positions, rope=False)
@@ -248,8 +254,8 @@ def deepseek_decode_step(
         attn = torch.einsum("nhc,hcd->nhd", attn_c.float(),
                             params["w_uv"][layer].float())
         attn = attn.reshape(B, -1).to(x.dtype)
-        x = x + (attn @ params["w_o"][layer]).to(x.dtype)
-        xn = rmsnorm(x, params["ffn_norm"][layer], cfg.rms_eps)
-        x = x + _moe_ffn(params, cfg, layer, xn).to(x.dtype)
-    x = rmsnorm(x, params["final_norm"], cfg.rms_eps)
+        xn, x = fused_add_rmsnorm((attn @ params["w_o"][layer]).to(x.dtype),
+                                  x, params["ffn_norm"][layer], cfg.rms_eps)
+        ffn = _moe_ffn(params, cfg, layer, xn).to(x.dtype)
+    x = fused_add_rmsnorm(ffn, x, params["final_norm"], cfg.rms_eps)[0]
     return (x @ params["lm_head"]).float(), ckv_caches, kpe_caches

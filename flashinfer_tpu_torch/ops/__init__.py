@@ -11,7 +11,14 @@ from flashinfer_tpu_torch.ops.gemm_grouped import (
     grouped_gemm_padded,
     make_group_layout,
 )
-from flashinfer_tpu_torch.ops.norm import rmsnorm, rmsnorm_plain
+from flashinfer_tpu_torch.ops.norm import (
+    fused_add_rmsnorm,
+    fused_add_rmsnorm_plain,
+    gemma_fused_add_rmsnorm,
+    gemma_rmsnorm,
+    rmsnorm,
+    rmsnorm_plain,
+)
 from flashinfer_tpu_torch.ops.quantization import (
     packbits,
     segment_packbits,
@@ -44,8 +51,12 @@ __all__ = [
     "apply_rope_pos_ids",
     "family_call",
     "family_plain",
+    "fused_add_rmsnorm",
+    "fused_add_rmsnorm_plain",
     "fused_moe",
     "gelu_and_mul",
+    "gemma_fused_add_rmsnorm",
+    "gemma_rmsnorm",
     "get_batch_indices_positions",
     "get_seq_lens",
     "grouped_gemm",

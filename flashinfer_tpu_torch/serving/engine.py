@@ -6,9 +6,10 @@ with prefill, one decode token per running sequence per step, and recompute
 preemption (the youngest sequence is evicted and later re-prefilled with its
 prompt and output) when the pool runs out.
 
-The device step is plain PyTorch around the package's kernels: RMSNorm
-(Triton), paged attention and the sampler (CUDA). On CPU tensors every
-kernel runs its plain version.
+The device step is plain PyTorch around the package's CUDA kernels: RMSNorm
+(every norm after the first adds the residual in the same launch), paged
+attention and the sampler. On CPU tensors every kernel runs its plain
+version.
 
 This slice serves model-dtype weights with KV caches in the model dtype,
 e4m3 (``torch.float8_e4m3fn``) or linear int8, in the NHD or HND layout,
@@ -38,7 +39,7 @@ from flashinfer_tpu_torch.ops.attention.batch import (
     DevicePlan,
     run_device_plan,
 )
-from flashinfer_tpu_torch.ops.norm import rmsnorm
+from flashinfer_tpu_torch.ops.norm import add_rmsnorm, fused_add_rmsnorm
 from flashinfer_tpu_torch.ops.rope import apply_rope_pos_ids
 from flashinfer_tpu_torch.ops.sampling import (
     draw_seed,
@@ -415,14 +416,18 @@ class LlamaServingEngine:
         p = self.params
         mc = self.cfg.model
         x = p["embedding"][tok]
-        x = self._run_layers(x, pos, rows, pages, entries, dplan)
-        if last_rows is not None:
-            x = x[dev[2 * n + 3 * w:]]
-        x = rmsnorm(x, p["final_norm"], mc.rms_eps)
+        x, mlp = self._run_layers(x, pos, rows, pages, entries, dplan)
+        if last_rows is not None:  # the add is elementwise: select first
+            sel = dev[2 * n + 3 * w:]
+            x, mlp = x[sel], mlp[sel]
+        x = fused_add_rmsnorm(mlp, x, p["final_norm"], mc.rms_eps)[0]
         logits = (x @ p["lm_head"]).float()
         return self._sample_tokens(logits).cpu().numpy()
 
     def _run_layers(self, x, positions, rows, pages, entries, dplan):
+        """The layers over the residual stream x. Returns (x, the last MLP
+        output): each norm adds the output before it in its own launch
+        (``fused_add_rmsnorm``), so the final norm adds the last one."""
         mc = self.cfg.model
         d, hq, hkv = mc.head_dim, mc.num_qo_heads, mc.num_kv_heads
         n = x.shape[0]
@@ -431,10 +436,11 @@ class LlamaServingEngine:
         hnd = self.cfg.kv_layout == "HND"
         # the plan may pad the query rows past n (prefill's dummy request)
         q_pad = dplan.meta.nnz - n
+        mlp = None
         for layer in range(mc.num_layers):
             lp = {k: self.params[k][layer] for k in PER_LAYER
                   if k in self.params}
-            xn = rmsnorm(x, lp["attn_norm"], mc.rms_eps)
+            xn, x = add_rmsnorm(mlp, x, lp["attn_norm"], mc.rms_eps)
             qkv = xn @ lp["wqkv"]
             q = qkv[:, : hq * d].reshape(n, hq, d)
             k = qkv[:, hq * d: (hq + hkv) * d].reshape(n, hkv, d)
@@ -464,11 +470,12 @@ class LlamaServingEngine:
                 k_scale=k_scale, v_scale=v_scale,
                 kv_indices_offset=layer * num_pages,
             )[:n]
-            x = x + (attn.reshape(n, hq * d) @ lp["wo"]).to(x.dtype)
-            xn = rmsnorm(x, lp["mlp_norm"], mc.rms_eps)
-            x = x + (silu_and_mul(xn @ lp["w_gate_up"]) @ lp["w_down"]).to(
+            xn, x = fused_add_rmsnorm(
+                (attn.reshape(n, hq * d) @ lp["wo"]).to(x.dtype), x,
+                lp["mlp_norm"], mc.rms_eps)
+            mlp = (silu_and_mul(xn @ lp["w_gate_up"]) @ lp["w_down"]).to(
                 x.dtype)
-        return x
+        return x, mlp
 
     def _quantize_kv(self, t: torch.Tensor, scale: float) -> torch.Tensor:
         if self._kv_quant == "int8":

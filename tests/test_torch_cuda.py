@@ -27,7 +27,12 @@ from flashinfer_tpu_torch.ops.attention.kernels.paged import (
     batch_paged_attention_run,
     paged_attention_plain,
 )
-from flashinfer_tpu_torch.ops.norm import rmsnorm, rmsnorm_plain
+from flashinfer_tpu_torch.ops.norm import (
+    fused_add_rmsnorm,
+    fused_add_rmsnorm_plain,
+    rmsnorm,
+    rmsnorm_plain,
+)
 from flashinfer_tpu_torch.ops import sampling as sampling_mod
 from flashinfer_tpu_torch.ops.sampling import (
     family_call,
@@ -597,17 +602,94 @@ def test_sampler_cluster_shapes_agree(dev, rows):
                      out_mode="mask_logits"), atol=0, rtol=0)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("rows,hidden", [(1, 4096), (37, 1000)])
-def test_rmsnorm_kernel_matches_plain(dev, dtype, rows, hidden):
-    x = torch.randn(rows, hidden, device=dev).to(dtype)
-    w = torch.randn(hidden, device=dev).to(dtype)
+NORM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2**-7, torch.float16: 2**-10}
+
+
+@pytest.mark.parametrize("dtype", list(NORM_TOL))
+@pytest.mark.parametrize("rows", [1, 37, 4096])
+@pytest.mark.parametrize("hidden", [96, 1000, 1001, 4096])
+@pytest.mark.parametrize("fused", [False, True], ids=["plain", "fused"])
+@pytest.mark.parametrize("strided", [False, True], ids=["dense", "strided"])
+def test_rmsnorm_kernel_matches_plain(dev, dtype, rows, hidden, fused,
+                                      strided):
+    """Both modes, one launch each (counted in ``rmsnorm.launches``): the
+    fused residual bit for bit, out to one rounding step of the dtype.
+    Hidden 1001 (not a multiple of the 16-byte vector) and ``strided`` (x
+    and the residual are views of rows of hidden + 1 values: a row stride
+    that is not 16-byte aligned) take the scalar path; ``strided`` also
+    takes every second value of a weight twice as long, which the wrapper
+    copies just before the launch. In every case the launch right before
+    the norm writes w, which the kernel must wait for."""
+    gen = torch.Generator(device=dev).manual_seed(rows * hidden)
+
+    def draw():
+        t = torch.randn(rows, hidden + strided, device=dev, generator=gen)
+        return t.to(dtype)[:, :hidden]
+
+    x, res = draw(), draw()
+    w = torch.randn(hidden * (1 + strided), device=dev, generator=gen).to(
+        dtype)[::1 + strided]
     before = rmsnorm.launches
-    got = rmsnorm(x, w, 1e-5, weight_bias=0.5)
+    if fused:
+        got, got_res = fused_add_rmsnorm(x, res, w, 1e-5, weight_bias=0.5)
+        want, want_res = fused_add_rmsnorm_plain(x, res, w, 1e-5,
+                                                 weight_bias=0.5)
+        assert got_res.dtype == dtype
+        assert torch.equal(got_res, want_res)
+    else:
+        got = rmsnorm(x, w, 1e-5, weight_bias=0.5)
+        want = rmsnorm_plain(x, w, 1e-5, weight_bias=0.5)
     assert rmsnorm.launches == before + 1
-    want = rmsnorm_plain(x, w, 1e-5, weight_bias=0.5)
-    tol = 1e-5 if dtype == torch.float32 else 2**-7
+    assert got.dtype == dtype
+    tol = NORM_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("hidden", [4096, 1000])
+def test_fused_add_rmsnorm_in_a_cuda_graph(dev, hidden):
+    """The fused norm captured in a CUDA graph behind a matmul that writes
+    its x (as the serving step orders them; the norm may start before the
+    matmul ends and waits for it), replayed on new inputs, gives the bits
+    of an eager launch on the matmul's output."""
+    gen = torch.Generator(device=dev).manual_seed(hidden)
+
+    def randn(*shape):
+        return torch.randn(*shape, device=dev, generator=gen).to(
+            torch.bfloat16)
+
+    a, res = randn(8, hidden), randn(8, hidden)
+    wmat = randn(hidden, hidden) / math.sqrt(hidden)
+    w = randn(hidden)
+
+    def step():
+        y = a @ wmat
+        return (y,) + fused_add_rmsnorm(y, res, w, 1e-5)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y, out, new_res = step()
+    for _ in range(2):
+        a.copy_(randn(8, hidden))
+        res.copy_(randn(8, hidden))
+        graph.replay()
+        torch.cuda.synchronize()
+        want, want_res = fused_add_rmsnorm(y, res, w, 1e-5)
+        assert torch.equal(new_res, want_res)
+        assert torch.equal(out, want)
+
+
+def test_fused_add_rmsnorm_refuses_mixed_dtypes(dev):
+    x = torch.ones(2, 64, device=dev, dtype=torch.bfloat16)
+    w = torch.ones(64, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(TypeError):
+        fused_add_rmsnorm(x, x.float(), w)
+    with pytest.raises(TypeError):
+        rmsnorm(x, w.float())
 
 
 def _mla_case(dev, mode, qdt, kv, heads, d_ckv, d_kpe, kpe_width, rng):

@@ -3,7 +3,9 @@ same numpy inputs.
 
 RMSNorm, RoPE and SiLU compute in f32 in both packages: f32 inputs agree to
 atol 1e-5 (reductions and transcendentals in other orders), bf16 outputs to
-one bf16 rounding step (rtol 2**-7). The sampler's plain version draws the
+one bf16 rounding step (rtol 2**-7); the fused norm's new residual (one
+f32 add, one rounding) agrees bit for bit, and the serving steps give the
+same bits with the fused norm as with the add and the norm apart. The sampler's plain version draws the
 same tokens as the TPU kernel ``_family_call(interpret=True)`` for the same
 int32 seed; its renormalised rows agree to atol 1e-6."""
 
@@ -14,10 +16,14 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from flashinfer_tpu.ops import activation as jax_act
 from flashinfer_tpu.ops import norm as jax_norm
 from flashinfer_tpu.ops import rope as jax_rope
 from flashinfer_tpu.ops import sampling as jax_sampling
+from flashinfer_tpu_torch.models import deepseek as torch_ds
+from flashinfer_tpu_torch.models.llama import LlamaConfig, llama_init_weights
+from flashinfer_tpu_torch.ops import norm as torch_norm
 from flashinfer_tpu_torch.ops.activation import silu_and_mul
 from flashinfer_tpu_torch.ops.norm import rmsnorm, rmsnorm_plain
 from flashinfer_tpu_torch.ops.rope import apply_rope_pos_ids
@@ -30,6 +36,7 @@ from flashinfer_tpu_torch.ops.sampling import (
     softmax,
     top_k_top_p_sampling_from_probs,
 )
+from flashinfer_tpu_torch.serving import engine as torch_engine
 
 DTYPES = {"f32": (np.float32, torch.float32, 1e-5, 1e-5),
           "bf16": (ml_dtypes.bfloat16, torch.bfloat16, 1e-5, 2**-7)}
@@ -65,6 +72,120 @@ def test_rmsnorm_matches_jax(dt, weight_bias):
     _close(got, kernel, atol, rtol)
     _close(rmsnorm_plain(_to_torch(x), _to_torch(w), 1e-5,
                          weight_bias=weight_bias), want, atol, rtol)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("form", ["fused_add_rmsnorm",
+                                  "gemma_fused_add_rmsnorm"])
+def test_fused_add_rmsnorm_matches_jax(dt, form):
+    np_dt, _, atol, rtol = DTYPES[dt]
+    rng = np.random.default_rng(2)
+    x, res = (rng.standard_normal((5, 96)).astype(np_dt) for _ in range(2))
+    w = rng.standard_normal(96).astype(np_dt)
+    want, want_res = getattr(jax_norm, form)(
+        jnp.asarray(x), jnp.asarray(res), jnp.asarray(w), 1e-5)
+    got, got_res = getattr(torch_norm, form)(
+        _to_torch(x), _to_torch(res), _to_torch(w), 1e-5)
+    assert got.dtype == got_res.dtype == _to_torch(x).dtype
+    assert torch.equal(got_res, _to_torch(np.asarray(want_res)))
+    _close(got, want, atol, rtol)
+    # the norm is taken of the rounded new residual
+    bias = 1.0 if form.startswith("gemma") else 0.0
+    assert torch.equal(got, rmsnorm_plain(got_res, _to_torch(w), 1e-5,
+                                          weight_bias=bias))
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_gemma_rmsnorm_matches_jax(dt):
+    np_dt, _, atol, rtol = DTYPES[dt]
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((4, 1000)).astype(np_dt)
+    w = rng.standard_normal(1000).astype(np_dt)
+    want = jax_norm.gemma_rmsnorm(jnp.asarray(x), jnp.asarray(w), 1e-6)
+    _close(torch_norm.gemma_rmsnorm(_to_torch(x), _to_torch(w), 1e-6), want,
+           atol, rtol)
+
+
+def _two_op(x, residual, weight, eps=1e-6, *, weight_bias=0.0):
+    """The add and the norm apart, as the serving steps ran them before
+    the fused norm: ``residual = residual + x``, then ``rmsnorm``."""
+    new = residual + x
+    return rmsnorm(new, weight, eps, weight_bias=weight_bias), new
+
+
+def _unfused(monkeypatch, module):
+    """Make ``module``'s norms run the add and the norm apart."""
+    monkeypatch.setattr(torch_norm, "fused_add_rmsnorm", _two_op)
+    monkeypatch.setattr(module, "fused_add_rmsnorm", _two_op)
+
+
+def _random_norms(params, gen):
+    for k, v in params.items():
+        if k.endswith("_norm"):
+            params[k] = (1 + 0.2 * torch.randn(v.shape, generator=gen)).to(
+                v.dtype)
+
+
+def test_llama_engine_fused_norms_give_the_two_op_bits(monkeypatch):
+    """bf16 tiny Llama (2 layers) on the CPU: every step's logits (prefill,
+    whose final norm selects rows first, and decode) are the same bits with
+    the fused norms as with the add and the norm apart."""
+    mc = LlamaConfig.tiny(torch.bfloat16)
+    gen = torch.Generator().manual_seed(0)
+    params = llama_init_weights(gen, mc, "cpu")
+    _random_norms(params, gen)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, mc.vocab_size, n).tolist() for n in (9, 4, 21)]
+
+    def serve():
+        cfg = torch_engine.EngineConfig(
+            model=mc, device="cpu", max_batch=4, num_pages=64, page_size=8,
+            max_seq_len=128, greedy=True)
+        eng = torch_engine.LlamaServingEngine(cfg, params=dict(params))
+        seen, sample = [], eng._sample_tokens
+
+        def record(logits):
+            seen.append(logits.clone())
+            return sample(logits)
+
+        eng._sample_tokens = record
+        reqs = [eng.add_request(p, 4) for p in prompts]
+        eng.run_to_completion(max_steps=50)
+        return seen, [r.output for r in reqs]
+
+    fused, fused_out = serve()
+    _unfused(monkeypatch, torch_engine)
+    apart, apart_out = serve()
+    assert fused_out == apart_out
+    assert len(fused) == len(apart) > 1
+    assert all(torch.equal(a, b) for a, b in zip(fused, apart))
+
+
+def test_deepseek_step_fused_norms_give_the_two_op_bits(monkeypatch):
+    """bf16 tiny DeepSeek (2 layers) on the CPU through the serving loop:
+    the residual stream entering every norm of every step, the logits and
+    the caches are the same bits with the fused norms as apart."""
+    cfg = torch_ds.DeepSeekConfig.tiny(torch.bfloat16)
+    gen = torch.Generator().manual_seed(1)
+    params = torch_ds.deepseek_init_weights(gen, cfg, "cpu")
+    _random_norms(params, gen)
+    prompts = np.random.default_rng(5).integers(0, cfg.vocab_size,
+                                                (2, 3)).tolist()
+
+    def serve():
+        with chip_smoke._step_recorder(torch) as rec:
+            run = chip_smoke.deepseek_serve(torch, np, cfg, params, prompts,
+                                            2, device="cpu", sampled=False)
+        return run, rec["x"]
+
+    fused, fused_x = serve()
+    _unfused(monkeypatch, torch_ds)
+    apart, apart_x = serve()
+    assert fused["outs"] == apart["outs"]
+    assert len(fused_x) == len(apart_x) == 4 * (2 * cfg.num_layers + 1)
+    assert all(torch.equal(a, b) for a, b in zip(fused_x, apart_x))
+    for key in ("logits0", "logits", "ckv", "kpe"):
+        assert torch.equal(fused[key], apart[key]), key
 
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
