@@ -37,10 +37,15 @@ Run from the root of a checkout. Phases, in order:
    same model on the CPU (every plain version);
 7. engine: ``LlamaServingEngine`` at Llama-3-8B widths and depth in bf16,
    random weights from a seeded CUDA generator, 12 requests of 64-512
-   prompt tokens and 32 new tokens on 8 slots, sampled (the engine's
-   default, the Llama path: its kernel launch counts are read from this
-   run) and then greedy, then greedy again with the HND layout and the e4m3
-   and int8 KV caches;
+   prompt tokens and 32 new tokens on 8 slots, sampled and greedy, in three
+   modes: the decode step eager (``cuda_graphs=False``), replayed from CUDA
+   graphs (the engine's default; its sampled run is the Llama path, whose
+   kernel launch counts are read from it), and replayed four steps a
+   window (``decode_window=4``); each mode's tokens/s, decode step wall ms,
+   device ms and ops, busy share, planner ms and graphs captured. Greedy
+   tokens must be identical in the three modes and sampled tokens in the
+   first two. Then greedy again with the HND layout and the e4m3 and int8
+   KV caches;
 8. DeepSeek: ``deepseek_decode_step`` at DeepSeek-V2-Lite widths and full
    depth (27 layers) in bf16, random weights from a seeded CUDA generator,
    8 requests of 32-128 prompt tokens prefilled token by token and 32 new
@@ -1615,78 +1620,98 @@ def _family(name):
     return "other"
 
 
-def _profile_steps(torch, step, steps):
+def _profile_steps(torch, step, steps, per_call=1):
     """Device time by kernel family, the device ops, the top kernels and
-    the top host ops over ``steps`` calls of ``step`` (one decode step
-    each), from torch.profiler; None where the profiler records no device
-    time."""
+    the top host ops over ``steps`` calls of ``step`` (``per_call`` decode
+    steps each; the numbers are per decode step), from torch.profiler; None
+    where the profiler records no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
+    n = steps * per_call
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             step()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / steps
+        wall = (time.perf_counter() - t0) * 1e3 / n
     fams, kernels, host, ops = {}, [], [], 0
     for ev in prof.key_averages():
         if ev.device_type == DeviceType.CUDA:  # a kernel, memcpy or memset
-            ms = ev.self_device_time_total / 1e3 / steps
+            ms = ev.self_device_time_total / 1e3 / n
             fams[_family(ev.key)] = fams.get(_family(ev.key), 0.0) + ms
-            kernels.append((ms, ev.count // steps, ev.key[:90]))
+            kernels.append((ms, ev.count // n, ev.key[:90]))
             ops += ev.count
         elif ev.self_cpu_time_total:
-            host.append((ev.self_cpu_time_total / 1e3 / steps,
-                         ev.count // steps, ev.key[:60]))
+            host.append((ev.self_cpu_time_total / 1e3 / n,
+                         ev.count // n, ev.key[:60]))
     total = sum(fams.values())
     if total == 0.0:
         return None
     return dict(profiled_wall_ms_per_step=wall, device_ms_per_step=total,
-                device_ops_per_step=ops // steps,
+                device_ops_per_step=ops // n,
                 ms_per_step=dict(sorted(fams.items(), key=lambda kv: -kv[1])),
                 top_kernels=sorted(kernels, reverse=True)[:12],
                 top_host_ops=sorted(host, reverse=True)[:12])
 
 
 def _profile_decode(torch, eng, prompts, steps=3):
-    """``_profile_steps`` over ``steps`` engine decode steps at a full
-    batch. Leaves the engine idle."""
+    """``_profile_steps`` over ``steps`` engine steps that decode a full
+    batch (a window of N each, so the numbers are per decode step), and for
+    a graphed engine the device ms of one replay of the step's graph, from
+    CUDA events over back-to-back replays of the last step (which rewrite
+    the same cache entries). Leaves the engine idle."""
+    n = eng.cfg.decode_window
     for p in prompts[: eng.cfg.max_batch]:
-        eng.add_request(p, steps + 2)
-    eng.step()  # admission and prefill
-    prof = _profile_steps(torch, eng.step, steps)
+        # prefill's token, a first decode (or window), then ``steps`` more
+        eng.add_request(p, 2 + (steps + 1) * n)
+    eng.step()  # admission, prefill and the first decode
+    prof = _profile_steps(torch, eng.step, steps, per_call=n)
+    replay_ms = None
+    if eng.graphs.enabled:
+        key = eng.graphs.last_key
+        replay_ms = cuda_ms(torch, lambda: eng.graphs.replay(key), 10)
     eng.run_to_completion()
-    return prof
+    return prof, replay_ms
 
 
 def tail_pct(samples):
-    return int(100 * (1 - 10 / len(samples))) if len(samples) >= 10 else None
+    """The highest percentile with at least ten samples beyond it (the
+    maximum, 100, when there are fewer than ten)."""
+    return int(100 * (1 - 10 / len(samples))) if len(samples) >= 10 else 100
 
 
 def _serve(torch, eng, prompts, n_new):
-    """Serve the prompts to completion; per-step wall times, with the
-    decode-only steps (no admission) apart."""
+    """Serve the prompts to completion. Returns (requests, wall s, the wall
+    ms of each step that admitted nothing, per decode step (a window's over
+    its steps), whether each of those ran a full batch, the wall ms of the
+    steps that admitted)."""
     reqs = [eng.add_request(p, n_new) for p in prompts]
-    decode_ms, prefill_ms, batch_at = [], [], []
+    decode_ms, full, prefill_ms = [], [], []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     while eng.has_work():
-        pending = len(eng._pending)
+        pending, running = len(eng._pending), eng.num_running
         ts = time.perf_counter()
         emitted = eng.step()
         dt = (time.perf_counter() - ts) * 1e3
         if len(eng._pending) < pending:
             prefill_ms.append(dt)
         else:
-            decode_ms.append(dt)
-            batch_at.append(len(emitted))
+            decode_ms.append(dt / max(1, len(emitted) // max(1, running)))
+            full.append(running == eng.cfg.max_batch)
         if eng.steps > 10000:
             raise RuntimeError("engine did not finish")
     torch.cuda.synchronize()
-    return reqs, time.perf_counter() - t0, decode_ms, prefill_ms, batch_at
+    return reqs, time.perf_counter() - t0, decode_ms, full, prefill_ms
+
+
+# the engine's decode step three ways: eager, replayed from CUDA graphs,
+# and replayed four steps a window
+ENGINE_MODES = (("eager", dict(cuda_graphs=False)), ("graphed", {}),
+                ("window4", dict(decode_window=4)))
 
 
 def phase_engine(torch, np, card):
@@ -1705,80 +1730,100 @@ def phase_engine(torch, np, card):
     lens = rng.integers(64, 513, 12)
     prompts = [rng.integers(0, mc.vocab_size, int(n)).tolist() for n in lens]
     n_new = 32
-    results = {}
-    for mode in ("sampled", "greedy"):
-        cfg = EngineConfig(model=mc, max_batch=8, greedy=(mode == "greedy"),
-                           device=DEVICE)
-        eng = LlamaServingEngine(cfg, params=params, seed=0)
-        params = eng.params  # the fused QKV weights, shared by the next run
-        counters = _reset_counts()
-        reqs, wall, dec, pre, batch_at = _serve(torch, eng, prompts, n_new)
-        counts = {k: counters[k].launches for k in LLAMA_PATH}
-        steps = eng.steps
-        prof = _profile_decode(torch, eng, prompts)
-        outs = [r.output for r in reqs]
-        assert all(r.done for r in reqs)
-        assert all(len(o) == n_new for o in outs), [len(o) for o in outs]
-        assert all(0 <= t < mc.vocab_size for o in outs for t in o)
-        assert eng.pool.free_pages == cfg.num_pages
-        gen_tokens = sum(len(o) for o in outs)
-        if mode == "greedy":
-            greedy_outs = outs
-        full = [ms for ms, b in zip(dec, batch_at) if b == cfg.max_batch]
-        res = dict(
-            tokens_per_s=gen_tokens / wall, wall_s=wall,
-            generated_tokens=gen_tokens, steps=steps,
-            preemptions=eng.preemptions,
-            decode_step_ms_median=float(np.median(dec)) if dec else None,
-            decode_step_ms_median_batch8=(float(np.median(full)) if full
-                                          else None),
-            decode_steps_batch8=len(full),
-            # the highest percentile with at least ten steps beyond it
-            decode_step_tail_pct_batch8=tail_pct(full),
-            decode_step_ms_tail_batch8=(
-                float(np.percentile(full, tail_pct(full)))
-                if len(full) >= 10 else None),
-            decode_steps=len(dec), prefill_steps=len(pre),
-            prefill_step_ms_mean=float(np.mean(pre)) if pre else None,
-            launches=counts, profile=prof,
-            first_tokens=[o[:4] for o in outs[:3]],
-            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-        if prof and full:
-            # device time of a traced step over an untraced step's wall time
-            prof["busy_share"] = (prof["device_ms_per_step"]
-                                  / res["decode_step_ms_median_batch8"])
-        results[mode] = res
-        log(f"engine {mode}: {gen_tokens} tokens in {wall:.2f} s = "
-            f"{res['tokens_per_s']:.1f} tokens/s; decode step median "
-            f"{res['decode_step_ms_median']:.2f} ms "
-            f"(batch 8: median {res['decode_step_ms_median_batch8']}, "
-            f"p{res['decode_step_tail_pct_batch8']} "
-            f"{res['decode_step_ms_tail_batch8']}, n={len(full)}); "
-            f"{len(pre)} prefill steps, mean {res['prefill_step_ms_mean']:.1f}"
-            f" ms; preemptions {eng.preemptions}; launches {counts} "
-            f"[{card}]")
-        if prof:
-            log(f"engine {mode} profile, per decode step at batch 8: "
-                f"device {prof['device_ms_per_step']:.2f} ms in "
-                f"{prof['device_ops_per_step']} device ops (traced wall "
-                f"{prof['profiled_wall_ms_per_step']:.2f} ms), busy share "
-                f"{prof.get('busy_share')}; by family "
-                f"{json.dumps(prof['ms_per_step'])}")
-            for ms, n, name in prof["top_kernels"]:
-                log(f"  device {ms:8.3f} ms  x{n:<5d} {name}")
-            for ms, n, name in prof["top_host_ops"]:
-                log(f"  host   {ms:8.3f} ms  x{n:<5d} {name}")
-        else:
-            log(f"engine {mode} profile: the profiler recorded no device "
-                "time (not measured)")
-        del eng
-        torch.cuda.empty_cache()
-    missing = [k for k, n in results["sampled"]["launches"].items() if n == 0]
+    results, outs_by = {}, {}
+    for mode, extra in ENGINE_MODES:
+        results[mode] = {}
+        for sampling in ("sampled", "greedy"):
+            cfg = EngineConfig(model=mc, max_batch=8,
+                               greedy=(sampling == "greedy"), device=DEVICE,
+                               **extra)
+            eng = LlamaServingEngine(cfg, params=params, seed=0)
+            params = eng.params  # the fused QKV weights, shared by the next
+            counters = _reset_counts()
+            reqs, wall, dec, full_at, pre = _serve(torch, eng, prompts, n_new)
+            counts = {k: counters[k].launches for k in LLAMA_PATH}
+            steps, decode_steps = eng.steps, eng.decode_steps
+            plan_ms = eng.plan_seconds * 1e3 / decode_steps
+            graphs = dict(captured=eng.graphs.captures,
+                          capture_s=eng.graphs.capture_seconds,
+                          pool_bytes=eng.graphs.pool_bytes)
+            prof, replay_ms = _profile_decode(torch, eng, prompts)
+            outs = [r.output for r in reqs]
+            assert all(r.done for r in reqs)
+            assert all(len(o) == n_new for o in outs), [len(o) for o in outs]
+            assert all(0 <= t < mc.vocab_size for o in outs for t in o)
+            assert eng.pool.free_pages == cfg.num_pages
+            outs_by[mode, sampling] = outs
+            gen_tokens = sum(len(o) for o in outs)
+            full = [ms for ms, f in zip(dec, full_at) if f]
+            res = dict(
+                tokens_per_s=gen_tokens / wall, wall_s=wall,
+                generated_tokens=gen_tokens, steps=steps,
+                decode_steps=decode_steps, preemptions=eng.preemptions,
+                decode_step_ms_median=float(np.median(dec)) if dec else None,
+                decode_step_ms_median_batch8=(float(np.median(full)) if full
+                                              else None),
+                decode_steps_batch8=len(full),
+                # the highest percentile with at least ten steps beyond it
+                decode_step_tail_pct_batch8=tail_pct(full),
+                decode_step_ms_tail_batch8=(
+                    float(np.percentile(full, tail_pct(full))) if full
+                    else None),
+                prefill_steps=len(pre),
+                prefill_step_ms_mean=float(np.mean(pre)) if pre else None,
+                plan_ms_per_decode_step=plan_ms, graphs=graphs,
+                replay_device_ms=replay_ms, launches=counts, profile=prof,
+                first_tokens=[o[:4] for o in outs[:3]],
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+            # a step's device time: CUDA events around a replay where the
+            # step is a graph, else the profiler's kernels
+            dev_ms = replay_ms or (prof or {}).get("device_ms_per_step")
+            res["device_ms_per_step"] = dev_ms
+            if dev_ms and full:
+                res["busy_share"] = dev_ms / res["decode_step_ms_median_batch8"]
+            results[mode][sampling] = res
+            log(f"engine {mode} {sampling}: {gen_tokens} tokens in "
+                f"{wall:.2f} s = {res['tokens_per_s']:.1f} tokens/s; decode "
+                f"step median {res['decode_step_ms_median']:.2f} ms (batch "
+                f"8: median {res['decode_step_ms_median_batch8']}, "
+                f"p{res['decode_step_tail_pct_batch8']} "
+                f"{res['decode_step_ms_tail_batch8']}, n={len(full)}); "
+                f"device {dev_ms} ms a step, busy share "
+                f"{res.get('busy_share')}; planner {plan_ms:.3f} ms a decode "
+                f"step; graphs {json.dumps(graphs)}; {len(pre)} prefill "
+                f"steps, mean {res['prefill_step_ms_mean']:.1f} ms; "
+                f"preemptions {eng.preemptions}; launches {counts} [{card}]")
+            if prof:
+                log(f"engine {mode} {sampling} profile, per decode step at "
+                    f"batch 8: device {prof['device_ms_per_step']:.2f} ms in "
+                    f"{prof['device_ops_per_step']} device ops (traced wall "
+                    f"{prof['profiled_wall_ms_per_step']:.2f} ms; replay "
+                    f"{replay_ms} ms from CUDA events); by family "
+                    f"{json.dumps(prof['ms_per_step'])}")
+                for ms, n, name in prof["top_kernels"]:
+                    log(f"  device {ms:8.3f} ms  x{n:<5d} {name}")
+                for ms, n, name in prof["top_host_ops"]:
+                    log(f"  host   {ms:8.3f} ms  x{n:<5d} {name}")
+            else:
+                log(f"engine {mode} {sampling} profile: the profiler recorded "
+                    "no device time (not measured)")
+            del eng
+            torch.cuda.empty_cache()
+    missing = [k for k, n in results["graphed"]["sampled"]["launches"].items()
+               if n == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{missing}")
-    results["variants"] = _engine_variants(torch, np, mc, params,
-                                           prompts[:8], greedy_outs)
+    same = {"greedy, all three modes": (
+                outs_by["eager", "greedy"] == outs_by["graphed", "greedy"]
+                == outs_by["window4", "greedy"]),
+            "sampled, eager and graphed": (
+                outs_by["eager", "sampled"] == outs_by["graphed", "sampled"])}
+    log(f"engine tokens identical: {same}")
+    if not all(same.values()):
+        raise AssertionError(f"the modes' tokens differ: {same}")
+    results["variants"] = _engine_variants(
+        torch, np, mc, params, prompts[:8], outs_by["graphed", "greedy"])
     return results
 
 
@@ -2204,7 +2249,8 @@ def main() -> int:
 
     # each path's sampled run, its counts set to 0 just before it; a kernel
     # on both paths reports the launches of both runs
-    by_path = {"llama": (eng or {}).get("sampled", {}).get("launches", {}),
+    by_path = {"llama": (eng or {}).get("graphed", {}).get(
+                   "sampled", {}).get("launches", {}),
                "deepseek": (dsk or {}).get("sampled", {}).get("launches", {}),
                "single": (single or {}).get("launches", {}),
                "pod": (pod or {}).get("launches", {})}

@@ -6,6 +6,7 @@ from flashinfer_tpu_torch.models.deepseek import (
 )
 from flashinfer_tpu_torch.models.llama import (
     LlamaConfig,
+    llama_decode_step,
     llama_forward_dense,
     llama_init_weights,
     params_from_numpy,
@@ -13,4 +14,5 @@ from flashinfer_tpu_torch.models.llama import (
 
 __all__ = ["DeepSeekConfig", "LlamaConfig", "deepseek_decode_step",
            "deepseek_forward_dense", "deepseek_init_weights",
-           "llama_forward_dense", "llama_init_weights", "params_from_numpy"]
+           "llama_decode_step", "llama_forward_dense", "llama_init_weights",
+           "params_from_numpy"]

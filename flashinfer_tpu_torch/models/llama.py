@@ -1,6 +1,7 @@
 """Llama-family model definition: configuration, random weights, the dense
-f32 forward that serves as the serving engine's oracle, and the bridge from
-the JAX package's parameter dict.
+f32 forward that serves as the serving engine's oracle, a paged decode step
+with injected attention and append functions, and the bridge from the JAX
+package's parameter dict.
 
 Counterpart of ``flashinfer_tpu/models/llama.py``. Weights are a flat dict
 of tensors in the ``x @ w`` layout: per-layer weights stacked on a leading
@@ -11,14 +12,14 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Mapping
+from typing import Callable, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
 
 from flashinfer_tpu_torch.ops.activation import silu_and_mul
 from flashinfer_tpu_torch.ops.attention.reference import attention_reference
-from flashinfer_tpu_torch.ops.norm import rmsnorm_plain
+from flashinfer_tpu_torch.ops.norm import rmsnorm, rmsnorm_plain
 from flashinfer_tpu_torch.ops.rope import apply_rope_pos_ids
 from flashinfer_tpu_torch.utils import resolve_device, tensor_from_numpy
 
@@ -26,6 +27,7 @@ __all__ = [
     "LlamaConfig",
     "llama_init_weights",
     "llama_forward_dense",
+    "llama_decode_step",
     "params_from_numpy",
 ]
 
@@ -99,7 +101,7 @@ def check_dense_params(params: Mapping[str, torch.Tensor]) -> None:
     if bad or (wo is not None and wo.dtype in (torch.int8, torch.uint8)):
         raise NotImplementedError(
             "8-bit weight containers (weight_dtype fp8_e4m3 / int8) are not "
-            "in this slice of the port (ROADMAP Queue 1, item 3)")
+            "in this slice of the port (ROADMAP Queue 1, item 4)")
 
 
 def params_from_numpy(np_params: Mapping[str, np.ndarray],
@@ -149,3 +151,48 @@ def llama_forward_dense(params: Mapping[str, torch.Tensor],
         x = x + (silu_and_mul(xn @ lp["w_gate_up"]) @ lp["w_down"]).to(x.dtype)
     x = rmsnorm_plain(x, params["final_norm"], cfg.rms_eps)
     return (x @ params["lm_head"]).float()
+
+
+def llama_decode_step(
+    params: Mapping[str, torch.Tensor],
+    cfg: LlamaConfig,
+    token_ids: torch.Tensor,  # [batch] current tokens
+    positions: torch.Tensor,  # [batch] their positions
+    kv_caches: Tuple[torch.Tensor, torch.Tensor],  # [L, pages, ...] x 2
+    kv_indices: torch.Tensor,
+    kv_indptr: torch.Tensor,
+    kv_last_page_len: torch.Tensor,
+    attention_fn: Callable,
+    append_fn: Callable,
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """One decode step over paged caches, counterpart of JAX's
+    ``llama_decode_step`` (models/llama.py:177).
+
+    ``append_fn(layer, k, v, k_cache, v_cache) -> (k_cache, v_cache)`` and
+    ``attention_fn(layer, q, k_cache, v_cache) -> out [batch, hq, d]`` come
+    from the caller, which planned the step; the page table arguments are
+    theirs to read. Takes wq/wk/wv weights. Returns (logits [batch, vocab]
+    f32, the caches stacked as [L, ...] again)."""
+    check_dense_params(params)
+    B = token_ids.shape[0]
+    d, hq, hkv = cfg.head_dim, cfg.num_qo_heads, cfg.num_kv_heads
+    x = params["embedding"][token_ids]  # [B, h]
+    k_all, v_all = kv_caches
+    new_k, new_v = [], []
+    for layer in range(cfg.num_layers):
+        xn = rmsnorm(x, params["attn_norm"][layer], cfg.rms_eps)
+        q = (xn @ params["wq"][layer]).reshape(B, hq, d)
+        k = (xn @ params["wk"][layer]).reshape(B, hkv, d)
+        v = (xn @ params["wv"][layer]).reshape(B, hkv, d)
+        q, k = apply_rope_pos_ids(q, k, positions, rope_theta=cfg.rope_theta)
+        kc, vc = append_fn(layer, k, v, k_all[layer], v_all[layer])
+        new_k.append(kc)
+        new_v.append(vc)
+        attn = attention_fn(layer, q, kc, vc)  # [B, hq, d]
+        x = x + (attn.reshape(B, hq * d) @ params["wo"][layer]).to(x.dtype)
+        xn = rmsnorm(x, params["mlp_norm"][layer], cfg.rms_eps)
+        x = x + (silu_and_mul(xn @ params["w_gate_up"][layer])
+                 @ params["w_down"][layer]).to(x.dtype)
+    x = rmsnorm(x, params["final_norm"], cfg.rms_eps)
+    logits = (x @ params["lm_head"]).float()
+    return logits, (torch.stack(new_k), torch.stack(new_v))

@@ -109,15 +109,18 @@ class DevicePlan:
     meta: PlanMeta
 
     @classmethod
-    def build(cls, meta: PlanMeta, arrays: dict,
-              device: torch.device) -> "DevicePlan":
+    def build(cls, meta: PlanMeta, arrays: dict, device: torch.device,
+              upload: bool = True) -> "DevicePlan":
         """Pack host arrays (keys: plan = the 12 plan rows, then the other
-        segment names) into the blob and upload it."""
+        segment names) into the blob and upload it. ``upload=False`` keeps
+        the blob on the host, for a caller that moves it up together with
+        its other inputs (the engine writes it into the static input buffer
+        of its decode step's CUDA graph)."""
         parts = [np.asarray(a, np.int32).ravel() for a in arrays["plan"]]
         for name, _, _ in meta.blob_layout()[1:]:
             parts.append(np.asarray(arrays[name], np.int32).ravel())
-        blob = np.concatenate(parts)
-        return cls(torch.from_numpy(blob).to(device), meta=meta)
+        blob = torch.from_numpy(np.concatenate(parts))
+        return cls(blob.to(device) if upload else blob, meta=meta)
 
     def segment(self, name: str) -> torch.Tensor:
         off = 0
@@ -241,12 +244,17 @@ class BatchAttention:
         logits_soft_cap: float = 0.0,
         kv_len_arr=None,
         work_capacity: Optional[int] = None,
+        min_max_splits: int = 1,
+        defer_upload: bool = False,
         custom_mask=None,
         packed_custom_mask=None,
     ):
         """Host-side plan. Index arguments are host arrays. ``kv_chunk_size``
         is required: the reference derives it from its TPU VMEM model when
-        it is None, which has no meaning here."""
+        it is None, which has no meaning here. ``min_max_splits`` floors the
+        merge's split dimension (a power of two), so plans of growing
+        lengths can share one ``PlanMeta``; ``defer_upload`` leaves the
+        plan's blob on the host."""
         if custom_mask is not None or packed_custom_mask is not None:
             raise NotImplementedError(f"custom masks are {_NOT_IN_SLICE}")
         if page_size < 8:
@@ -318,7 +326,8 @@ class BatchAttention:
         kv_idx_host = np.zeros(_bucket(max(len(kv_indices_np), 1)), np.int32)
         kv_idx_host[: len(kv_indices_np)] = kv_indices_np
 
-        merge_src = build_merge_src(plan.merge_out_row, bucket_rows)
+        merge_src = build_merge_src(plan.merge_out_row, bucket_rows,
+                                    min_splits=min_max_splits)
         meta = PlanMeta(
             tile_q=plan.tile_q,
             kv_chunk_size=plan.kv_chunk_size,
@@ -345,7 +354,7 @@ class BatchAttention:
                  row_src=row_src, row_valid=valid_row,
                  merge_out_row=plan.merge_out_row, out_map=out_map,
                  merge_src=merge_src),
-            self._device,
+            self._device, upload=not defer_upload,
         )
         self._state = PlanState(plan, device_plan, float(logits_soft_cap))
         return self

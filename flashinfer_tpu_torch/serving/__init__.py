@@ -2,8 +2,9 @@ from flashinfer_tpu_torch.serving.engine import (
     EngineConfig,
     GenerationRequest,
     LlamaServingEngine,
+    calibrate_kv_scales,
     fuse_qkv_weights,
 )
 
 __all__ = ["EngineConfig", "GenerationRequest", "LlamaServingEngine",
-           "fuse_qkv_weights"]
+           "calibrate_kv_scales", "fuse_qkv_weights"]

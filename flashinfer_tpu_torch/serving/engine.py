@@ -2,26 +2,35 @@
 
 Counterpart of ``flashinfer_tpu/serving/engine.py``, with the same host-side
 scheduling: a page pool for KV blocks, one attention plan per step, admission
-with prefill, one decode token per running sequence per step, and recompute
-preemption (the youngest sequence is evicted and later re-prefilled with its
-prompt and output) when the pool runs out.
+with prefill, one decode token per running sequence per step (or N of them
+with ``decode_window`` N), and recompute preemption (the youngest sequence
+is evicted and later re-prefilled with its prompt and output) when the pool
+runs out.
 
 The device step is plain PyTorch around the package's CUDA kernels: RMSNorm
 (every norm after the first adds the residual in the same launch), paged
 attention and the sampler. On CPU tensors every kernel runs its plain
 version.
 
+The decode step has fixed shapes, as JAX's jitted ``_decode_step``: all
+``max_batch`` slots run, a ``valid`` mask marks the live ones, and one
+int32 input buffer holds the plan blob, the step's rows and the sampling
+seed, which go up in one copy. On a CUDA device the step runs as a CUDA
+graph, one per ``PlanMeta`` (``serving/graphs.py``); ``cuda_graphs=False``
+runs it eagerly, with the same tokens. Prefill, ``score()`` and
+``calibrate_kv_scales`` run eagerly.
+
 This slice serves model-dtype weights with KV caches in the model dtype,
 e4m3 (``torch.float8_e4m3fn``) or linear int8, in the NHD or HND layout,
-greedy or sampled. Weight quantization, speculative decoding, the multi-step
-decode window, ``score()`` and ``calibrate_kv_scales`` raise
-``NotImplementedError`` (ROADMAP Queue 1, items 3 and 5).
+greedy or sampled. Speculative decoding and weight quantization raise
+``NotImplementedError`` (ROADMAP Queue 1, items 1 and 4).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -37,6 +46,7 @@ from flashinfer_tpu_torch.ops.attention.batch import (
     BatchDecodeWithPagedKVCacheWrapper,
     BatchPrefillWithPagedKVCacheWrapper,
     DevicePlan,
+    PlanMeta,
     run_device_plan,
 )
 from flashinfer_tpu_torch.ops.norm import add_rmsnorm, fused_add_rmsnorm
@@ -47,6 +57,7 @@ from flashinfer_tpu_torch.ops.sampling import (
     top_k_top_p_sampling_from_probs,
 )
 from flashinfer_tpu_torch.scheduler.page_pool import PagePool
+from flashinfer_tpu_torch.serving.graphs import StepGraphs
 from flashinfer_tpu_torch.utils import (
     TensorLayout,
     cdiv,
@@ -79,8 +90,14 @@ class EngineConfig:
     weight_dtype: str = "model"
     spec_tokens: int = 0
     kv_layout: str = "NHD"
+    # N > 1: plan N decode steps at once (lengths grow by one a step) and
+    # run them back to back, each step's tokens fed to the next on the
+    # device; tokens after an eos are dropped and their KV rolled back
     decode_window: int = 1
     device: str = "cuda"
+    # replay the decode step as a CUDA graph; False runs it eagerly (same
+    # tokens). Ignored on the CPU, where there is nothing to capture.
+    cuda_graphs: bool = True
 
 
 @dataclasses.dataclass
@@ -132,11 +149,9 @@ class LlamaServingEngine:
         if config.kv_layout not in ("NHD", "HND"):
             raise ValueError(f"unknown kv_layout {config.kv_layout!r}")
         if config.weight_dtype != "model":
-            raise _not_in_slice(f"weight_dtype={config.weight_dtype!r}", 3)
+            raise _not_in_slice(f"weight_dtype={config.weight_dtype!r}", 4)
         if config.spec_tokens > 0:
-            raise _not_in_slice("speculative decoding (spec_tokens > 0)", 5)
-        if config.decode_window > 1:
-            raise _not_in_slice("the multi-step decode window", 5)
+            raise _not_in_slice("speculative decoding (spec_tokens > 0)", 1)
         if config.page_size < 8:
             raise ValueError(
                 f"engine page_size must be >= 8, got {config.page_size}")
@@ -152,13 +167,18 @@ class LlamaServingEngine:
         self.generator = torch.Generator().manual_seed(seed + 1)
 
         # all layers share one page id space: layer l's copy of page p sits
-        # at row l * num_pages + p of one cache tensor
+        # at row l * num_pages + p of one cache tensor. One more row, after
+        # them all, takes the K/V of the decode step's idle slots (JAX drops
+        # those writes; no plan reads the row). k_cache / v_cache view the
+        # rows without it.
+        rows = mc.num_layers * config.num_pages
         if config.kv_layout == "HND":
-            shape = (mc.num_layers * config.num_pages, mc.num_kv_heads,
-                     config.page_size, mc.head_dim)
+            shape = (rows + 1, mc.num_kv_heads, config.page_size,
+                     mc.head_dim)
         else:
-            shape = (mc.num_layers * config.num_pages, config.page_size,
-                     mc.num_kv_heads, mc.head_dim)
+            shape = (rows + 1, config.page_size, mc.num_kv_heads,
+                     mc.head_dim)
+        self._scratch_row = rows
         self._kv_quant = {"fp8_e4m3": "e4m3", "int8": "int8"}.get(
             config.kv_dtype)
         if self._kv_quant:
@@ -168,8 +188,19 @@ class LlamaServingEngine:
         else:
             cache_dtype = mc.dtype
             self._kv_scale = (1.0, 1.0)
-        self.k_cache = torch.zeros(shape, dtype=cache_dtype, device=self.device)
-        self.v_cache = torch.zeros(shape, dtype=cache_dtype, device=self.device)
+        self._k_rows = torch.zeros(shape, dtype=cache_dtype,
+                                   device=self.device)
+        self._v_rows = torch.zeros(shape, dtype=cache_dtype,
+                                   device=self.device)
+        self.k_cache, self.v_cache = self._k_rows[:rows], self._v_rows[:rows]
+        # temperature, top-k and top-p as device scalars: a CUDA graph
+        # cannot copy a host value up
+        self._sample_args = (
+            torch.tensor(config.temperature, dtype=torch.float32,
+                         device=self.device),
+            torch.tensor(config.top_k, dtype=torch.int32, device=self.device),
+            torch.tensor(config.top_p, dtype=torch.float32,
+                         device=self.device))
 
         self._slots: List[Optional[GenerationRequest]] = [None] * config.max_batch
         self._pending: List[GenerationRequest] = []
@@ -179,9 +210,14 @@ class LlamaServingEngine:
         self._prefill_wrapper = BatchPrefillWithPagedKVCacheWrapper(
             kv_layout=config.kv_layout, tile_q=256, device=self.device)
         self._page_bucket = next_power_of_2(config.num_pages)
+        self.graphs = StepGraphs(self.device, config.cuda_graphs)
         self.steps = 0
         self.generated_tokens = 0
         self.preemptions = 0
+        # decode steps run (a window of N counts N), and the host seconds
+        # their plans took
+        self.decode_steps = 0
+        self.plan_seconds = 0.0
 
     # ------------------------------------------------------------------ API
 
@@ -211,15 +247,33 @@ class LlamaServingEngine:
             self.step()
 
     def score(self, prompt) -> np.ndarray:
-        raise _not_in_slice("score()", 5)
+        """Teacher-forced next-token logits of every position of one prompt,
+        [len(prompt), vocab] f32 (row i predicts token i + 1). The prompt's
+        KV goes to pages taken from the pool for the call and given back;
+        running requests are untouched. Raises when the pool has no room."""
+        P = len(prompt)
+        seq = self.pool.create()
+        if not self.pool.extend(seq, P):
+            self.pool.release(seq)
+            raise RuntimeError("KV page pool exhausted")
+        try:
+            logits = self._prefill_logits(
+                [list(prompt)], *self._batch_tables([seq]), last_rows=None)
+            return logits.cpu().numpy()
+        finally:
+            self.pool.release(seq)
 
     def step(self) -> List[Tuple[int, int]]:
-        """Admit pending requests (prefill), then decode one token for every
-        running sequence. Returns [(request_id, token)] emitted this step."""
+        """Admit pending requests (prefill), then decode one token (or a
+        window of them) for every running sequence. Returns [(request_id,
+        token)] emitted this step."""
         emitted: List[Tuple[int, int]] = []
         self._admit(emitted)
         if self.num_running:
-            emitted.extend(self._decode())
+            if self.cfg.decode_window > 1:
+                emitted.extend(self._decode_window())
+            else:
+                emitted.extend(self._decode())
         self.steps += 1
         return emitted
 
@@ -292,26 +346,39 @@ class LlamaServingEngine:
                     i -= 1
         return live
 
-    def _batch_tables(self, reqs):
-        indptr, indices, last = self.pool.batch_export([r._seq for r in reqs])
+    def _batch_tables(self, seqs):
+        """The pool's export of ``seqs``, the page table padded to the page
+        bucket."""
+        indptr, indices, last = self.pool.batch_export(seqs)
         padded = np.zeros(self._page_bucket, np.int32)
         padded[: len(indices)] = indices
         return indptr, padded, last
 
     def _prefill(self, reqs: List[GenerationRequest], emitted) -> None:
-        mc = self.cfg.model
+        tables = self._batch_tables([r._seq for r in reqs])
         prompts = [r.prompt + r.output for r in reqs]
+        last_rows = np.cumsum([len(p) for p in prompts]) - 1
+        logits = self._prefill_logits(prompts, *tables, last_rows)
+        seed = None if self.cfg.greedy else draw_seed(self.generator)
+        toks = self._sample_tokens(logits, seed).cpu().numpy()
+        for r, t in zip(reqs, toks):
+            self._emit(r, int(t), emitted)
+
+    def _prefill_logits(self, prompts: Sequence[List[int]], indptr, indices,
+                        last, last_rows) -> torch.Tensor:
+        """Causal prefill of the prompts into their pages (``_batch_tables``
+        of their sequences); the f32 logits of ``last_rows`` (every row when
+        None)."""
+        mc = self.cfg.model
         lens = np.asarray([len(p) for p in prompts])
         nnz = int(lens.sum())
         # the plan is the reference's: a trailing dummy request (no pages)
         # pads the rows to a power of two
         bucket = next_power_of_2(max(nnz, 8))
-        qo_indptr = np.concatenate([[0], np.cumsum(lens), [bucket]])
-        indptr, indices, last = self._batch_tables(reqs)
-        indptr = np.concatenate([indptr, [indptr[-1]]])
-        last = np.concatenate([last, [0]])
         self._prefill_wrapper.plan(
-            qo_indptr, indptr, indices, last,
+            np.concatenate([[0], np.cumsum(lens), [bucket]]),
+            np.concatenate([indptr, [indptr[-1]]]), indices,
+            np.concatenate([last, [0]]),
             mc.num_qo_heads, mc.num_kv_heads, mc.head_dim, self.cfg.page_size,
             causal=True, kv_chunk_size=self._kv_chunk(),
         )
@@ -319,12 +386,14 @@ class LlamaServingEngine:
         positions = np.concatenate([np.arange(len(p)) for p in prompts])
         batch_idx = np.repeat(np.arange(len(prompts)), lens)
         page_ids = indices[indptr[batch_idx] + positions // self.cfg.page_size]
-        last_rows = np.cumsum(lens) - 1
-        toks = self._device_step(
-            tokens, positions, np.arange(nnz), page_ids,
-            self._prefill_wrapper.device_plan, last_rows)
-        for r, t in zip(reqs, toks):
-            self._emit(r, int(t), emitted)
+        sel = np.zeros(0, np.int64) if last_rows is None else last_rows
+        host = np.concatenate([tokens, positions, page_ids, sel]).astype(
+            np.int64)
+        dev = torch.from_numpy(host).to(self.device)
+        tok, pos, pages = dev[:nnz], dev[nnz: 2 * nnz], dev[2 * nnz: 3 * nnz]
+        return self._logits(tok, pos, pages, None,
+                            self._prefill_wrapper.device_plan,
+                            None if last_rows is None else dev[3 * nnz:])
 
     # --------------------------------------------------------------- decode
 
@@ -335,7 +404,7 @@ class LlamaServingEngine:
         """The compact batch export expanded into fixed max_batch-slot
         tables (an inactive slot has kv_len 0 and no pages)."""
         B = self.cfg.max_batch
-        indptr, indices, last = self._batch_tables(reqs)
+        indptr, indices, last = self._batch_tables([r._seq for r in reqs])
         full_indptr = np.zeros(B + 1, np.int32)
         full_last = np.zeros(B, np.int32)
         kv_lens = np.zeros(B, np.int64)
@@ -353,34 +422,152 @@ class LlamaServingEngine:
                 indptr[i]: indptr[i + 1]]
         return full_indptr, slot_indices, full_last, kv_lens
 
-    def _decode(self) -> List[Tuple[int, int]]:
-        mc, B = self.cfg.model, self.cfg.max_batch
-        reqs = [r for r in self._slots if r is not None]
-        reqs = self._reserve(reqs, 1)  # room for this step's token
-        if not reqs:
-            return []
-        full_indptr, slot_indices, full_last, kv_lens = self._slot_tables(reqs)
-        tokens = np.zeros(B, np.int64)
-        positions = np.zeros(B, np.int64)
-        slots = np.asarray([r._slot for r in reqs])
+    def _step_tokens(self, reqs) -> Tuple[np.ndarray, np.ndarray]:
+        """Each slot's current token and whether it is live."""
+        B = self.cfg.max_batch
+        tokens = np.zeros(B, np.int32)
+        valid = np.zeros(B, np.int32)
         for r in reqs:
-            s = r._slot
-            tokens[s] = r.output[-1] if r.output else r.prompt[-1]
-            positions[s] = kv_lens[s] - 1
+            tokens[r._slot] = r.output[-1] if r.output else r.prompt[-1]
+            valid[r._slot] = 1
+        return tokens, valid
+
+    def _plan_decode(self, tables, kv_lens, **kw) -> DevicePlan:
+        full_indptr, slot_indices, full_last, _ = tables
+        mc = self.cfg.model
+        t0 = time.perf_counter()
         self._decode_wrapper.plan(
             full_indptr, slot_indices, full_last,
             mc.num_qo_heads, mc.num_kv_heads, mc.head_dim, self.cfg.page_size,
             kv_len_arr=kv_lens, kv_chunk_size=self._kv_chunk(),
-            work_capacity=self._decode_capacity(kv_lens),
-        )
-        page_ids = slot_indices[full_indptr[slots]
-                                + positions[slots] // self.cfg.page_size]
-        toks = self._device_step(tokens, positions, slots, page_ids,
-                                 self._decode_wrapper.device_plan, None)
+            defer_upload=True, **kw)
+        self.plan_seconds += time.perf_counter() - t0
+        return self._decode_wrapper.device_plan
+
+    def _step_row(self, dplan: DevicePlan, tokens, positions, valid, tables,
+                  seed: int) -> np.ndarray:
+        """The decode step's input buffer on the host: the plan's blob, then
+        JAX's step blob (tokens, positions, valid, slot page table, indptr,
+        last-page lengths), then the sampling seed."""
+        full_indptr, slot_indices, full_last, _ = tables
+        return np.concatenate([
+            dplan.blob.numpy(), tokens, positions, valid, slot_indices,
+            full_indptr, full_last, [seed]]).astype(np.int32)
+
+    def _draw_seed(self) -> int:
+        return 0 if self.cfg.greedy else draw_seed(self.generator)
+
+    def _decode(self) -> List[Tuple[int, int]]:
+        reqs = [r for r in self._slots if r is not None]
+        reqs = self._reserve(reqs, 1)  # room for this step's token
+        if not reqs:
+            return []
+        tables = self._slot_tables(reqs)
+        kv_lens = tables[3]
+        tokens, valid = self._step_tokens(reqs)
+        positions = np.maximum(kv_lens - 1, 0)
+        dplan = self._plan_decode(tables, kv_lens,
+                                  work_capacity=self._decode_capacity(kv_lens))
+        row = self._step_row(dplan, tokens, positions, valid, tables,
+                             self._draw_seed())
+        toks = self._run_steps(dplan.meta, row[None])[0]
         out: List[Tuple[int, int]] = []
         for r in reqs:
             self._emit(r, int(toks[r._slot]), out)
         return out
+
+    def _decode_window(self) -> List[Tuple[int, int]]:
+        """N decode steps planned at once (``EngineConfig.decode_window``),
+        counterpart of JAX's ``_decode_window``. Decode lengths grow by one
+        token a step, so all N plans are made here and share one PlanMeta
+        (work capacity and the split bucket pinned to the window-end
+        lengths). Their inputs go up in one copy; each step's tokens feed
+        the next on the device; the host reads the tokens once at the end.
+        Tokens after an eos are dropped and their KV rolled back."""
+        reqs = [r for r in self._slots if r is not None]
+        window = min(self.cfg.decode_window,
+                     min(r.max_new_tokens - len(r.output) for r in reqs))
+        if window <= 1:
+            return self._decode()
+        reqs = self._reserve(reqs, window)
+        if not reqs:
+            return []
+        tables = self._slot_tables(reqs)
+        kv_end = tables[3]
+        active = kv_end > 0
+        base = np.where(active, kv_end - window, 0)
+        cap = self._decode_capacity(kv_end)
+        min_splits = next_power_of_2(
+            max(1, int(np.max(-(-kv_end // self._kv_chunk()), initial=1))))
+        tokens, valid = self._step_tokens(reqs)
+        rows, metas = [], []
+        for i in range(window):
+            dplan = self._plan_decode(
+                tables, np.where(active, base + i + 1, 0),
+                work_capacity=cap, min_max_splits=min_splits)
+            metas.append(dplan.meta)
+            rows.append(self._step_row(dplan, tokens, base + i, valid,
+                                       tables, self._draw_seed()))
+        if any(m != metas[0] for m in metas[1:]):
+            raise AssertionError("window plans must share one PlanMeta")
+        toks = self._run_steps(metas[0], np.stack(rows))  # [window, B]
+        out: List[Tuple[int, int]] = []
+        for r in reqs:
+            accepted: List[int] = []
+            for t in toks[:, r._slot]:
+                accepted.append(int(t))
+                if self.cfg.eos_token >= 0 and t == self.cfg.eos_token:
+                    break
+            if len(accepted) < window:
+                # keep the KV of the accepted tokens but the last (whose KV
+                # the next step appends)
+                self.pool.truncate(r._seq, int(base[r._slot]) + len(accepted))
+            for t in accepted:
+                self._emit(r, t, out)
+        return out
+
+    def _run_steps(self, meta: PlanMeta, rows: np.ndarray) -> np.ndarray:
+        """Run len(rows) decode steps of one PlanMeta on the step's static
+        input buffer (the CUDA graph's, on the card), each step's tokens
+        fed to the next; one copy up and one read back. Returns the tokens
+        [steps, max_batch]."""
+        B = self.cfg.max_batch
+        n, width = rows.shape
+        buf = self.graphs.inputs(meta, width)
+        host = torch.from_numpy(rows)
+        if buf.is_cuda:
+            host = host.pin_memory()
+        if n == 1:
+            buf.copy_(host[0], non_blocking=True)
+            toks = self.graphs.run(meta, self._decode_body)[None]
+        else:
+            stacked = host.to(self.device, non_blocking=True)
+            toks = torch.empty(n, B, dtype=torch.int32, device=self.device)
+            off = _blob_size(meta)
+            tok_in = buf[off: off + B]
+            for i in range(n):
+                buf.copy_(stacked[i])
+                if i:
+                    tok_in.copy_(toks[i - 1])
+                toks[i].copy_(self.graphs.run(meta, self._decode_body))
+        self.decode_steps += n
+        return toks.cpu().numpy()
+
+    def _decode_body(self, buf: torch.Tensor, meta: PlanMeta) -> torch.Tensor:
+        """The fixed-shape decode step on its input buffer (``_step_row``'s
+        layout): tokens [max_batch] int32. Idle slots run too; their K/V go
+        to the scratch row."""
+        B, pb = self.cfg.max_batch, self._page_bucket
+        n = _blob_size(meta)
+        step = buf[n:]
+        tok, pos, valid = step[:B], step[B: 2 * B], step[2 * B: 3 * B] != 0
+        kv_indices = step[3 * B: 3 * B + pb]
+        kv_indptr = step[3 * B + pb: 4 * B + pb]
+        seed = step[-1:]
+        slot = (kv_indptr + pos // self.cfg.page_size).clamp(max=pb - 1)
+        logits = self._logits(tok, pos, kv_indices[slot], valid,
+                              DevicePlan(buf[:n], meta))
+        return self._sample_tokens(logits, seed)
 
     def _work_capacity(self) -> int:
         chunks = cdiv(self.cfg.max_seq_len, self._kv_chunk())
@@ -395,36 +582,28 @@ class LlamaServingEngine:
 
     # ----------------------------------------------------------- device step
 
-    def _device_step(self, tokens, positions, write_rows, page_ids,
-                     dplan: DevicePlan, last_rows) -> np.ndarray:
-        """Embed, run the layers, sample. ``write_rows`` are the rows whose
-        K/V enter the cache at (page_ids, positions % page_size); other rows
-        are dropped by indexing. ``last_rows`` selects the rows that sample
-        (all rows when None). Host arrays go up in one copy."""
-        ps = self.cfg.page_size
-        n, w = len(tokens), len(write_rows)
-        host = np.concatenate([
-            tokens, positions, write_rows, page_ids,
-            positions[write_rows] % ps,
-            np.zeros(0, np.int64) if last_rows is None else last_rows,
-        ]).astype(np.int64)
-        dev = torch.from_numpy(host).to(self.device)
-        tok, pos = dev[:n], dev[n: 2 * n]
-        rows, pages, entries = (dev[2 * n: 2 * n + w],
-                                dev[2 * n + w: 2 * n + 2 * w],
-                                dev[2 * n + 2 * w: 2 * n + 3 * w])
+    def _logits(self, tok, pos, pages, valid, dplan: DevicePlan,
+                sel=None) -> torch.Tensor:
+        """Embed, run the layers, take the f32 logits of the rows ``sel``
+        (every row when None). Row i's K/V enter the cache at (pages[i],
+        pos[i] % page_size) of each layer, or the scratch row where
+        ``valid`` (None: every row) is false."""
         p = self.params
         mc = self.cfg.model
+        layer_rows = torch.arange(0, self._scratch_row, self.cfg.num_pages,
+                                  device=self.device)
+        page_rows = pages[None, :] + layer_rows[:, None]  # [layers, rows]
+        if valid is not None:
+            page_rows = torch.where(valid, page_rows, self._scratch_row)
         x = p["embedding"][tok]
-        x, mlp = self._run_layers(x, pos, rows, pages, entries, dplan)
-        if last_rows is not None:  # the add is elementwise: select first
-            sel = dev[2 * n + 3 * w:]
+        x, mlp = self._run_layers(x, pos, page_rows,
+                                  pos % self.cfg.page_size, dplan)
+        if sel is not None:  # the add is elementwise: select first
             x, mlp = x[sel], mlp[sel]
         x = fused_add_rmsnorm(mlp, x, p["final_norm"], mc.rms_eps)[0]
-        logits = (x @ p["lm_head"]).float()
-        return self._sample_tokens(logits).cpu().numpy()
+        return (x @ p["lm_head"]).float()
 
-    def _run_layers(self, x, positions, rows, pages, entries, dplan):
+    def _run_layers(self, x, positions, page_rows, entries, dplan):
         """The layers over the residual stream x. Returns (x, the last MLP
         output): each norm adds the output before it in its own launch
         (``fused_add_rmsnorm``), so the final norm adds the last one."""
@@ -436,6 +615,10 @@ class LlamaServingEngine:
         hnd = self.cfg.kv_layout == "HND"
         # the plan may pad the query rows past n (prefill's dummy request)
         q_pad = dplan.meta.nnz - n
+        # 8-bit caches take their bytes through an int8 view
+        kc, vc = self._k_rows, self._v_rows
+        if self._kv_quant:
+            kc, vc = kc.view(torch.int8), vc.view(torch.int8)
         mlp = None
         for layer in range(mc.num_layers):
             lp = {k: self.params[k][layer] for k in PER_LAYER
@@ -446,16 +629,12 @@ class LlamaServingEngine:
             k = qkv[:, hq * d: (hq + hkv) * d].reshape(n, hkv, d)
             v = qkv[:, (hq + hkv) * d:].reshape(n, hkv, d)
             q, k = apply_rope_pos_ids(q, k, positions, rope_theta=mc.rope_theta)
-            k, v = self._quantize_kv(k[rows], k_scale), self._quantize_kv(
-                v[rows], v_scale)
-            # in-place page scatter into the layer-stacked cache (the JAX
-            # engine donates its cache buffers to the jitted step instead);
-            # 8-bit caches scatter their bytes through an int8 view
-            pid = pages + layer * num_pages
-            kc, vc = self.k_cache, self.v_cache
+            k, v = self._quantize_kv(k, k_scale), self._quantize_kv(v, v_scale)
             if self._kv_quant:
-                kc, vc = kc.view(torch.int8), vc.view(torch.int8)
                 k, v = k.view(torch.int8), v.view(torch.int8)
+            # in-place page scatter into the layer-stacked cache (the JAX
+            # engine donates its cache buffers to the jitted step instead)
+            pid = page_rows[layer]
             if hnd:
                 kc[pid, :, entries] = k
                 vc[pid, :, entries] = v
@@ -485,13 +664,14 @@ class LlamaServingEngine:
             return (t.float() / scale).to(torch.float8_e4m3fn)
         return t.to(self.k_cache.dtype)
 
-    def _sample_tokens(self, logits: torch.Tensor) -> torch.Tensor:
+    def _sample_tokens(self, logits: torch.Tensor, seed) -> torch.Tensor:
+        """Greedy argmax, or top-k/top-p sampling with ``seed`` (an int, or
+        a one-element int32 tensor the sampler kernel reads on the card)."""
         if self.cfg.greedy:
             return logits.argmax(dim=-1).to(torch.int32)
-        probs = softmax(logits, temperature=self.cfg.temperature)
-        return top_k_top_p_sampling_from_probs(
-            probs, self.cfg.top_k, self.cfg.top_p,
-            seed=draw_seed(self.generator))
+        temperature, top_k, top_p = self._sample_args
+        probs = softmax(logits, temperature=temperature)
+        return top_k_top_p_sampling_from_probs(probs, top_k, top_p, seed=seed)
 
     def _emit(self, req: GenerationRequest, token: int, out_list) -> None:
         req.output.append(token)
@@ -504,5 +684,35 @@ class LlamaServingEngine:
             self._slots[req._slot] = None
 
 
-def calibrate_kv_scales(*args, **kwargs):
-    raise _not_in_slice("calibrate_kv_scales", 5)
+def _blob_size(meta: PlanMeta) -> int:
+    """Length in int32s of a plan blob of this meta."""
+    return sum(length for _, length, _ in meta.blob_layout())
+
+
+def calibrate_kv_scales(
+    config: EngineConfig,
+    prompts: List[List[int]],
+    params: Optional[Dict[str, torch.Tensor]] = None,
+    *,
+    seed: int = 0,
+    headroom: float = 1.0,
+) -> Tuple[float, float]:
+    """Per-tensor 8-bit KV scales (k_scale, v_scale) from sample prompts:
+    amax / 448 for e4m3, amax / 127 when ``config.kv_dtype == "int8"``.
+
+    Prefills the prompts on an engine with model-dtype caches and reads the
+    roped K and V amax from them, the values an 8-bit cache would store.
+    Pass the result as ``EngineConfig(kv_scale=...)``."""
+    cal = dataclasses.replace(config, kv_dtype="model", spec_tokens=0,
+                              greedy=True,
+                              max_batch=max(config.max_batch, len(prompts)))
+    eng = LlamaServingEngine(cal, params=params, seed=seed)
+    for p in prompts:
+        eng.add_request(list(p), 1)
+    while eng.has_work():
+        eng.step()
+    qmax = 127.0 if config.kv_dtype == "int8" else 448.0
+    amax_k = float(eng.k_cache.float().abs().max())
+    amax_v = float(eng.v_cache.float().abs().max())
+    return (max(amax_k, 1e-6) * headroom / qmax,
+            max(amax_v, 1e-6) * headroom / qmax)

@@ -1138,6 +1138,101 @@ def test_tiny_engine_on_the_card_matches_cpu(dev, kv_dtype, layout):
     assert outs[0] == outs[1]
 
 
+def _bf16_engine_run(prompts, n_new, **kw):
+    """The bf16 tiny Llama engine on the card (tensor-core paged kernel),
+    random weights from the engine's seeded CUDA generator: (outputs,
+    engine, paged-attention and rmsnorm launches of the run)."""
+    from flashinfer_tpu_torch import EngineConfig, LlamaConfig, \
+        LlamaServingEngine
+
+    cfg = EngineConfig(model=LlamaConfig.tiny(torch.bfloat16), page_size=8,
+                       **{**dict(max_batch=4, num_pages=256,
+                                 max_seq_len=128), **kw})
+    eng = LlamaServingEngine(cfg, seed=0)
+    paged0, norm0 = batch_paged_attention_run.launches, rmsnorm.launches
+    reqs = [eng.add_request(p, n_new) for p in prompts]
+    eng.run_to_completion(max_steps=500)
+    assert all(r.done for r in reqs)
+    return ([r.output for r in reqs], eng,
+            (batch_paged_attention_run.launches - paged0,
+             rmsnorm.launches - norm0))
+
+
+@pytest.mark.parametrize("greedy", [True, False])
+@pytest.mark.parametrize("kv_dtype", ["model", "fp8_e4m3", "int8"])
+@pytest.mark.parametrize("layout", ["NHD", "HND"])
+def test_graphed_decode_matches_eager(dev, greedy, kv_dtype, layout):
+    """Five requests on four slots (idle slots, admission between steps):
+    the decode step replayed from CUDA graphs emits the eager step's
+    tokens, bit for bit, sampled ones too (the same seeds). Each capture's
+    warm-up runs one eager step, so the graphed run launches one step's
+    kernels more per capture."""
+    rng = np.random.default_rng(20)
+    prompts = [rng.integers(0, 256, n).tolist() for n in (9, 30, 4, 17, 12)]
+    kw = dict(greedy=greedy, kv_dtype=kv_dtype, kv_scale=0.3,
+              kv_layout=layout)
+    want, eager, (paged_e, norm_e) = _bf16_engine_run(
+        prompts, 10, cuda_graphs=False, **kw)
+    got, eng, (paged_g, norm_g) = _bf16_engine_run(prompts, 10, **kw)
+    assert got == want
+    assert eager.graphs.captures == 0 and eng.graphs.captures >= 1
+    layers = eng.cfg.model.num_layers
+    assert paged_g == paged_e + layers * eng.graphs.captures
+    assert norm_g == norm_e + (2 * layers + 1) * eng.graphs.captures
+
+
+def test_graph_recaptured_when_the_plan_meta_changes(dev):
+    """A 505-token prompt crosses the 512-token KV chunk while decoding:
+    the plan's split bucket grows, a second graph is captured, and the
+    tokens still equal the eager step's."""
+    rng = np.random.default_rng(21)
+    prompts = [rng.integers(0, 256, n).tolist() for n in (505, 30)]
+    kw = dict(greedy=True, max_seq_len=1024)
+    want, _, _ = _bf16_engine_run(prompts, 12, cuda_graphs=False, **kw)
+    got, eng, _ = _bf16_engine_run(prompts, 12, **kw)
+    assert got == want
+    assert eng.graphs.captures >= 2
+
+
+@pytest.mark.parametrize("greedy", [True, False])
+def test_graphed_window_matches_graphed_steps(dev, greedy):
+    """Window 4 (four replays a window, tokens fed back on the card, one
+    read back) against single graphed steps: the same tokens, the seeds
+    drawn in the same order."""
+    rng = np.random.default_rng(22)
+    prompts = [rng.integers(0, 256, n).tolist() for n in (9, 30, 4, 17)]
+    want, _, _ = _bf16_engine_run(prompts, 13, greedy=greedy)
+    got, eng, _ = _bf16_engine_run(prompts, 13, greedy=greedy,
+                                   decode_window=4)
+    assert got == want
+    assert eng.graphs.captures >= 1 and eng.decode_steps == 12
+
+
+def test_failed_capture_raises(dev):
+    """A step that fails while it is captured raises out of the engine's
+    step, and the engine does not run the step eagerly instead."""
+    from flashinfer_tpu_torch import EngineConfig, LlamaConfig, \
+        LlamaServingEngine
+
+    eng = LlamaServingEngine(EngineConfig(
+        model=LlamaConfig.tiny(torch.bfloat16), max_batch=2, num_pages=64,
+        page_size=8, max_seq_len=64, greedy=True), seed=0)
+    step, calls = eng._decode_body, []
+
+    def failing(buf, key):
+        calls.append(torch.cuda.is_current_stream_capturing())
+        if calls[-1]:
+            raise RuntimeError("step refused under capture")
+        return step(buf, key)
+
+    eng._decode_body = failing
+    req = eng.add_request([1, 2, 3], 4)
+    with pytest.raises(RuntimeError, match="refused under capture"):
+        eng.step()
+    assert calls == [False, True]  # the warm-up, then the capture
+    assert eng.graphs.captures == 0 and req.output and len(req.output) == 1
+
+
 # name: (qo_len, kv_len, causal, window_left); with 8 q heads on 2 kv heads
 # a bf16 CTA takes 128 packed rows (32 tokens) and keys come in tiles of
 # 128 (64 for dv > 128 or d 256)

@@ -200,20 +200,9 @@ def test_engine_single_sequence_exceeding_pool_raises(params):
 
 @pytest.mark.parametrize("change", [
     dict(weight_dtype="fp8_e4m3"), dict(weight_dtype="int8"),
-    dict(spec_tokens=2), dict(decode_window=4)])
+    dict(spec_tokens=2)])
 def test_outside_the_slice_raises(params, change):
     cfg = dataclasses.replace(
         EngineConfig(model=MC, device="cpu", **BASE), **change)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         LlamaServingEngine(cfg, params=params)
-
-
-def test_score_and_calibration_raise(params):
-    from flashinfer_tpu_torch.serving.engine import calibrate_kv_scales
-
-    eng = LlamaServingEngine(EngineConfig(model=MC, device="cpu", **BASE),
-                             params=params)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.score([1, 2, 3])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        calibrate_kv_scales(eng.cfg, [[1, 2]])

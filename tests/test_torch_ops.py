@@ -144,9 +144,9 @@ def test_llama_engine_fused_norms_give_the_two_op_bits(monkeypatch):
         eng = torch_engine.LlamaServingEngine(cfg, params=dict(params))
         seen, sample = [], eng._sample_tokens
 
-        def record(logits):
+        def record(logits, seed):
             seen.append(logits.clone())
-            return sample(logits)
+            return sample(logits, seed)
 
         eng._sample_tokens = record
         reqs = [eng.add_request(p, 4) for p in prompts]
