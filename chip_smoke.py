@@ -15,11 +15,12 @@ Run from the root of a checkout. Phases, in order:
    with its time (CUDA events), its bound, the plain version's time and,
    where one PyTorch call computes the same function, that call's time:
    paged attention, the sampler and RMSNorm at the shapes the Llama-3-8B
-   engine gives them (paged attention also at head_dim 256 and on POD's
-   combined plan); MLA attention at DeepSeek-V2-Lite shapes (decode and
-   causal prefill, bf16/e4m3/int8 caches); the grouped GEMM (both MoE GEMMs,
-   bf16 and e4m3 weights) at the V2-Lite decode and prefill routings and a
-   Mixtral-8x7B layer; the flash kernel at Llama-3-8B prefill (8192 tokens
+   engine gives them (paged attention also at the speculative verify plan,
+   at head_dim 256 and on POD's combined plan; the sampler also in renorm
+   mode at the verify step's 32 rows and its draw); MLA attention at
+   DeepSeek-V2-Lite shapes (decode and causal prefill, bf16/e4m3/int8
+   caches); the grouped GEMM (both MoE GEMMs, bf16 and e4m3 weights) at
+   the V2-Lite decode and prefill routings and a Mixtral-8x7B layer; the flash kernel at Llama-3-8B prefill (8192 tokens
    causal), chunked prefill (2048 at the tail of 8192) and decode (32K
    keys), DeepSeek-V2-Lite's MHA prefill (d 192, dv 128), each variant at
    Llama widths on 2048 tokens, and a small f32 case;
@@ -34,18 +35,24 @@ Run from the root of a checkout. Phases, in order:
    (device time by kernel family, busy share);
 6. tiny references: the f32 tiny Llama engine and the f32 tiny DeepSeek
    decode loop on the card (every kernel on) emit the greedy tokens of the
-   same model on the CPU (every plain version);
+   same model on the CPU (every plain version); the tiny engine with
+   speculative decoding (3 drafts) on repetitive prompts emits them on the
+   card, on the CPU and without drafts, with drafts accepted;
 7. engine: ``LlamaServingEngine`` at Llama-3-8B widths and depth in bf16,
    random weights from a seeded CUDA generator, 12 requests of 64-512
    prompt tokens and 32 new tokens on 8 slots, sampled and greedy, in three
    modes: the decode step eager (``cuda_graphs=False``), replayed from CUDA
    graphs (the engine's default; its sampled run is the Llama path, whose
    kernel launch counts are read from it), and replayed four steps a
-   window (``decode_window=4``); each mode's tokens/s, decode step wall ms,
-   device ms and ops, busy share, planner ms and graphs captured. Greedy
-   tokens must be identical in the three modes and sampled tokens in the
-   first two. Then greedy again with the HND layout and the e4m3 and int8
-   KV caches;
+   window (``decode_window=4``), then with speculative decoding
+   (``spec_tokens=3``: the spec path, its verify step eager and graphed);
+   each mode's tokens/s, step wall ms (a verify step's for spec), device ms
+   and ops, busy share, planner ms and graphs captured, and for spec the
+   tokens a verify step emits and the drafts' acceptance. Greedy tokens
+   must be identical in the three decode modes, sampled tokens in the
+   first two, and the spec modes' tokens eager and graphed, sampled too;
+   the share of greedy spec tokens equal to the decode's is reported.
+   Then greedy again with the HND layout and the e4m3 and int8 KV caches;
 8. DeepSeek: ``deepseek_decode_step`` at DeepSeek-V2-Lite widths and full
    depth (27 layers) in bf16, random weights from a seeded CUDA generator,
    8 requests of 32-128 prompt tokens prefilled token by token and 32 new
@@ -291,6 +298,23 @@ def _engine_like_plans(np, lens_decode, lens_prefill, d=128):
            np.concatenate([last, [0]]), hq, hkv, d, ps, causal=True,
            kv_chunk_size=chunk)
     plans["prefill"] = (w.device_plan, pages, lens, lens)
+
+    # the spec verify step (engine.py _spec_decode): the decode batch's
+    # sequences with SPEC_TOKENS drafts reserved, G + 1 causal rows each,
+    # a dummy request for the pad rows, the engine's work capacity (8
+    # slots x 4 chunks of 512 at max_seq_len 2048)
+    rows = SPEC_TOKENS + 1
+    kv = np.asarray(lens_decode, np.int64) + SPEC_TOKENS
+    indptr, idx, last, pages = table(kv)
+    b = len(kv)
+    bucket = next_power_of_2(max(b * rows, 8))
+    w = BatchPrefillWithPagedKVCacheWrapper(kv_layout="NHD", device=DEVICE)
+    w.plan(np.concatenate([np.arange(b + 1) * rows, [bucket]]),
+           np.concatenate([indptr, [indptr[-1]]]), idx,
+           np.concatenate([last, [0]]), hq, hkv, d, ps, causal=True,
+           kv_chunk_size=chunk, kv_len_arr=np.concatenate([kv, [0]]),
+           work_capacity=32)
+    plans["verify"] = (w.device_plan, pages, kv, np.full(b, rows))
     return plans
 
 
@@ -392,7 +416,9 @@ def check_paged_attention(torch, np, lens_decode, lens_prefill):
     group = hq // hkv
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(7)
-    cases = [(mode, 128, plan, ("NHD", "HND")) for mode, plan in
+    cases = [(mode, 128, plan,
+              ("NHD",) if mode == "verify" else ("NHD", "HND"))
+             for mode, plan in
              _engine_like_plans(np, lens_decode, lens_prefill).items()]
     cases.append(("decode", 256, _engine_like_plans(
         np, lens_decode, lens_prefill, d=256)["decode"], ("NHD", "HND")))
@@ -490,28 +516,64 @@ SAMPLER_CASES = (
     ("deepseek_one", 1, 102400, "top_k_top_p_seq", "sample"),
     ("llama_renorm", 8, 128256, "top_k_top_p_seq", "renorm"),
     ("llama_mask", 8, 128256, "top_k", "mask_logits"),
+    # the spec verify step (batch 8, 3 drafts): top-k renorm of its 32
+    # target rows, top-p renorm of what that leaves, the chain's draw on the
+    # rows the chain builds from those (``spec_draw_rows``)
+    ("spec_renorm_k", 32, 128256, "top_k", "renorm"),
+    ("spec_renorm_p", 32, 128256, "top_p", "renorm"),
+    ("spec_draw", 8, 128256, "none", "sample"),
 )
+
+
+def spec_draw_rows(torch, target, num_spec):
+    """The rows ``chain_speculative_sampling`` draws from in the verify
+    step, for one-hot drafts on ``target`` [B, G + 1, V] (the renormed
+    target rows): row b is rejected first at draft b % (G + 1), and G means
+    every draft was accepted. A rejected draft is its row's most likely
+    token, so the residual max(target - one-hot, 0) is the row with that
+    entry at 0, unnormalised (the target row where that leaves nothing);
+    an accepted row draws the bonus token from its last target row."""
+    batch = target.shape[0]
+    b = torch.arange(batch, device=target.device)
+    first_rej = b % (num_spec + 1)
+    rows = target[b, first_rej.clamp(max=num_spec - 1)]
+    resid = rows.scatter(1, rows.argmax(-1, keepdim=True), 0.0)
+    resid = torch.where(resid.sum(-1, keepdim=True) > 0, resid, rows)
+    return torch.where((first_rej < num_spec)[:, None], resid,
+                       target[:, num_spec])
 
 
 def sampler_cases(torch):
     """The sampler check's inputs, one dict a case of ``SAMPLER_CASES``:
     probabilities (a softmax of 4 x randn logits) or, for mask_logits, the
-    logits; top-k 40, top-p 0.9; with the case's byte bound (rows read and
-    written once, k, p and tokens)."""
-    from flashinfer_tpu_torch.ops.sampling import softmax
+    logits; top-k 40, top-p 0.9; the spec cases chained as the verify step
+    runs them; with the case's byte bound (rows read and written once, k, p
+    and tokens)."""
+    from flashinfer_tpu_torch.ops.sampling import family_plain, softmax
 
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(3)
+    prev = None
     for name, batch, vocab, filt, mode in SAMPLER_CASES:
         logits = torch.randn(batch, vocab, device=dev, generator=gen) * 4
         x = logits if mode == "mask_logits" else softmax(logits)
+        k = torch.full((batch, 1), 40, dtype=torch.int32, device=dev)
+        p = torch.full((batch, 1), 0.9, device=dev)
+        if name == "spec_renorm_p":  # the top-k renorm's rows, as served
+            x = family_plain(prev, 0, k, torch.ones_like(p), filt="top_k",
+                             out_mode="renorm")
+        if name == "spec_draw":  # the chain's rows on the top-p renorm's
+            rk = torch.ones(prev.shape[0], 1, dtype=torch.int32, device=dev)
+            target = family_plain(prev, 0, rk, torch.full_like(rk, 0.9,
+                                                               dtype=p.dtype),
+                                  filt="top_p", out_mode="renorm")
+            x = spec_draw_rows(torch, target.view(batch, -1, vocab),
+                               SPEC_TOKENS)
+        prev = x
         nbytes = x.numel() * 4 * (1 if mode == "sample" else 2) + batch * 12
         b_ms, b_by = bound_ms(nbytes, 0)
         yield dict(name=name, batch=batch, vocab=vocab, filt=filt, mode=mode,
-                   x=x, k=torch.full((batch, 1), 40, dtype=torch.int32,
-                                     device=dev),
-                   p=torch.full((batch, 1), 0.9, device=dev),
-                   bound_ms=b_ms, bound_by=b_by)
+                   x=x, k=k, p=p, bound_ms=b_ms, bound_by=b_by)
 
 
 def check_sampler(torch):
@@ -1535,7 +1597,8 @@ def phase_pod(torch, np, card):
 
 def phase_tiny_reference(torch, np):
     """Greedy tokens of the f32 tiny engine, card vs CPU, for every KV
-    container and layout."""
+    container and layout; then with speculative decoding (3 drafts) on
+    repetitive prompts: card, CPU and the non-spec card engine."""
     from flashinfer_tpu_torch import EngineConfig, LlamaConfig, \
         LlamaServingEngine
 
@@ -1564,6 +1627,28 @@ def phase_tiny_reference(torch, np):
                 f"{'==' if same else '!='} cpu")
             if not same:
                 bad.append((kv_dtype, layout, outs))
+    # repetitive prompts (a core repeated) give the n-gram proposer hits
+    core = rng.integers(0, mc.vocab_size, 4).tolist()
+    spec_prompts = [core * 3, core * 2 + core[:2],
+                    rng.integers(0, mc.vocab_size, 7).tolist()]
+    outs, accepted = {}, {}
+    for device, spec in (("cpu", SPEC_TOKENS), (DEVICE, SPEC_TOKENS),
+                         (DEVICE, 0)):
+        cfg = EngineConfig(model=mc, max_batch=2, num_pages=64, page_size=8,
+                           max_seq_len=64, greedy=True, spec_tokens=spec,
+                           device=device)
+        eng = LlamaServingEngine(cfg, params=params)
+        reqs = [eng.add_request(p, 8) for p in spec_prompts]
+        eng.run_to_completion(max_steps=200)
+        outs[device, spec] = [r.output for r in reqs]
+        accepted[device, spec] = eng.spec_stats["accepted"]
+    same = (outs["cpu", SPEC_TOKENS] == outs[DEVICE, SPEC_TOKENS]
+            == outs[DEVICE, 0])
+    log(f"tiny f32 spec engine (spec_tokens={SPEC_TOKENS}): card "
+        f"{'==' if same else '!='} cpu == non-spec; drafts accepted: card "
+        f"{accepted[DEVICE, SPEC_TOKENS]}, cpu {accepted['cpu', SPEC_TOKENS]}")
+    if not same or accepted[DEVICE, SPEC_TOKENS] == 0:
+        bad.append(("spec", outs, accepted))
     if bad:
         raise AssertionError(f"card and CPU engines disagree: {bad}")
 
@@ -1592,6 +1677,7 @@ def _reset_counts():
 
 
 LLAMA_PATH = ("paged_attention", "sampler_family", "rmsnorm")
+SPEC_TOKENS = 3  # drafts a sequence in the spec modes
 DEEPSEEK_PATH = ("mla_attention", "grouped_gemm", "rmsnorm",
                  "sampler_family")
 SINGLE_PATH = ("flash_attention",)
@@ -1662,11 +1748,14 @@ def _profile_decode(torch, eng, prompts, steps=3):
     batch (a window of N each, so the numbers are per decode step), and for
     a graphed engine the device ms of one replay of the step's graph, from
     CUDA events over back-to-back replays of the last step (which rewrite
-    the same cache entries). Leaves the engine idle."""
-    n = eng.cfg.decode_window
+    the same cache entries). A spec engine's numbers are per verify step.
+    Leaves the engine idle."""
+    spec = eng.cfg.spec_tokens
+    n = 1 if spec else eng.cfg.decode_window
     for p in prompts[: eng.cfg.max_batch]:
-        # prefill's token, a first decode (or window), then ``steps`` more
-        eng.add_request(p, 2 + (steps + 1) * n)
+        # prefill's token, a first decode (or window), then ``steps`` more,
+        # each emitting at most n tokens (spec: G + 1)
+        eng.add_request(p, 2 + (steps + 1) * (spec + 1 if spec else n))
     eng.step()  # admission, prefill and the first decode
     prof = _profile_steps(torch, eng.step, steps, per_call=n)
     replay_ms = None
@@ -1685,22 +1774,24 @@ def tail_pct(samples):
 
 def _serve(torch, eng, prompts, n_new):
     """Serve the prompts to completion. Returns (requests, wall s, the wall
-    ms of each step that admitted nothing, per decode step (a window's over
-    its steps), whether each of those ran a full batch, the wall ms of the
-    steps that admitted)."""
+    ms of each step that admitted nothing, per device step (a window's over
+    its decode steps; a verify step is one), whether each of those ran a
+    full batch, the wall ms of the steps that admitted)."""
     reqs = [eng.add_request(p, n_new) for p in prompts]
     decode_ms, full, prefill_ms = [], [], []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     while eng.has_work():
         pending, running = len(eng._pending), eng.num_running
+        ran = eng.decode_steps + eng.spec_stats["steps"]
         ts = time.perf_counter()
-        emitted = eng.step()
+        eng.step()
         dt = (time.perf_counter() - ts) * 1e3
         if len(eng._pending) < pending:
             prefill_ms.append(dt)
         else:
-            decode_ms.append(dt / max(1, len(emitted) // max(1, running)))
+            ran = eng.decode_steps + eng.spec_stats["steps"] - ran
+            decode_ms.append(dt / max(1, ran))
             full.append(running == eng.cfg.max_batch)
         if eng.steps > 10000:
             raise RuntimeError("engine did not finish")
@@ -1709,9 +1800,13 @@ def _serve(torch, eng, prompts, n_new):
 
 
 # the engine's decode step three ways: eager, replayed from CUDA graphs,
-# and replayed four steps a window
+# and replayed four steps a window; then speculative decoding, its verify
+# step eager and replayed from CUDA graphs
 ENGINE_MODES = (("eager", dict(cuda_graphs=False)), ("graphed", {}),
-                ("window4", dict(decode_window=4)))
+                ("window4", dict(decode_window=4)),
+                ("spec_eager", dict(spec_tokens=SPEC_TOKENS,
+                                    cuda_graphs=False)),
+                ("spec", dict(spec_tokens=SPEC_TOKENS)))
 
 
 def phase_engine(torch, np, card):
@@ -1743,7 +1838,8 @@ def phase_engine(torch, np, card):
             reqs, wall, dec, full_at, pre = _serve(torch, eng, prompts, n_new)
             counts = {k: counters[k].launches for k in LLAMA_PATH}
             steps, decode_steps = eng.steps, eng.decode_steps
-            plan_ms = eng.plan_seconds * 1e3 / decode_steps
+            spec = dict(eng.spec_stats)
+            plan_ms = eng.plan_seconds * 1e3 / (decode_steps + spec["steps"])
             graphs = dict(captured=eng.graphs.captures,
                           capture_s=eng.graphs.capture_seconds,
                           pool_bytes=eng.graphs.pool_bytes)
@@ -1775,6 +1871,11 @@ def phase_engine(torch, np, card):
                 replay_device_ms=replay_ms, launches=counts, profile=prof,
                 first_tokens=[o[:4] for o in outs[:3]],
                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+            if spec["steps"]:
+                res.update(
+                    spec=spec, verify_steps=spec["steps"],
+                    tokens_per_verify_step=spec["emitted"] / spec["seqs"],
+                    acceptance=spec["accepted"] / spec["drafts"])
             # a step's device time: CUDA events around a replay where the
             # step is a graph, else the profiler's kernels
             dev_ms = replay_ms or (prof or {}).get("device_ms_per_step")
@@ -1793,6 +1894,12 @@ def phase_engine(torch, np, card):
                 f"step; graphs {json.dumps(graphs)}; {len(pre)} prefill "
                 f"steps, mean {res['prefill_step_ms_mean']:.1f} ms; "
                 f"preemptions {eng.preemptions}; launches {counts} [{card}]")
+            if spec["steps"]:
+                log(f"engine {mode} {sampling}: {spec['steps']} verify steps "
+                    f"over {spec['seqs']} sequence-steps emitted "
+                    f"{res['tokens_per_verify_step']:.3f} tokens a sequence "
+                    f"a step; drafts accepted {spec['accepted']} of "
+                    f"{spec['drafts']} ({res['acceptance']:.3f})")
             if prof:
                 log(f"engine {mode} {sampling} profile, per decode step at "
                     f"batch 8: device {prof['device_ms_per_step']:.2f} ms in "
@@ -1809,7 +1916,8 @@ def phase_engine(torch, np, card):
                     "no device time (not measured)")
             del eng
             torch.cuda.empty_cache()
-    missing = [k for k, n in results["graphed"]["sampled"]["launches"].items()
+    missing = [(path, k) for path in ("graphed", "spec")
+               for k, n in results[path]["sampled"]["launches"].items()
                if n == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: "
@@ -1818,8 +1926,20 @@ def phase_engine(torch, np, card):
                 outs_by["eager", "greedy"] == outs_by["graphed", "greedy"]
                 == outs_by["window4", "greedy"]),
             "sampled, eager and graphed": (
-                outs_by["eager", "sampled"] == outs_by["graphed", "sampled"])}
+                outs_by["eager", "sampled"] == outs_by["graphed", "sampled"]),
+            "spec greedy, eager and graphed": (
+                outs_by["spec_eager", "greedy"] == outs_by["spec", "greedy"]),
+            "spec sampled, eager and graphed": (
+                outs_by["spec_eager", "sampled"]
+                == outs_by["spec", "sampled"])}
     log(f"engine tokens identical: {same}")
+    # not asserted: the verify step's 32-row GEMMs round otherwise than
+    # the decode step's 8-row ones, in bf16
+    match = float(np.mean(np.asarray(outs_by["spec", "greedy"])
+                          == np.asarray(outs_by["graphed", "greedy"])))
+    results["spec_greedy_match_decode"] = match
+    log(f"engine spec greedy tokens equal to the graphed decode's: "
+        f"{match:.3f}")
     if not all(same.values()):
         raise AssertionError(f"the modes' tokens differ: {same}")
     results["variants"] = _engine_variants(
@@ -2250,6 +2370,8 @@ def main() -> int:
     # each path's sampled run, its counts set to 0 just before it; a kernel
     # on both paths reports the launches of both runs
     by_path = {"llama": (eng or {}).get("graphed", {}).get(
+                   "sampled", {}).get("launches", {}),
+               "spec": (eng or {}).get("spec", {}).get(
                    "sampled", {}).get("launches", {}),
                "deepseek": (dsk or {}).get("sampled", {}).get("launches", {}),
                "single": (single or {}).get("launches", {}),

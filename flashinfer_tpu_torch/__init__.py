@@ -17,14 +17,35 @@ from flashinfer_tpu_torch.ops.norm import (
     gemma_rmsnorm,
     rmsnorm,
 )
+from flashinfer_tpu_torch.ops.sampling import (
+    chain_speculative_sampling,
+    min_p_sampling_from_probs,
+    sampling_from_logits,
+    sampling_from_probs,
+    softmax,
+    top_k_mask_logits,
+    top_k_renorm_probs,
+    top_k_sampling_from_probs,
+    top_k_top_p_sampling_from_logits,
+    top_k_top_p_sampling_from_probs,
+    top_p_renorm_probs,
+    top_p_sampling_from_probs,
+)
 from flashinfer_tpu_torch.serving.engine import (
     EngineConfig,
     GenerationRequest,
     LlamaServingEngine,
+    propose_ngram,
 )
 
 __all__ = ["EngineConfig", "GenerationRequest", "LlamaConfig",
            "LlamaServingEngine", "PODWithPagedKVCacheWrapper",
-           "fused_add_rmsnorm", "gemma_fused_add_rmsnorm", "gemma_rmsnorm",
-           "params_from_numpy", "rmsnorm", "single_decode_with_kv_cache",
-           "single_prefill_with_kv_cache"]
+           "chain_speculative_sampling", "fused_add_rmsnorm",
+           "gemma_fused_add_rmsnorm", "gemma_rmsnorm",
+           "min_p_sampling_from_probs", "params_from_numpy", "propose_ngram",
+           "rmsnorm", "sampling_from_logits", "sampling_from_probs",
+           "single_decode_with_kv_cache", "single_prefill_with_kv_cache",
+           "softmax", "top_k_mask_logits", "top_k_renorm_probs",
+           "top_k_sampling_from_probs", "top_k_top_p_sampling_from_logits",
+           "top_k_top_p_sampling_from_probs", "top_p_renorm_probs",
+           "top_p_sampling_from_probs"]

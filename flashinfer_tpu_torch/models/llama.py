@@ -101,7 +101,7 @@ def check_dense_params(params: Mapping[str, torch.Tensor]) -> None:
     if bad or (wo is not None and wo.dtype in (torch.int8, torch.uint8)):
         raise NotImplementedError(
             "8-bit weight containers (weight_dtype fp8_e4m3 / int8) are not "
-            "in this slice of the port (ROADMAP Queue 1, item 4)")
+            "in this slice of the port (ROADMAP Queue 1, item 1)")
 
 
 def params_from_numpy(np_params: Mapping[str, np.ndarray],

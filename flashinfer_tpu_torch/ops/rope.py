@@ -45,6 +45,7 @@ def apply_rope_pos_ids(
     pos_ids: torch.Tensor,
     *,
     rotary_dim: Optional[int] = None,
+    interleave: bool = False,
     rope_scale: float = 1.0,
     rope_theta: float = 1e4,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -54,7 +55,8 @@ def apply_rope_pos_ids(
     inv_freq = _inv_freq(rotary_dim, rope_theta, q.device)
     angles = (pos_ids.float() / rope_scale)[:, None] * inv_freq[None, :]
     cos, sin = torch.cos(angles), torch.sin(angles)
-    return _apply(q, cos, sin, rotary_dim), _apply(k, cos, sin, rotary_dim)
+    return (_apply(q, cos, sin, rotary_dim, interleave),
+            _apply(k, cos, sin, rotary_dim, interleave))
 
 
 def rope_cos_sin_cache(

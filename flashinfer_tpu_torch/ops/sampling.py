@@ -19,12 +19,24 @@ Filters: ``none``, ``top_k``, ``top_p``, ``min_p``, ``top_k_top_p_joint`` and
 modes: ``sample`` (tokens [B] int32), ``renorm`` (kept probabilities
 renormalised, [B, V] f32) and ``mask_logits`` (logits outside the top-k set
 set to -inf).
+
+The public samplers (``sampling_from_probs`` ... ``top_k_mask_logits``) are
+the JAX package's functions of the same names, each one ``family_call``.
+They take ``indices`` (row i draws from row ``indices[i]``),
+``deterministic`` and ``backend`` as JAX's do (the kernel is deterministic,
+and the backend is the rows' device: the kernel on CUDA rows, the plain
+version on CPU rows); randomness comes from ``seed`` (an int, or a
+one-element int32 tensor on the rows' device) or a ``generator`` that draws
+one, in place of JAX's PRNG key. ``chain_speculative_sampling`` verifies
+draft tokens as JAX's does; its acceptance uniforms are a murmur3 hash of
+the seed, so a CUDA graph can replay it with a seed read from device memory.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Union
+import numbers
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -37,7 +49,18 @@ __all__ = [
     "pivot_search_plain",
     "sampler_route",
     "sampler_stats",
+    "sampling_from_probs",
+    "sampling_from_logits",
+    "top_p_sampling_from_probs",
+    "top_k_sampling_from_probs",
+    "min_p_sampling_from_probs",
     "top_k_top_p_sampling_from_probs",
+    "top_k_top_p_sampling_from_logits",
+    "top_p_renorm_probs",
+    "top_k_renorm_probs",
+    "top_k_mask_logits",
+    "chain_speculative_sampling",
+    "spec_uniforms",
     "draw_seed",
 ]
 
@@ -49,7 +72,10 @@ _MASK32 = 0xFFFFFFFF
 
 
 def _row_param(x, batch: int, dtype, device) -> torch.Tensor:
-    """Scalar, [B] or [B, 1] -> [B, 1]."""
+    """Scalar, [B] or [B, 1] -> [B, 1]. A Python number is filled on the
+    device (no host copy, so a CUDA graph can capture it)."""
+    if isinstance(x, numbers.Number):
+        return torch.full((batch, 1), x, dtype=dtype, device=device)
     t = torch.as_tensor(x, dtype=dtype, device=device)
     if t.ndim == 0:
         t = t.expand(batch)
@@ -57,9 +83,11 @@ def _row_param(x, batch: int, dtype, device) -> torch.Tensor:
 
 
 def softmax(logits: torch.Tensor,
-            temperature: Union[float, torch.Tensor] = 1.0) -> torch.Tensor:
+            temperature: Union[float, torch.Tensor] = 1.0, *,
+            enable_pdl: Optional[bool] = None) -> torch.Tensor:
     """Temperature softmax in f32; rows with temperature 0 give a one-hot of
-    the argmax (split evenly over ties)."""
+    the argmax (split evenly over ties). ``enable_pdl``, a launch hint, is
+    accepted and ignored (plain PyTorch)."""
     x = logits.float()
     t = _row_param(temperature, x.shape[0], torch.float32, x.device)
     safe_t = torch.where(t > 0, t, 1.0)
@@ -296,26 +324,204 @@ def sampler_stats(x: torch.Tensor, k, p, *, filt: str,
     return stats
 
 
+def _seed_of(seed, generator):
+    if seed is None:
+        if generator is None:
+            raise ValueError("pass a seed or a torch.Generator")
+        seed = draw_seed(generator)
+    return seed
+
+
+def _rows(x: torch.Tensor, indices) -> torch.Tensor:
+    if indices is not None:
+        x = x[torch.as_tensor(indices, device=x.device).long()]
+    return x.float()
+
+
+def _draw(probs, seed, generator, k, p, filt, indices) -> torch.Tensor:
+    return family_call(_rows(probs, indices), _seed_of(seed, generator), k,
+                       p, filt=filt, out_mode="sample")
+
+
+def sampling_from_probs(probs: torch.Tensor, *, indices=None,
+                        deterministic: bool = True, backend: str = "auto",
+                        seed=None, generator=None) -> torch.Tensor:
+    """A categorical draw from each row of (possibly unnormalised)
+    probabilities [B, V]. Returns tokens [B] int32."""
+    return _draw(probs, seed, generator, 1, 1.0, "none", indices)
+
+
+def sampling_from_logits(logits: torch.Tensor, *, indices=None,
+                         temperature: Union[float, torch.Tensor] = 1.0,
+                         deterministic: bool = True, seed=None,
+                         generator=None) -> torch.Tensor:
+    """A draw from softmax(logits / temperature) per row: the kernel's
+    draw on the temperature softmax (JAX adds Gumbel noise to the logits;
+    the distribution is the same). Rows with temperature 0 take the argmax
+    (the first, on ties), as in JAX."""
+    x = _rows(logits, indices)
+    t = _row_param(temperature, x.shape[0], torch.float32, x.device)
+    tok = family_call(softmax(x, t), _seed_of(seed, generator), 1, 1.0,
+                      filt="none", out_mode="sample")
+    return torch.where(t[:, 0] > 0, tok, x.argmax(dim=-1).to(torch.int32))
+
+
+def top_p_sampling_from_probs(probs: torch.Tensor, top_p, *, indices=None,
+                              deterministic: bool = True,
+                              backend: str = "auto", seed=None,
+                              generator=None) -> torch.Tensor:
+    """Nucleus sampling: a draw from the smallest top set of mass top_p."""
+    return _draw(probs, seed, generator, 1, top_p, "top_p", indices)
+
+
+def top_k_sampling_from_probs(probs: torch.Tensor, top_k, *, indices=None,
+                              deterministic: bool = True,
+                              backend: str = "auto", seed=None,
+                              generator=None) -> torch.Tensor:
+    """A draw from the top_k most probable entries of each row."""
+    return _draw(probs, seed, generator, top_k, 1.0, "top_k", indices)
+
+
+def min_p_sampling_from_probs(probs: torch.Tensor, min_p, *, indices=None,
+                              deterministic: bool = True,
+                              backend: str = "auto", seed=None,
+                              generator=None) -> torch.Tensor:
+    """A draw from the entries with p >= min_p * max(p) of each row."""
+    return _draw(probs, seed, generator, 1, min_p, "min_p", indices)
+
+
 def top_k_top_p_sampling_from_probs(
     probs: torch.Tensor,
     top_k,
     top_p,
     *,
-    seed: Optional[int] = None,
-    generator: Optional[torch.Generator] = None,
+    indices=None,
     filter_apply_order: str = "top_k_first",
+    deterministic: bool = True,
+    backend: str = "auto",
+    seed=None,
+    generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """Joint top-k + top-p sampling from probabilities [B, V]: top-k, then
     renormalise, then top-p (``top_k_first``), or both pivots on the raw
     probabilities (``joint``). The noise comes from ``seed`` or, if None, a
     seed drawn from ``generator``. Returns tokens [B] int32."""
-    if seed is None:
-        if generator is None:
-            raise ValueError("pass a seed or a torch.Generator")
-        seed = draw_seed(generator)
     filt = {"top_k_first": "top_k_top_p_seq",
             "joint": "top_k_top_p_joint"}.get(filter_apply_order)
     if filt is None:
         raise ValueError(f"unknown filter_apply_order {filter_apply_order!r}")
-    return family_call(probs.float(), seed, top_k, top_p, filt=filt,
-                       out_mode="sample")
+    return _draw(probs, seed, generator, top_k, top_p, filt, indices)
+
+
+def top_k_top_p_sampling_from_logits(
+    logits: torch.Tensor,
+    top_k,
+    top_p,
+    *,
+    indices=None,
+    filter_apply_order: str = "top_k_first",
+    deterministic: bool = True,
+    seed=None,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """``top_k_top_p_sampling_from_probs`` on softmax(logits)."""
+    return top_k_top_p_sampling_from_probs(
+        torch.softmax(logits.float(), dim=-1), top_k, top_p, indices=indices,
+        filter_apply_order=filter_apply_order, seed=seed,
+        generator=generator)
+
+
+def top_p_renorm_probs(probs: torch.Tensor, top_p, *,
+                       backend: str = "auto") -> torch.Tensor:
+    """Each row's top-p set renormalised, everything else 0."""
+    return family_call(probs.float(), 0, 1, top_p, filt="top_p",
+                       out_mode="renorm")
+
+
+def top_k_renorm_probs(probs: torch.Tensor, top_k, *,
+                       backend: str = "auto") -> torch.Tensor:
+    """Each row's top-k set renormalised, everything else 0."""
+    return family_call(probs.float(), 0, top_k, 1.0, filt="top_k",
+                       out_mode="renorm")
+
+
+def top_k_mask_logits(logits: torch.Tensor, top_k, *,
+                      backend: str = "auto") -> torch.Tensor:
+    """Logits outside each row's top-k set set to -inf (in the logits'
+    dtype)."""
+    return family_call(logits.float(), 0, top_k, 1.0, filt="top_k",
+                       out_mode="mask_logits").to(logits.dtype)
+
+
+# the acceptance uniforms hash seed' = mix(seed ^ salt), so they are not the
+# draw's Gumbel noise, which hashes the seed itself
+_UNIFORM_SALT = 0x5BD1E995
+
+
+def spec_uniforms(seed, batch: int, num: int, device=None) -> torch.Tensor:
+    """``chain_speculative_sampling``'s acceptance uniforms [batch, num] f32
+    in [0, 1): the murmur3 finalizer (twice) of seed' + row * 0x9E3779B9 +
+    j * 40503 in uint32 arithmetic, top 24 bits, with seed' the finalizer of
+    (the seed's low 32 bits) ^ 0x5BD1E995. ``seed`` is an int or a
+    one-element int32 tensor (read on its device: graph-safe)."""
+    if isinstance(seed, torch.Tensor):
+        s = seed.reshape(()).long() & _MASK32
+    else:
+        s = _seed32(seed) & _MASK32
+    s = _mix(s ^ _UNIFORM_SALT)
+    row = torch.arange(batch, dtype=torch.int64, device=device)[:, None]
+    col = torch.arange(num, dtype=torch.int64, device=device)[None, :]
+    h = (s + _mul32(row, 0x9E3779B9) + col * 40503) & _MASK32
+    return (_mix(_mix(h)) >> 8).float() * (1.0 / (1 << 24))
+
+
+def chain_speculative_sampling(
+    draft_probs: torch.Tensor,
+    draft_token_ids: torch.Tensor,
+    target_probs: torch.Tensor,
+    *,
+    seed=None,
+    generator: Optional[torch.Generator] = None,
+    deterministic: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Chained speculative-decoding verification (JAX's function of the
+    same name). draft_probs [B, G, V], draft_token_ids [B, G], target_probs
+    [B, G + 1, V] (the last row draws the bonus token). Draft j is accepted
+    with probability min(1, target / draft at its token) while every draft
+    before it was; at the first rejection a token is drawn from max(target
+    - draft, 0) (the target row where that is empty), after all G the bonus
+    token from the last target row. One draw (kernel 2, no filter) takes
+    the resampled or the bonus token of every row.
+
+    Returns (output_token_ids [B, G + 1] int32, -1 after the first
+    rejection; accepted draft count [B]; emitted draft count [B], the
+    same). The uniforms are ``spec_uniforms`` of the seed, not JAX's
+    ``jax.random`` stream."""
+    seed = _seed_of(seed, generator)
+    ids = draft_token_ids.long()
+    draft, target = draft_probs.float(), target_probs.float()
+    B, G1, V = target.shape
+    G = G1 - 1
+    b = torch.arange(B, device=target.device)
+    u = spec_uniforms(seed, B, G, target.device)
+    p_draft = draft.gather(2, ids[..., None])[..., 0]
+    p_target = target[:, :G].gather(2, ids[..., None])[..., 0]
+    accept = u < torch.clamp(p_target / p_draft.clamp(min=1e-20), max=1.0)
+    rejected = ~accept
+    first_rej = torch.where(rejected.any(dim=1),
+                            rejected.to(torch.int32).argmax(dim=1),
+                            G)  # [B]
+    pos = first_rej.clamp(max=G - 1)
+    resid = (target[b, pos] - draft[b, pos]).clamp(min=0.0)
+    # the target row where the residual is empty
+    resid = torch.where(resid.sum(dim=-1, keepdim=True) > 0, resid,
+                        target[b, pos])
+    rows = torch.where((first_rej < G)[:, None], resid, target[:, G])
+    tok = family_call(rows, seed, 1, 1.0, filt="none", out_mode="sample")
+    steps = torch.arange(G1, device=target.device)[None, :]
+    fr = first_rej[:, None]
+    drafted = torch.cat([ids, ids.new_zeros(B, 1)], dim=1)
+    out = torch.where(steps < fr, drafted,
+                      torch.where(steps == fr, tok[:, None].long(), -1))
+    accepted = first_rej.to(torch.int32)
+    return out.to(torch.int32), accepted, accepted

@@ -4,7 +4,8 @@ from flashinfer_tpu_torch.serving.engine import (
     LlamaServingEngine,
     calibrate_kv_scales,
     fuse_qkv_weights,
+    propose_ngram,
 )
 
 __all__ = ["EngineConfig", "GenerationRequest", "LlamaServingEngine",
-           "calibrate_kv_scales", "fuse_qkv_weights"]
+           "calibrate_kv_scales", "fuse_qkv_weights", "propose_ngram"]

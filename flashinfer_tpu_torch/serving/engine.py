@@ -3,8 +3,9 @@
 Counterpart of ``flashinfer_tpu/serving/engine.py``, with the same host-side
 scheduling: a page pool for KV blocks, one attention plan per step, admission
 with prefill, one decode token per running sequence per step (or N of them
-with ``decode_window`` N), and recompute preemption (the youngest sequence
-is evicted and later re-prefilled with its prompt and output) when the pool
+with ``decode_window`` N, or up to G + 1 with speculative decoding,
+``spec_tokens`` G), and recompute preemption (the youngest sequence is
+evicted and later re-prefilled with its prompt and output) when the pool
 runs out.
 
 The device step is plain PyTorch around the package's CUDA kernels: RMSNorm
@@ -20,10 +21,19 @@ graph, one per ``PlanMeta`` (``serving/graphs.py``); ``cuda_graphs=False``
 runs it eagerly, with the same tokens. Prefill, ``score()`` and
 ``calibrate_kv_scales`` run eagerly.
 
+Speculative decoding (``spec_tokens`` G > 0) proposes G drafts a sequence
+from its own context (``propose_ngram``) and verifies the G + 1 rows in one
+causal qo > 1 step of fixed shape, replayed from a CUDA graph per
+``("verify", PlanMeta)``: greedy keeps the drafts the argmax agrees with
+and adds its next token; sampled runs ``chain_speculative_sampling`` on
+the top-k/top-p renormalised targets with one-hot drafts. The KV of the
+rejected rows is rolled back.
+
 This slice serves model-dtype weights with KV caches in the model dtype,
 e4m3 (``torch.float8_e4m3fn``) or linear int8, in the NHD or HND layout,
-greedy or sampled. Speculative decoding and weight quantization raise
-``NotImplementedError`` (ROADMAP Queue 1, items 1 and 4).
+greedy or sampled. Weight quantization raises ``NotImplementedError``
+(ROADMAP Queue 1, item 1). ``EngineConfig`` has no ``interpret`` field:
+the JAX engine's Pallas interpret switch has no meaning on the card.
 """
 
 from __future__ import annotations
@@ -34,6 +44,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from flashinfer_tpu_torch.models.llama import (
     PER_LAYER,
@@ -52,9 +63,12 @@ from flashinfer_tpu_torch.ops.attention.batch import (
 from flashinfer_tpu_torch.ops.norm import add_rmsnorm, fused_add_rmsnorm
 from flashinfer_tpu_torch.ops.rope import apply_rope_pos_ids
 from flashinfer_tpu_torch.ops.sampling import (
+    chain_speculative_sampling,
     draw_seed,
     softmax,
+    top_k_renorm_probs,
     top_k_top_p_sampling_from_probs,
+    top_p_renorm_probs,
 )
 from flashinfer_tpu_torch.scheduler.page_pool import PagePool
 from flashinfer_tpu_torch.serving.graphs import StepGraphs
@@ -66,7 +80,7 @@ from flashinfer_tpu_torch.utils import (
 )
 
 __all__ = ["EngineConfig", "GenerationRequest", "LlamaServingEngine",
-           "calibrate_kv_scales", "fuse_qkv_weights"]
+           "calibrate_kv_scales", "fuse_qkv_weights", "propose_ngram"]
 
 
 @dataclasses.dataclass
@@ -88,7 +102,10 @@ class EngineConfig:
     # per-tensor 8-bit KV scale: one float for K and V, or (k_scale, v_scale)
     kv_scale: object = 0.05
     weight_dtype: str = "model"
+    # G > 0: propose G draft tokens a sequence (``propose_ngram``) and
+    # verify all G + 1 rows in one step; a step emits 1 to G + 1 tokens
     spec_tokens: int = 0
+    spec_ngram: int = 3  # longest suffix n-gram the proposer matches
     kv_layout: str = "NHD"
     # N > 1: plan N decode steps at once (lengths grow by one a step) and
     # run them back to back, each step's tokens fed to the next on the
@@ -149,9 +166,7 @@ class LlamaServingEngine:
         if config.kv_layout not in ("NHD", "HND"):
             raise ValueError(f"unknown kv_layout {config.kv_layout!r}")
         if config.weight_dtype != "model":
-            raise _not_in_slice(f"weight_dtype={config.weight_dtype!r}", 4)
-        if config.spec_tokens > 0:
-            raise _not_in_slice("speculative decoding (spec_tokens > 0)", 1)
+            raise _not_in_slice(f"weight_dtype={config.weight_dtype!r}", 1)
         if config.page_size < 8:
             raise ValueError(
                 f"engine page_size must be >= 8, got {config.page_size}")
@@ -209,6 +224,10 @@ class LlamaServingEngine:
             kv_layout=config.kv_layout, device=self.device)
         self._prefill_wrapper = BatchPrefillWithPagedKVCacheWrapper(
             kv_layout=config.kv_layout, tile_q=256, device=self.device)
+        # the verify step's G + 1 rows a slot: tile_q auto-sizes to the
+        # packed draft rows
+        self._spec_wrapper = BatchPrefillWithPagedKVCacheWrapper(
+            kv_layout=config.kv_layout, device=self.device)
         self._page_bucket = next_power_of_2(config.num_pages)
         self.graphs = StepGraphs(self.device, config.cuda_graphs)
         self.steps = 0
@@ -218,6 +237,10 @@ class LlamaServingEngine:
         # their plans took
         self.decode_steps = 0
         self.plan_seconds = 0.0
+        # speculative decoding: verify steps, the sequences they ran, the
+        # drafts proposed and emitted, the tokens emitted
+        self.spec_stats = dict(steps=0, seqs=0, drafts=0, accepted=0,
+                               emitted=0)
 
     # ------------------------------------------------------------------ API
 
@@ -270,7 +293,9 @@ class LlamaServingEngine:
         emitted: List[Tuple[int, int]] = []
         self._admit(emitted)
         if self.num_running:
-            if self.cfg.decode_window > 1:
+            if self.cfg.spec_tokens > 0:
+                emitted.extend(self._spec_decode())
+            elif self.cfg.decode_window > 1:
                 emitted.extend(self._decode_window())
             else:
                 emitted.extend(self._decode())
@@ -534,13 +559,13 @@ class LlamaServingEngine:
         B = self.cfg.max_batch
         n, width = rows.shape
         buf = self.graphs.inputs(meta, width)
-        host = torch.from_numpy(rows)
-        if buf.is_cuda:
-            host = host.pin_memory()
         if n == 1:
-            buf.copy_(host[0], non_blocking=True)
+            _upload(buf, rows[0])
             toks = self.graphs.run(meta, self._decode_body)[None]
         else:
+            host = torch.from_numpy(rows)
+            if buf.is_cuda:
+                host = host.pin_memory()
             stacked = host.to(self.device, non_blocking=True)
             toks = torch.empty(n, B, dtype=torch.int32, device=self.device)
             off = _blob_size(meta)
@@ -568,6 +593,125 @@ class LlamaServingEngine:
         logits = self._logits(tok, pos, kv_indices[slot], valid,
                               DevicePlan(buf[:n], meta))
         return self._sample_tokens(logits, seed)
+
+    # ---------------------------------------------------- speculative decode
+
+    def _spec_decode(self) -> List[Tuple[int, int]]:
+        """One speculative step, counterpart of JAX's ``_spec_decode``:
+        propose G drafts a sequence, verify the G + 1 rows (the current
+        token and the drafts) in one causal step, emit the accepted drafts
+        and one more token, and roll the KV of the rest back."""
+        mc, B = self.cfg.model, self.cfg.max_batch
+        G = self.cfg.spec_tokens
+        rows = G + 1
+        reqs = [r for r in self._slots if r is not None]
+        reqs = self._reserve(reqs, rows)
+        if not reqs:
+            return []
+        kv0 = np.zeros(B, np.int64)
+        drafts = np.zeros((B, G), np.int64)
+        for r in reqs:
+            s = r._slot
+            kv0[s] = self.pool.seq_len(r._seq) - rows  # before the reserve
+            drafts[s] = propose_ngram(r.prompt + r.output, G,
+                                      self.cfg.spec_ngram)
+        tables = self._slot_tables(reqs)
+        full_indptr, slot_indices, full_last, kv_lens = tables
+        bucket = next_power_of_2(max(B * rows, 8))
+        tokens = np.zeros(bucket, np.int64)
+        positions = np.zeros(bucket, np.int64)
+        batch_idx = np.zeros(bucket, np.int64)
+        valid = np.zeros(bucket, np.int64)
+        for r in reqs:
+            s, o = r._slot, r._slot * rows
+            tokens[o] = r.output[-1] if r.output else r.prompt[-1]
+            tokens[o + 1: o + rows] = drafts[s]
+            positions[o: o + rows] = kv0[s] + np.arange(rows)
+            batch_idx[o: o + rows] = s
+            valid[o: o + rows] = 1
+        # every slot has G + 1 query rows (an idle slot's have no keys and
+        # no work items); a trailing dummy request takes the pad rows
+        plan_indptr = np.concatenate([full_indptr, [full_indptr[-1]]])
+        plan_last = np.concatenate([full_last, [0]])
+        t0 = time.perf_counter()
+        self._spec_wrapper.plan(
+            np.concatenate([np.arange(B + 1) * rows, [bucket]]),
+            plan_indptr, slot_indices, plan_last,
+            mc.num_qo_heads, mc.num_kv_heads, mc.head_dim, self.cfg.page_size,
+            causal=True, kv_chunk_size=self._kv_chunk(),
+            kv_len_arr=np.concatenate([kv_lens, [0]]),
+            work_capacity=self._work_capacity(), defer_upload=True)
+        self.plan_seconds += time.perf_counter() - t0
+        dplan = self._spec_wrapper.device_plan
+        # [plan blob | JAX's spec blob | seed]
+        row = np.concatenate([
+            dplan.blob.numpy(), tokens, positions, batch_idx, valid,
+            drafts.ravel(), slot_indices, plan_indptr, plan_last,
+            [self._draw_seed()]]).astype(np.int32)
+        key = ("verify", dplan.meta)
+        _upload(self.graphs.inputs(key, len(row)), row)
+        out_toks = self.graphs.run(key, self._verify_body).cpu().numpy()
+        st = self.spec_stats
+        st["steps"] += 1
+        out: List[Tuple[int, int]] = []
+        for r in reqs:
+            s = r._slot
+            toks: List[int] = []
+            for t in out_toks[s]:
+                if t < 0:
+                    break
+                toks.append(int(t))
+                if self.cfg.eos_token >= 0 and t == self.cfg.eos_token:
+                    break
+            toks = toks[: r.max_new_tokens - len(r.output)]
+            st["seqs"] += 1
+            st["drafts"] += G
+            st["accepted"] += min(len(toks), int((out_toks[s] >= 0).sum()) - 1)
+            st["emitted"] += len(toks)
+            # the KV of the current token and the accepted drafts stays;
+            # the last emitted token's KV enters with the next step
+            self.pool.truncate(r._seq, int(kv0[s]) + len(toks))
+            for t in toks:
+                self._emit(r, t, out)
+        return out
+
+    def _verify_body(self, buf: torch.Tensor, key) -> torch.Tensor:
+        """The fixed-shape verify step on its input buffer
+        (``_spec_decode``'s layout), counterpart of JAX's
+        ``_spec_verify_step``: tokens [max_batch, G + 1] int32, -1 after the
+        first rejected draft. Idle slots' and pad rows' K/V go to the
+        scratch row."""
+        meta = key[1]
+        B, G, pb = self.cfg.max_batch, self.cfg.spec_tokens, self._page_bucket
+        rows = G + 1
+        n = _blob_size(meta)
+        bucket = meta.nnz
+        step = buf[n:]
+        tok, pos = step[:bucket], step[bucket: 2 * bucket]
+        bidx = step[2 * bucket: 3 * bucket]
+        valid = step[3 * bucket: 4 * bucket] != 0
+        o = 4 * bucket
+        drafts = step[o: o + B * G].view(B, G)
+        kv_indices = step[o + B * G: o + B * G + pb]
+        kv_indptr = step[o + B * G + pb: o + B * G + pb + B + 2]
+        seed = step[-1:]
+        slot = (kv_indptr[bidx] + pos // self.cfg.page_size).clamp(max=pb - 1)
+        logits = self._logits(tok, pos, kv_indices[slot], valid,
+                              DevicePlan(buf[:n], meta),
+                              slice(0, B * rows)).view(B, rows, -1)
+        if self.cfg.greedy:
+            out = logits.argmax(dim=-1).to(torch.int32)  # [B, rows]
+            match = (out[:, :G] == drafts).to(torch.int32)
+            # row j is emitted iff every draft before it matched
+            keep = torch.cat([torch.ones_like(match[:, :1]),
+                              torch.cumprod(match, dim=1)], dim=1) != 0
+            return torch.where(keep, out, -1)
+        temperature, top_k, top_p = self._sample_args
+        probs = softmax(logits.view(B * rows, -1), temperature=temperature)
+        probs = top_p_renorm_probs(top_k_renorm_probs(probs, top_k), top_p)
+        one_hot = F.one_hot(drafts.long(), probs.shape[-1]).float()
+        return chain_speculative_sampling(
+            one_hot, drafts, probs.view(B, rows, -1), seed=seed)[0]
 
     def _work_capacity(self) -> int:
         chunks = cdiv(self.cfg.max_seq_len, self._kv_chunk())
@@ -682,6 +826,33 @@ class LlamaServingEngine:
             req.done = True
             self.pool.release(req._seq)
             self._slots[req._slot] = None
+
+
+def _upload(buf: torch.Tensor, row: np.ndarray) -> None:
+    """Copy a host int32 row into a step's static input buffer (from
+    pinned memory, without a wait, on the card)."""
+    host = torch.from_numpy(row)
+    if buf.is_cuda:
+        host = host.pin_memory()
+    buf.copy_(host, non_blocking=True)
+
+
+def propose_ngram(ctx: List[int], num_spec: int, max_ngram: int) -> List[int]:
+    """Prompt-lookup drafts: the tokens that followed the latest earlier
+    occurrence of the longest suffix n-gram of ``ctx`` (n = max_ngram
+    down to 1), padded with their last; the last token repeated when no
+    suffix occurred before."""
+    L = len(ctx)
+    arr = np.asarray(ctx)
+    for n in range(min(max_ngram, L - 1), 0, -1):
+        windows = np.lib.stride_tricks.sliding_window_view(arr[: L - 1], n)
+        hits = np.nonzero((windows == arr[L - n:]).all(axis=1))[0]
+        if hits.size:
+            i = int(hits[-1])
+            cont = ctx[i + n: i + n + num_spec]
+            if cont:
+                return list(cont) + [cont[-1]] * (num_spec - len(cont))
+    return [ctx[-1]] * num_spec
 
 
 def _blob_size(meta: PlanMeta) -> int:

@@ -1233,6 +1233,143 @@ def test_failed_capture_raises(dev):
     assert eng.graphs.captures == 0 and req.output and len(req.output) == 1
 
 
+def _verify_plan(dev, layout, kv_lens, spec_tokens=3, hq=32, hkv=8, d=128,
+                 ps=16, chunk=512):
+    """The spec engine's verify plan (``_spec_decode``) at Llama-3-8B heads:
+    G + 1 causal rows a request at the end of its keys, a trailing dummy
+    request for the pad rows, the worst-case work capacity. Returns (plan,
+    pages)."""
+    from flashinfer_tpu_torch.utils import next_power_of_2
+
+    rows, batch = spec_tokens + 1, len(kv_lens)
+    kv = np.asarray(kv_lens, np.int64)
+    npages = -(-kv // ps)
+    indptr = np.concatenate([[0], np.cumsum(npages)])
+    pages = int(indptr[-1])
+    indices = np.random.default_rng(30).permutation(pages)
+    bucket = next_power_of_2(max(batch * rows, 8))
+    w = attn_batch.BatchPrefillWithPagedKVCacheWrapper(kv_layout=layout,
+                                                       device=dev)
+    w.plan(np.concatenate([np.arange(batch + 1) * rows, [bucket]]),
+           np.concatenate([indptr, [indptr[-1]]]), indices,
+           np.concatenate([((kv - 1) % ps) + 1, [0]]), hq, hkv, d, ps,
+           causal=True, kv_chunk_size=chunk,
+           kv_len_arr=np.concatenate([kv, [0]]),
+           work_capacity=next_power_of_2(batch * 4))
+    return w.device_plan, pages
+
+
+@pytest.mark.parametrize("kv", ["model", "e4m3", "int8"])
+@pytest.mark.parametrize("layout", ["NHD", "HND"])
+def test_paged_kernel_at_the_verify_plan(dev, kv, layout):
+    """The verify rows of Llama-3-8B (32 q heads on 8 kv heads, head_dim
+    128): 8 requests of 4 causal rows (16 packed rows, the swap-AB decode
+    tiles with a causal edge), one across the 512-key chunk (split KV)."""
+    gen = torch.Generator(device=dev).manual_seed(31)
+    lens = [85, 117, 300, 513, 64, 200, 544, 97]
+    dp, pages = _verify_plan(dev, layout, lens)
+    assert dp.meta.tile_q == 16 and dp.meta.causal and dp.meta.max_splits > 1
+    kc, vc = _paged_caches(dev, gen, layout, kv, torch.bfloat16, pages, 16,
+                           8, 128, 128)
+    q = torch.randn(8, dp.meta.bucket_rows, 128, device=dev,
+                    generator=gen).bfloat16()
+    _paged_check(dev, dp, kc, vc, q, 32, 8, 128, k_scale=0.7, v_scale=1.3,
+                 kv_layout=TensorLayout[layout])
+
+
+def _spec_engine_run(prompts, n_new, **kw):
+    """``_bf16_engine_run`` with spec_tokens 3; also the sampler launches."""
+    fam0 = family_call.launches
+    outs, eng, counts = _bf16_engine_run(prompts, n_new, spec_tokens=3, **kw)
+    return outs, eng, counts + (family_call.launches - fam0,)
+
+
+@pytest.mark.parametrize("greedy", [True, False])
+@pytest.mark.parametrize("kv_dtype", ["model", "fp8_e4m3"])
+def test_graphed_verify_matches_eager(dev, greedy, kv_dtype):
+    """Speculative decoding on repetitive prompts, five requests on four
+    slots: the verify step replayed from CUDA graphs emits the eager
+    step's tokens, sampled ones too (the seed rides the input buffer and
+    the uniforms are a hash of it); each capture's warm-up runs one eager
+    step more; drafts are accepted."""
+    rng = np.random.default_rng(23)
+    core = rng.integers(0, 256, 5).tolist()
+    prompts = [core * 3, core * 2, rng.integers(0, 256, 9).tolist(),
+               core * 4 + core[:2], rng.integers(0, 256, 20).tolist()]
+    kw = dict(greedy=greedy, kv_dtype=kv_dtype, kv_scale=0.3)
+    want, eager, (paged_e, norm_e, fam_e) = _spec_engine_run(
+        prompts, 12, cuda_graphs=False, **kw)
+    got, eng, (paged_g, norm_g, fam_g) = _spec_engine_run(prompts, 12, **kw)
+    assert got == want
+    assert eager.graphs.captures == 0 and eng.graphs.captures >= 1
+    assert all(k[0] == "verify" for k in eng.graphs._graphs)
+    assert eng.spec_stats == eager.spec_stats
+    layers = eng.cfg.model.num_layers
+    assert paged_g == paged_e + layers * eng.graphs.captures
+    assert norm_g == norm_e + (2 * layers + 1) * eng.graphs.captures
+    # sampled: two renorm launches and the draw a verify step
+    assert fam_g == fam_e + (0 if greedy else 3 * eng.graphs.captures)
+    if greedy:
+        assert eng.spec_stats["accepted"] > 0
+
+
+def test_chain_speculative_sampling_in_a_cuda_graph(dev):
+    """The chain verification on one-hot drafts (the engine's call),
+    captured with a device seed, replays with the seed that memory holds at
+    replay: the eager call's output for that seed."""
+    from flashinfer_tpu_torch.ops.sampling import chain_speculative_sampling
+
+    gen = torch.Generator(device=dev).manual_seed(24)
+    batch, num_spec, vocab = 8, 3, 128256
+    target = torch.softmax(torch.randn(batch, num_spec + 1, vocab,
+                                       device=dev, generator=gen) * 4, -1)
+    ids = target[:, :num_spec].argmax(-1).to(torch.int32)
+    ids[::2, 1] = 7  # some rejections
+    one_hot = torch.nn.functional.one_hot(ids.long(), vocab).float()
+    seed = torch.tensor([5], dtype=torch.int32, device=dev)
+    chain_speculative_sampling(one_hot, ids, target, seed=seed)  # builds
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out, acc, _ = chain_speculative_sampling(one_hot, ids, target,
+                                                 seed=seed)
+    for new in (123, -7, 2**31 - 1):
+        seed.fill_(new)
+        g.replay()
+        want = chain_speculative_sampling(one_hot, ids, target, seed=new)
+        assert torch.equal(out, want[0]) and torch.equal(acc, want[1])
+        assert bool((acc > 0).any()) and bool((acc < num_spec).any())
+
+
+@pytest.mark.parametrize("kv_dtype", ["model", "fp8_e4m3", "int8"])
+def test_tiny_spec_engine_on_the_card_matches_cpu(dev, kv_dtype):
+    """Greedy spec tokens of the f32 tiny engine on the card (graphed
+    verify steps, every kernel on) equal the CPU engine's and the non-spec
+    engine's."""
+    from flashinfer_tpu_torch import EngineConfig, LlamaConfig, \
+        LlamaServingEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mc = LlamaConfig.tiny()
+    rng = np.random.default_rng(25)
+    core = rng.integers(0, mc.vocab_size, 4).tolist()
+    prompts = [core * 3, core * 2 + core[:2],
+               rng.integers(0, mc.vocab_size, 7).tolist()]
+    outs, params, accepted = [], None, []
+    for device, spec in (("cpu", 3), ("cuda", 3), ("cuda", 0)):
+        cfg = EngineConfig(model=mc, max_batch=2, num_pages=64, page_size=8,
+                           max_seq_len=64, greedy=True, kv_dtype=kv_dtype,
+                           kv_scale=0.3, spec_tokens=spec, device=device)
+        eng = LlamaServingEngine(cfg, seed=0, params=params)
+        params = eng.params
+        reqs = [eng.add_request(p, 8) for p in prompts]
+        eng.run_to_completion(max_steps=100)
+        outs.append([r.output for r in reqs])
+        accepted.append(eng.spec_stats["accepted"])
+    assert outs[0] == outs[1] == outs[2]
+    assert accepted[0] == accepted[1] > 0
+
+
 # name: (qo_len, kv_len, causal, window_left); with 8 q heads on 2 kv heads
 # a bf16 CTA takes 128 packed rows (32 tokens) and keys come in tiles of
 # 128 (64 for dv > 128 or d 256)

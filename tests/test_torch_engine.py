@@ -199,10 +199,10 @@ def test_engine_single_sequence_exceeding_pool_raises(params):
 
 
 @pytest.mark.parametrize("change", [
-    dict(weight_dtype="fp8_e4m3"), dict(weight_dtype="int8"),
-    dict(spec_tokens=2)])
+    dict(weight_dtype="fp8_e4m3"), dict(weight_dtype="int8")])
 def test_outside_the_slice_raises(params, change):
     cfg = dataclasses.replace(
         EngineConfig(model=MC, device="cpu", **BASE), **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError,
+                       match=r"ROADMAP Queue 1, item 1\)"):
         LlamaServingEngine(cfg, params=params)

@@ -432,3 +432,166 @@ def test_sampling_needs_a_seed_or_generator():
     gen = torch.Generator().manual_seed(0)
     a = top_k_top_p_sampling_from_probs(probs, 3, 0.9, generator=gen)
     assert a.shape == (2,) and bool((a < 10).all())
+
+
+@pytest.mark.parametrize("interleave", [False, True])
+@pytest.mark.parametrize("rotary_dim", [None, 16])
+def test_rope_interleave_matches_jax(interleave, rotary_dim):
+    """Both pairings, whole and partial rotary dims; positions below 64 keep
+    the angles small, so sin and cos agree to f32 roundoff."""
+    rng = np.random.default_rng(14)
+    q = rng.standard_normal((6, 4, 32)).astype(np.float32)
+    k = rng.standard_normal((6, 2, 32)).astype(np.float32)
+    pos = rng.integers(0, 64, 6).astype(np.int32)
+    kw = dict(rotary_dim=rotary_dim, interleave=interleave, rope_theta=1e4)
+    wq, wk = jax_rope.apply_rope_pos_ids(jnp.asarray(q), jnp.asarray(k),
+                                         jnp.asarray(pos), **kw)
+    gq, gk = apply_rope_pos_ids(_to_torch(q), _to_torch(k),
+                                torch.from_numpy(pos).long(), **kw)
+    _close(gq, wq, 1e-6, 0)
+    _close(gk, wk, 1e-6, 0)
+
+
+@pytest.mark.parametrize("name", ["silu_and_mul", "gelu_and_mul"])
+def test_gated_activations_take_enable_pdl(name):
+    """``enable_pdl`` is a launch hint: accepted, and the output is JAX's
+    whatever its value."""
+    from flashinfer_tpu_torch.ops import activation as torch_act
+
+    x = np.random.default_rng(15).standard_normal((5, 64)).astype(np.float32)
+    want = getattr(jax_act, name)(jnp.asarray(x), enable_pdl=True)
+    for pdl in (None, True, False):
+        _close(getattr(torch_act, name)(_to_torch(x), enable_pdl=pdl), want,
+               1e-5, 1e-5)
+
+
+# the port's sampler function, JAX's _family_call filter, and the k and p it
+# passes (None: JAX's Pallas branch passes ones)
+SURFACE = {
+    "sampling_from_probs": ("none", None, None),
+    "top_p_sampling_from_probs": ("top_p", None, "p"),
+    "top_k_sampling_from_probs": ("top_k", "k", None),
+    "min_p_sampling_from_probs": ("min_p", None, "min_p"),
+    "top_k_top_p_sampling_from_probs": ("top_k_top_p_seq", "k", "p"),
+}
+
+
+@pytest.mark.parametrize("name", list(SURFACE))
+def test_sampler_surface_tokens_match_jax(name):
+    """Each sampler, rows chosen by ``indices`` (repeats included), draws
+    the TPU kernel's tokens (``_family_call(interpret=True)``) for the same
+    int32 seed, with per-row and scalar parameters."""
+    rng = np.random.default_rng(16)
+    probs = _probs(rng, 5, 300)
+    idx = np.asarray([0, 2, 2, 4, 1, 0, 3, 3])
+    rows = len(idx)
+    args = dict(k=rng.integers(1, 40, (rows, 1)).astype(np.int32),
+                p=rng.uniform(0.3, 0.95, (rows, 1)).astype(np.float32),
+                min_p=np.full((rows, 1), 0.1, np.float32))
+    filt, k_arg, p_arg = SURFACE[name]
+    k = args[k_arg] if k_arg else np.ones((rows, 1), np.int32)
+    p = args[p_arg] if p_arg else np.ones((rows, 1), np.float32)
+    key = jax.random.key(17)
+    want = jax_sampling._family_call(
+        jnp.asarray(probs[idx]), key, jnp.asarray(k), jnp.asarray(p),
+        filt=filt, out_mode="sample", interpret=True)
+    fn = getattr(torch_sampling, name)
+    params = [torch.from_numpy(args[a][:, 0]) for a in (k_arg, p_arg) if a]
+    got = fn(torch.from_numpy(probs), *params, indices=torch.from_numpy(idx),
+             seed=_jax_seed(key), deterministic=True)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    if name == "top_k_top_p_sampling_from_probs":
+        scalar = fn(torch.from_numpy(probs[idx]), 40, 0.9, seed=5,
+                    backend="auto")
+        assert torch.equal(scalar, family_call(
+            torch.from_numpy(probs[idx]), 5, 40, 0.9,
+            filt="top_k_top_p_seq", out_mode="sample"))
+
+
+def test_sampling_from_logits_matches_jax():
+    """Rows at temperature > 0 draw the kernel's token on JAX's temperature
+    softmax; rows at temperature 0 take JAX's argmax."""
+    rng = np.random.default_rng(18)
+    logits = (rng.standard_normal((6, 300)) * 3).astype(np.float32)
+    logits[1, 10] = logits[1, 20] = 50.0  # an argmax tie: the first wins
+    t = np.asarray([0.7, 0.0, 1.3, 1.0, 0.0, 0.4], np.float32)
+    key = jax.random.key(19)
+    got = torch_sampling.sampling_from_logits(
+        torch.from_numpy(logits), temperature=torch.from_numpy(t),
+        seed=_jax_seed(key)).numpy()
+    drawn = np.asarray(jax_sampling._family_call(
+        jax_sampling.softmax(jnp.asarray(logits), jnp.asarray(t)), key,
+        jnp.ones((6, 1), jnp.int32), jnp.ones((6, 1), jnp.float32),
+        filt="none", out_mode="sample", interpret=True))
+    argmax = np.asarray(jax_sampling.sampling_from_logits(
+        jnp.asarray(logits), key, temperature=jnp.asarray(t)))
+    np.testing.assert_array_equal(got, np.where(t > 0, drawn, argmax))
+    assert got[1] == 10
+    idx = torch.tensor([4, 1])
+    np.testing.assert_array_equal(torch_sampling.sampling_from_logits(
+        torch.from_numpy(logits), indices=idx, temperature=0.0, seed=0),
+        argmax[[4, 1]])
+
+
+@pytest.mark.parametrize("order,filt", [("top_k_first", "top_k_top_p_seq"),
+                                        ("joint", "top_k_top_p_joint")])
+def test_top_k_top_p_sampling_from_logits_matches_jax(order, filt):
+    rng = np.random.default_rng(20)
+    logits = (rng.standard_normal((4, 300)) * 3).astype(np.float32)
+    key = jax.random.key(21)
+    want = jax_sampling._family_call(
+        jax.nn.softmax(jnp.asarray(logits), axis=-1), key,
+        jnp.full((4, 1), 30, jnp.int32), jnp.full((4, 1), 0.8, jnp.float32),
+        filt=filt, out_mode="sample", interpret=True)
+    got = torch_sampling.top_k_top_p_sampling_from_logits(
+        torch.from_numpy(logits), 30, 0.8, seed=_jax_seed(key),
+        filter_apply_order=order)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("name", ["top_p_renorm_probs", "top_k_renorm_probs",
+                                  "top_k_mask_logits"])
+def test_renorm_and_mask_surface_match_jax(name):
+    """The renormalised rows agree with JAX's function and the TPU kernel
+    to 1e-6, the masked logits exactly; per-row and scalar parameters."""
+    rng = np.random.default_rng(22)
+    mask = name == "top_k_mask_logits"
+    x = (rng.standard_normal((4, 200)).astype(np.float32) if mask
+         else _probs(rng, 4, 200))
+    param = (np.asarray([1, 10, 199, 200], np.int32) if "top_k" in name
+             else np.asarray([0.5, 0.8, 0.95, 1.0], np.float32))
+    jax_fn, fn = getattr(jax_sampling, name), getattr(torch_sampling, name)
+    filt = "top_p" if "top_p" in name else "top_k"
+    k = param[:, None] if filt == "top_k" else np.ones((4, 1), np.int32)
+    p = param[:, None] if filt == "top_p" else np.ones((4, 1), np.float32)
+    kernel = jax_sampling._family_call(
+        jnp.asarray(x), None, jnp.asarray(k), jnp.asarray(p), filt=filt,
+        out_mode="mask_logits" if mask else "renorm", interpret=True)
+    for arg in (param, param[2]):
+        want = np.asarray(jax_fn(jnp.asarray(x), jnp.asarray(arg)))
+        got = fn(torch.from_numpy(x), torch.as_tensor(arg),
+                 backend="auto").numpy()
+        if mask:
+            np.testing.assert_array_equal(got, want)
+        else:
+            np.testing.assert_allclose(got, want, atol=1e-6)
+    got = fn(torch.from_numpy(x), torch.from_numpy(param)).numpy()
+    if mask:
+        np.testing.assert_array_equal(got, np.asarray(kernel))
+    else:
+        np.testing.assert_allclose(got, np.asarray(kernel), atol=1e-6)
+
+
+def test_sampler_surface_takes_the_jax_keywords():
+    """Every keyword of JAX's sampler functions but the PRNG key is the
+    port's (the key's place is taken by ``seed`` / ``generator``)."""
+    import inspect
+
+    for name in jax_sampling.__all__:
+        ours = inspect.signature(getattr(torch_sampling, name)).parameters
+        theirs = inspect.signature(getattr(jax_sampling, name)).parameters
+        missing = set(theirs) - set(ours) - {"key"}
+        assert not missing, (name, missing)
+        if "key" in theirs:
+            assert {"seed", "generator"} <= set(ours), name
