@@ -20,7 +20,10 @@ Run from the root of a checkout. Phases, in order:
    mode at the verify step's 32 rows and its draw); MLA attention at
    DeepSeek-V2-Lite shapes (decode and causal prefill, bf16/e4m3/int8
    caches); the grouped GEMM (both MoE GEMMs, bf16 and e4m3 weights) at
-   the V2-Lite decode and prefill routings and a Mixtral-8x7B layer; the flash kernel at Llama-3-8B prefill (8192 tokens
+   the V2-Lite decode and prefill routings and a Mixtral-8x7B layer, and
+   as ``w8_matmul`` (one group, per-column scales) at Llama-3-8B's five
+   weight shapes, 8 / 32 / 4096 rows, e4m3 and int8 weights, beside the
+   cast + ``torch.matmul`` route and bf16 ``torch.matmul``; the flash kernel at Llama-3-8B prefill (8192 tokens
    causal), chunked prefill (2048 at the tail of 8192) and decode (32K
    keys), DeepSeek-V2-Lite's MHA prefill (d 192, dv 128), each variant at
    Llama widths on 2048 tokens, and a small f32 case;
@@ -37,7 +40,9 @@ Run from the root of a checkout. Phases, in order:
    decode loop on the card (every kernel on) emit the greedy tokens of the
    same model on the CPU (every plain version); the tiny engine with
    speculative decoding (3 drafts) on repetitive prompts emits them on the
-   card, on the CPU and without drafts, with drafts accepted;
+   card, on the CPU and without drafts, with drafts accepted; the tiny
+   engine with e4m3 and int8 weights (decode, window 4, 3 drafts) emits
+   the CPU's tokens;
 7. engine: ``LlamaServingEngine`` at Llama-3-8B widths and depth in bf16,
    random weights from a seeded CUDA generator, 12 requests of 64-512
    prompt tokens and 32 new tokens on 8 slots, sampled and greedy, in three
@@ -53,6 +58,11 @@ Run from the root of a checkout. Phases, in order:
    first two, and the spec modes' tokens eager and graphed, sampled too;
    the share of greedy spec tokens equal to the decode's is reported.
    Then greedy again with the HND layout and the e4m3 and int8 KV caches;
+   then 8-bit weights quantized from the same bf16 weights: e4m3 graphed
+   sampled (the 8-bit weight path, whose launch counts are read; the
+   grouped GEMM runs every matmul), graphed greedy and eager greedy
+   (tokens identical), and int8 graphed greedy, each with its agreement
+   with the bf16 greedy tokens;
 8. DeepSeek: ``deepseek_decode_step`` at DeepSeek-V2-Lite widths and full
    depth (27 layers) in bf16, random weights from a seeded CUDA generator,
    8 requests of 32-128 prompt tokens prefilled token by token and 32 new
@@ -72,6 +82,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import itertools
 import json
 import math
@@ -1010,6 +1021,108 @@ def check_grouped_gemm(torch, np):
 
 
 
+# Llama-3-8B's five matmul weight shapes (K -> N): fused QKV, o, gate/up,
+# down, lm_head; and the row counts of a decode step (8 slots), a verify
+# step (8 x 4 rows) and a prefill
+W8_SHAPES = (("qkv", 4096, 6144), ("o", 4096, 4096),
+             ("gate_up", 4096, 28672), ("down", 14336, 4096),
+             ("lm_head", 4096, 128256))
+W8_ROWS = (8, 32, 4096)
+L2_BYTES = 50 * 2 ** 20
+
+
+def _rotated(t):
+    """``t`` and enough copies of it that a loop over them reads past the
+    50 MB L2 three times over, as a step over 32 layers does."""
+    nbytes = t.numel() * t.element_size()
+    return [t] + [t.clone() for _ in range(-(-3 * L2_BYTES // nbytes) - 1)]
+
+
+def check_w8_matmul(torch, np):
+    """The grouped GEMM as ``w8_matmul`` (the engine's ``_wmm`` on 8-bit
+    weights) at Llama-3-8B's five weight shapes, 8 / 32 / 4096 rows, e4m3
+    and int8 weights quantized per output column from a seeded bf16
+    weight, against its plain version (JAX's ``_wmm`` arithmetic). Times,
+    in CUDA graphs over copies of the weight that exceed L2: the kernel;
+    the plain version (eager); the route not taken, a cast of the weight
+    to bf16 and ``torch.matmul`` and the scale (a different function: the
+    cast keeps e4m3 denormals); bf16 ``torch.matmul`` on a bf16 weight of
+    the same shape (a different function). No one PyTorch call computes
+    the same function (``torch._weight_int8pack_mm`` takes its column
+    scales in bf16), so ``library_ms`` is None."""
+    from flashinfer_tpu_torch.models.llama import _quantize_weight
+    from flashinfer_tpu_torch.ops.gemm_grouped import (
+        w8_matmul,
+        w8_matmul_plain,
+        w8_tm,
+    )
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    rows_out = []
+    for name, k, n in W8_SHAPES:
+        w_bf16 = (torch.randn(k, n, device=dev, generator=gen)
+                  * k ** -0.5).bfloat16()
+        bf16_copies = _rotated(w_bf16)
+        for container in ("e4m3", "int8"):
+            q, s = _quantize_weight(w_bf16[None], container == "int8")
+            q, s = q[0], s[0]
+            copies = _rotated(q)
+            for m in W8_ROWS:
+                x = torch.randn(m, k, device=dev, generator=gen).bfloat16()
+                got = w8_matmul(x, q, s)
+                want = w8_matmul_plain(x, q, s)
+                torch.cuda.synchronize()
+                diff = (got.float() - want.float()).abs()
+                rms = float(want.float().pow(2).mean().sqrt())
+                limit = (GG_RTOL["bf16"] * want.float().abs()
+                         + GG_ATOL_RMS * rms)
+                ratio = float((diff / limit).max())
+                finite = bool(torch.isfinite(got).all())
+                big = m >= 4096
+                it = 4 if big else 20
+                cyc = itertools.cycle(copies)
+                ms = cuda_ms(torch, lambda: w8_matmul(x, next(cyc), s), it,
+                             warmup=1, graph=True)
+                plain_ms = cuda_ms(torch, lambda: w8_matmul_plain(x, q, s),
+                                   2, warmup=1)
+                cyc_c = itertools.cycle(copies)
+                cast_ms = cuda_ms(
+                    torch, lambda: ((x @ next(cyc_c).to(torch.bfloat16))
+                                    .float() * s).bfloat16(), it, warmup=1,
+                    graph=True)
+                cyc_b = itertools.cycle(bf16_copies)
+                bf16_ms = cuda_ms(torch, lambda: x @ next(cyc_b), it,
+                                  warmup=1, graph=True)
+                nbytes = m * k * 2 + k * n + n * 4 + m * n * 2
+                ops = 2 * m * k * n
+                b_ms, b_by = bound_ms(nbytes, ops, "bf16")
+                ok = ratio <= 1.0 and finite
+                row = dict(shape=name, K=k, N=n, rows=m, w=container,
+                           tm=w8_tm(m), err=float(diff.max()),
+                           limit_ratio=ratio, ms=ms, plain_ms=plain_ms,
+                           cast_matmul_ms=cast_ms, bf16_matmul_ms=bf16_ms,
+                           library_ms=None, bound_bytes=nbytes,
+                           bound_ops=ops, bound_ms=b_ms, bound_by=b_by,
+                           bound_share=b_ms / ms, ok=ok)
+                rows_out.append(row)
+                log(f"w8_matmul {name:8s} {k}->{n} rows={m:<4d} "
+                    f"w={container} tm={w8_tm(m)} err={row['err']:.2e} "
+                    f"(limit ratio {ratio:.3f}) ms={ms:.5f} bound_ms="
+                    f"{b_ms:.5f} ({b_by}, share {b_ms / ms:.3f}) plain_ms="
+                    f"{plain_ms:.3f} cast+matmul_ms={cast_ms:.5f} "
+                    f"bf16_matmul_ms={bf16_ms:.5f} "
+                    f"{'ok' if ok else 'MISMATCH'}")
+                del x, got, want, diff, limit
+            del q, s, copies
+        del w_bf16, bf16_copies
+        torch.cuda.empty_cache()
+    bad = [r for r in rows_out if not r["ok"]]
+    if bad:
+        raise AssertionError(f"w8_matmul disagrees with its plain version: "
+                             f"{bad}")
+    return rows_out
+
 # Llama-3-8B attention widths: q heads, kv heads, head dim
 LLAMA_HEADS = (32, 8, 128)
 # flash kernel check cases: (name, qo_len, kv_len, hq, hkv, d, dv, dtype,
@@ -1598,7 +1711,8 @@ def phase_pod(torch, np, card):
 def phase_tiny_reference(torch, np):
     """Greedy tokens of the f32 tiny engine, card vs CPU, for every KV
     container and layout; then with speculative decoding (3 drafts) on
-    repetitive prompts: card, CPU and the non-spec card engine."""
+    repetitive prompts: card, CPU and the non-spec card engine; then with
+    e4m3 and int8 weights, decoding, in windows of 4 and speculatively."""
     from flashinfer_tpu_torch import EngineConfig, LlamaConfig, \
         LlamaServingEngine
 
@@ -1649,6 +1763,33 @@ def phase_tiny_reference(torch, np):
         f"{accepted[DEVICE, SPEC_TOKENS]}, cpu {accepted['cpu', SPEC_TOKENS]}")
     if not same or accepted[DEVICE, SPEC_TOKENS] == 0:
         bad.append(("spec", outs, accepted))
+    # 8-bit weights, each quantized by the engine from the unfused f32
+    # weights: every matmul a grouped-GEMM launch on the card (CUDA cores)
+    from flashinfer_tpu_torch.models.llama import llama_init_weights
+    from flashinfer_tpu_torch.ops.gemm_grouped import grouped_gemm_padded
+
+    f32_params = llama_init_weights(torch.Generator().manual_seed(0), mc,
+                                    "cpu")
+    for wdt in ("fp8_e4m3", "int8"):
+        for extra in (dict(), dict(decode_window=4),
+                      dict(spec_tokens=SPEC_TOKENS)):
+            outs = []
+            for device in ("cpu", DEVICE):
+                cfg = EngineConfig(model=mc, max_batch=2, num_pages=64,
+                                   page_size=8, max_seq_len=64, greedy=True,
+                                   weight_dtype=wdt, device=device, **extra)
+                eng = LlamaServingEngine(cfg, params=f32_params)
+                gg0 = grouped_gemm_padded.launches
+                reqs = [eng.add_request(p, 8) for p in prompts]
+                eng.run_to_completion(max_steps=200)
+                outs.append([r.output for r in reqs])
+            launched = grouped_gemm_padded.launches - gg0
+            same = outs[0] == outs[1]
+            log(f"tiny f32 engine weight_dtype={wdt} {json.dumps(extra)}: "
+                f"card {'==' if same else '!='} cpu ({launched} grouped "
+                f"GEMM launches on the card)")
+            if not same or launched == 0:
+                bad.append((wdt, extra, outs, launched))
     if bad:
         raise AssertionError(f"card and CPU engines disagree: {bad}")
 
@@ -1677,6 +1818,8 @@ def _reset_counts():
 
 
 LLAMA_PATH = ("paged_attention", "sampler_family", "rmsnorm")
+# Llama with 8-bit weights: every matmul is a grouped-GEMM launch
+LLAMA_W8_PATH = LLAMA_PATH + ("grouped_gemm",)
 SPEC_TOKENS = 3  # drafts a sequence in the spec modes
 DEEPSEEK_PATH = ("mla_attention", "grouped_gemm", "rmsnorm",
                  "sampler_family")
@@ -1809,9 +1952,105 @@ ENGINE_MODES = (("eager", dict(cuda_graphs=False)), ("graphed", {}),
                 ("spec", dict(spec_tokens=SPEC_TOKENS)))
 
 
+def _engine_mode(torch, np, mc, params, prompts, n_new, card, label,
+                 path, **cfg_kw):
+    """Serve the prompts on one engine configuration (``cfg_kw`` over 8
+    slots), its launch counts of ``path`` zeroed just before, then profile
+    a few full-batch steps. Returns (results, outputs, the engine's
+    params)."""
+    from flashinfer_tpu_torch import EngineConfig, LlamaServingEngine
+
+    cfg = EngineConfig(model=mc, max_batch=8, device=DEVICE, **cfg_kw)
+    torch.cuda.reset_peak_memory_stats()
+    eng = LlamaServingEngine(cfg, params=params, seed=0)
+    counters = _reset_counts()
+    reqs, wall, dec, full_at, pre = _serve(torch, eng, prompts, n_new)
+    counts = {k: counters[k].launches for k in path}
+    steps, decode_steps = eng.steps, eng.decode_steps
+    spec = dict(eng.spec_stats)
+    plan_ms = eng.plan_seconds * 1e3 / (decode_steps + spec["steps"])
+    graphs = dict(captured=eng.graphs.captures,
+                  capture_s=eng.graphs.capture_seconds,
+                  pool_bytes=eng.graphs.pool_bytes)
+    prof, replay_ms = _profile_decode(torch, eng, prompts)
+    outs = [r.output for r in reqs]
+    assert all(r.done for r in reqs)
+    assert all(len(o) == n_new for o in outs), [len(o) for o in outs]
+    assert all(0 <= t < mc.vocab_size for o in outs for t in o)
+    assert eng.pool.free_pages == cfg.num_pages
+    gen_tokens = sum(len(o) for o in outs)
+    full = [ms for ms, f in zip(dec, full_at) if f]
+    weight_gb = sum(t.numel() * t.element_size()
+                    for t in eng.params.values()) / 1e9
+    res = dict(
+        tokens_per_s=gen_tokens / wall, wall_s=wall,
+        generated_tokens=gen_tokens, steps=steps,
+        decode_steps=decode_steps, preemptions=eng.preemptions,
+        decode_step_ms_median=float(np.median(dec)) if dec else None,
+        decode_step_ms_median_batch8=(float(np.median(full)) if full
+                                      else None),
+        decode_steps_batch8=len(full),
+        # the highest percentile with at least ten steps beyond it
+        decode_step_tail_pct_batch8=tail_pct(full),
+        decode_step_ms_tail_batch8=(
+            float(np.percentile(full, tail_pct(full))) if full else None),
+        prefill_steps=len(pre),
+        prefill_step_ms_mean=float(np.mean(pre)) if pre else None,
+        plan_ms_per_decode_step=plan_ms, graphs=graphs,
+        replay_device_ms=replay_ms, launches=counts, profile=prof,
+        first_tokens=[o[:4] for o in outs[:3]], weight_gb=weight_gb,
+        # everything allocated at once, weights held beside it included
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if spec["steps"]:
+        res.update(
+            spec=spec, verify_steps=spec["steps"],
+            tokens_per_verify_step=spec["emitted"] / spec["seqs"],
+            acceptance=spec["accepted"] / spec["drafts"])
+    # a step's device time: CUDA events around a replay where the step is
+    # a graph, else the profiler's kernels
+    dev_ms = replay_ms or (prof or {}).get("device_ms_per_step")
+    res["device_ms_per_step"] = dev_ms
+    if dev_ms and full:
+        res["busy_share"] = dev_ms / res["decode_step_ms_median_batch8"]
+    log(f"engine {label}: {gen_tokens} tokens in {wall:.2f} s = "
+        f"{res['tokens_per_s']:.1f} tokens/s; decode step median "
+        f"{res['decode_step_ms_median']:.2f} ms (batch 8: median "
+        f"{res['decode_step_ms_median_batch8']}, "
+        f"p{res['decode_step_tail_pct_batch8']} "
+        f"{res['decode_step_ms_tail_batch8']}, n={len(full)}); device "
+        f"{dev_ms} ms a step, busy share {res.get('busy_share')}; planner "
+        f"{plan_ms:.3f} ms a decode step; graphs {json.dumps(graphs)}; "
+        f"{len(pre)} prefill steps, mean {res['prefill_step_ms_mean']:.1f} "
+        f"ms; preemptions {eng.preemptions}; weights {weight_gb:.2f} GB, "
+        f"peak memory {res['peak_mem_gb']:.2f} GB; launches {counts} "
+        f"[{card}]")
+    if spec["steps"]:
+        log(f"engine {label}: {spec['steps']} verify steps over "
+            f"{spec['seqs']} sequence-steps emitted "
+            f"{res['tokens_per_verify_step']:.3f} tokens a sequence a step; "
+            f"drafts accepted {spec['accepted']} of {spec['drafts']} "
+            f"({res['acceptance']:.3f})")
+    if prof:
+        log(f"engine {label} profile, per decode step at batch 8: device "
+            f"{prof['device_ms_per_step']:.2f} ms in "
+            f"{prof['device_ops_per_step']} device ops (traced wall "
+            f"{prof['profiled_wall_ms_per_step']:.2f} ms; replay {replay_ms} "
+            f"ms from CUDA events); by family {json.dumps(prof['ms_per_step'])}")
+        for ms, n, name in prof["top_kernels"]:
+            log(f"  device {ms:8.3f} ms  x{n:<5d} {name}")
+        for ms, n, name in prof["top_host_ops"]:
+            log(f"  host   {ms:8.3f} ms  x{n:<5d} {name}")
+    else:
+        log(f"engine {label} profile: the profiler recorded no device time "
+            "(not measured)")
+    params = eng.params
+    del eng
+    torch.cuda.empty_cache()
+    return res, outs, params
+
+
 def phase_engine(torch, np, card):
-    from flashinfer_tpu_torch import EngineConfig, LlamaConfig, \
-        LlamaServingEngine
+    from flashinfer_tpu_torch import LlamaConfig
     from flashinfer_tpu_torch.models.llama import llama_init_weights
 
     mc = LlamaConfig.llama3_8b()
@@ -1829,93 +2068,13 @@ def phase_engine(torch, np, card):
     for mode, extra in ENGINE_MODES:
         results[mode] = {}
         for sampling in ("sampled", "greedy"):
-            cfg = EngineConfig(model=mc, max_batch=8,
-                               greedy=(sampling == "greedy"), device=DEVICE,
-                               **extra)
-            eng = LlamaServingEngine(cfg, params=params, seed=0)
-            params = eng.params  # the fused QKV weights, shared by the next
-            counters = _reset_counts()
-            reqs, wall, dec, full_at, pre = _serve(torch, eng, prompts, n_new)
-            counts = {k: counters[k].launches for k in LLAMA_PATH}
-            steps, decode_steps = eng.steps, eng.decode_steps
-            spec = dict(eng.spec_stats)
-            plan_ms = eng.plan_seconds * 1e3 / (decode_steps + spec["steps"])
-            graphs = dict(captured=eng.graphs.captures,
-                          capture_s=eng.graphs.capture_seconds,
-                          pool_bytes=eng.graphs.pool_bytes)
-            prof, replay_ms = _profile_decode(torch, eng, prompts)
-            outs = [r.output for r in reqs]
-            assert all(r.done for r in reqs)
-            assert all(len(o) == n_new for o in outs), [len(o) for o in outs]
-            assert all(0 <= t < mc.vocab_size for o in outs for t in o)
-            assert eng.pool.free_pages == cfg.num_pages
-            outs_by[mode, sampling] = outs
-            gen_tokens = sum(len(o) for o in outs)
-            full = [ms for ms, f in zip(dec, full_at) if f]
-            res = dict(
-                tokens_per_s=gen_tokens / wall, wall_s=wall,
-                generated_tokens=gen_tokens, steps=steps,
-                decode_steps=decode_steps, preemptions=eng.preemptions,
-                decode_step_ms_median=float(np.median(dec)) if dec else None,
-                decode_step_ms_median_batch8=(float(np.median(full)) if full
-                                              else None),
-                decode_steps_batch8=len(full),
-                # the highest percentile with at least ten steps beyond it
-                decode_step_tail_pct_batch8=tail_pct(full),
-                decode_step_ms_tail_batch8=(
-                    float(np.percentile(full, tail_pct(full))) if full
-                    else None),
-                prefill_steps=len(pre),
-                prefill_step_ms_mean=float(np.mean(pre)) if pre else None,
-                plan_ms_per_decode_step=plan_ms, graphs=graphs,
-                replay_device_ms=replay_ms, launches=counts, profile=prof,
-                first_tokens=[o[:4] for o in outs[:3]],
-                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-            if spec["steps"]:
-                res.update(
-                    spec=spec, verify_steps=spec["steps"],
-                    tokens_per_verify_step=spec["emitted"] / spec["seqs"],
-                    acceptance=spec["accepted"] / spec["drafts"])
-            # a step's device time: CUDA events around a replay where the
-            # step is a graph, else the profiler's kernels
-            dev_ms = replay_ms or (prof or {}).get("device_ms_per_step")
-            res["device_ms_per_step"] = dev_ms
-            if dev_ms and full:
-                res["busy_share"] = dev_ms / res["decode_step_ms_median_batch8"]
+            res, outs, params = _engine_mode(
+                torch, np, mc, params, prompts, n_new, card,
+                f"{mode} {sampling}", LLAMA_PATH,
+                greedy=(sampling == "greedy"), **extra)
+            # the fused QKV weights, shared by the next engine
             results[mode][sampling] = res
-            log(f"engine {mode} {sampling}: {gen_tokens} tokens in "
-                f"{wall:.2f} s = {res['tokens_per_s']:.1f} tokens/s; decode "
-                f"step median {res['decode_step_ms_median']:.2f} ms (batch "
-                f"8: median {res['decode_step_ms_median_batch8']}, "
-                f"p{res['decode_step_tail_pct_batch8']} "
-                f"{res['decode_step_ms_tail_batch8']}, n={len(full)}); "
-                f"device {dev_ms} ms a step, busy share "
-                f"{res.get('busy_share')}; planner {plan_ms:.3f} ms a decode "
-                f"step; graphs {json.dumps(graphs)}; {len(pre)} prefill "
-                f"steps, mean {res['prefill_step_ms_mean']:.1f} ms; "
-                f"preemptions {eng.preemptions}; launches {counts} [{card}]")
-            if spec["steps"]:
-                log(f"engine {mode} {sampling}: {spec['steps']} verify steps "
-                    f"over {spec['seqs']} sequence-steps emitted "
-                    f"{res['tokens_per_verify_step']:.3f} tokens a sequence "
-                    f"a step; drafts accepted {spec['accepted']} of "
-                    f"{spec['drafts']} ({res['acceptance']:.3f})")
-            if prof:
-                log(f"engine {mode} {sampling} profile, per decode step at "
-                    f"batch 8: device {prof['device_ms_per_step']:.2f} ms in "
-                    f"{prof['device_ops_per_step']} device ops (traced wall "
-                    f"{prof['profiled_wall_ms_per_step']:.2f} ms; replay "
-                    f"{replay_ms} ms from CUDA events); by family "
-                    f"{json.dumps(prof['ms_per_step'])}")
-                for ms, n, name in prof["top_kernels"]:
-                    log(f"  device {ms:8.3f} ms  x{n:<5d} {name}")
-                for ms, n, name in prof["top_host_ops"]:
-                    log(f"  host   {ms:8.3f} ms  x{n:<5d} {name}")
-            else:
-                log(f"engine {mode} {sampling} profile: the profiler recorded "
-                    "no device time (not measured)")
-            del eng
-            torch.cuda.empty_cache()
+            outs_by[mode, sampling] = outs
     missing = [(path, k) for path in ("graphed", "spec")
                for k, n in results[path]["sampled"]["launches"].items()
                if n == 0]
@@ -1944,7 +2103,89 @@ def phase_engine(torch, np, card):
         raise AssertionError(f"the modes' tokens differ: {same}")
     results["variants"] = _engine_variants(
         torch, np, mc, params, prompts[:8], outs_by["graphed", "greedy"])
+    results["w8"] = _engine_w8(torch, np, mc, params, prompts, n_new, card,
+                               outs_by["graphed", "greedy"])
     return results
+
+
+def _unfused(params, mc):
+    """The engine's bf16 params with wqkv split back into wq / wk / wv
+    (views), the names the 8-bit quantizers take."""
+    p = dict(params)
+    d = mc.head_dim
+    p["wq"], p["wk"], p["wv"] = p.pop("wqkv").split(
+        [mc.num_qo_heads * d, mc.num_kv_heads * d, mc.num_kv_heads * d],
+        dim=-1)
+    return p
+
+
+# the 8-bit engine runs: (label, weight_dtype, sampled, more EngineConfig);
+# the first is the 8-bit weight path, whose launch counts are read
+W8_MODES = (("fp8_e4m3 graphed sampled", "fp8_e4m3", True, {}),
+            ("fp8_e4m3 graphed greedy", "fp8_e4m3", False, {}),
+            ("fp8_e4m3 eager greedy", "fp8_e4m3", False,
+             dict(cuda_graphs=False)),
+            ("int8 graphed greedy", "int8", False, {}))
+
+
+def _engine_w8(torch, np, mc, params, prompts, n_new, card, bf16_greedy):
+    """Llama-3-8B with 8-bit weights, each set quantized (a layer at a
+    time, on the card, as the engine's ``weight_dtype`` does) from the bf16
+    weights served above, which stay beside it, and freed before the next
+    is built. Eager and graphed greedy tokens must be identical; agreement
+    with the bf16 greedy tokens is reported."""
+    from flashinfer_tpu_torch.models.llama import (
+        quantize_llama_weights_fp8,
+        quantize_llama_weights_int8,
+    )
+    from flashinfer_tpu_torch.serving.engine import fuse_qkv_weights
+
+    quantize = {"fp8_e4m3": quantize_llama_weights_fp8,
+                "int8": quantize_llama_weights_int8}
+    base = _unfused(params, mc)
+    out, outs_by, w8_params = {}, {}, {}
+    for label, wdt, sampled, extra in W8_MODES:
+        if wdt not in w8_params:
+            w8_params.clear()
+            gc.collect()  # an engine's cycles may hold the last set
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            w8_params[wdt] = fuse_qkv_weights(quantize[wdt](base))
+            torch.cuda.synchronize()
+            nbytes = sum(t.numel() * t.element_size()
+                         for t in w8_params[wdt].values())
+            log(f"Llama-3-8B {wdt} weights: {nbytes / 1e9:.2f} GB, "
+                f"quantized in {time.perf_counter() - t0:.1f} s")
+        res, outs = _engine_mode(
+            torch, np, mc, w8_params[wdt], prompts, n_new, card,
+            f"w8 {label}", LLAMA_W8_PATH, greedy=not sampled,
+            weight_dtype=wdt, **extra)[:2]
+        if not sampled:
+            got, want = np.asarray(outs), np.asarray(bf16_greedy)
+            res["agreement_with_bf16_greedy"] = float(np.mean(got == want))
+            res["first_token_agreement_with_bf16"] = float(
+                np.mean(got[:, 0] == want[:, 0]))
+            log(f"engine w8 {label}: greedy tokens agree with the bf16 "
+                f"engine's at {res['agreement_with_bf16_greedy']:.3f} (first "
+                f"token {res['first_token_agreement_with_bf16']:.3f}; not "
+                f"asserted)")
+        out[label] = res
+        outs_by[label] = outs
+    w8_params.clear()
+    torch.cuda.empty_cache()
+    missing = [k for k, n in out[W8_MODES[0][0]]["launches"].items()
+               if n == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the 8-bit weight "
+                             f"path: {missing}")
+    same = (outs_by["fp8_e4m3 eager greedy"]
+            == outs_by["fp8_e4m3 graphed greedy"])
+    log(f"engine w8 fp8_e4m3 greedy tokens, eager and graphed identical: "
+        f"{same}")
+    if not same:
+        raise AssertionError("the 8-bit engine's eager and graphed greedy "
+                             "tokens differ")
+    return out
 
 
 def _engine_variants(torch, np, mc, params, prompts, greedy_outs, n_new=8):
@@ -2356,6 +2597,8 @@ def main() -> int:
     norm = ph.run("kernel check: rmsnorm", check_rmsnorm, torch)
     mla = ph.run("kernel check: MLA attention", check_mla, torch, np)
     gg = ph.run("kernel check: grouped GEMM", check_grouped_gemm, torch, np)
+    w8 = ph.run("kernel check: grouped GEMM as w8_matmul", check_w8_matmul,
+                torch, np)
     torch.cuda.empty_cache()
     flash = ph.run("kernel check: flash attention", check_flash_attention,
                    torch, np)
@@ -2373,6 +2616,8 @@ def main() -> int:
                    "sampled", {}).get("launches", {}),
                "spec": (eng or {}).get("spec", {}).get(
                    "sampled", {}).get("launches", {}),
+               "llama_w8": (eng or {}).get("w8", {}).get(
+                   W8_MODES[0][0], {}).get("launches", {}),
                "deepseek": (dsk or {}).get("sampled", {}).get("launches", {}),
                "single": (single or {}).get("launches", {}),
                "pod": (pod or {}).get("launches", {})}
@@ -2426,18 +2671,30 @@ def main() -> int:
             max_abs_err=max(r["err_o"] for r in mla), ms=main_row["ms"],
             plain_ms=main_row["plain_ms"], bound_ms=main_row["bound_ms"],
             bound_by=main_row["bound_by"], library_ms=None))
-    if gg:
+    if gg and w8:
         main_row = next(r for r in gg if r["case"] == "v2lite_decode"
                         and r["gemm"] == "gemm1" and r["w"] == "bf16")
+        # the 8-bit weight path's largest decode matmul
+        w8_row = next(r for r in w8 if r["shape"] == "gate_up"
+                      and r["rows"] == 8 and r["w"] == "e4m3")
         kernels.append(dict(
             name="grouped_gemm", route="cuda",
             source="flashinfer_tpu_torch/csrc/grouped_gemm.cu",
             replaces="flashinfer_tpu/ops/gemm_grouped.py:157",
             launches=launches("grouped_gemm"),
-            max_abs_err=max(r["err"] for r in gg), ms=main_row["ms"],
+            max_abs_err=max(r["err"] for r in gg + w8), ms=main_row["ms"],
             plain_ms=main_row["plain_ms"], bound_ms=main_row["bound_ms"],
             bound_by=main_row["bound_by"],
-            library_ms=main_row["library_ms"]))
+            library_ms=main_row["library_ms"],
+            # the paths that launch it, and w8_matmul (the engine's _wmm
+            # on 8-bit weights) at Llama-3-8B's decode gate/up, e4m3
+            launches_by_path={k: v.get("grouped_gemm", 0)
+                              for k, v in by_path.items()
+                              if v.get("grouped_gemm")},
+            w8_ms=w8_row["ms"], w8_plain_ms=w8_row["plain_ms"],
+            w8_bound_ms=w8_row["bound_ms"], w8_bound_by=w8_row["bound_by"],
+            w8_cast_matmul_ms=w8_row["cast_matmul_ms"],
+            w8_bf16_matmul_ms=w8_row["bf16_matmul_ms"]))
     if flash:
         main_row = next(r for r in flash if r["case"] == "llama_prefill")
         kernels.append(dict(
@@ -2454,6 +2711,7 @@ def main() -> int:
         with open(args.out, "w") as f:
             json.dump(dict(card=card, attention=attn, sampler=samp,
                            rmsnorm=norm, mla=mla, grouped_gemm=gg,
+                           w8_matmul=w8,
                            flash=flash, single=single, pod=pod,
                            engine=eng, deepseek=dsk, kernels=kernels,
                            launches_by_path=by_path, failed=ph.failed), f,

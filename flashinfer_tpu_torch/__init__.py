@@ -6,6 +6,14 @@ kernel's plain PyTorch version instead. The CUDA kernels build with nvcc at
 first use (``flashinfer_tpu_torch.jit``)."""
 
 from flashinfer_tpu_torch.models.llama import LlamaConfig, params_from_numpy
+from flashinfer_tpu_torch.ops import fp4, fp8, gemm
+from flashinfer_tpu_torch.ops.gemm import (
+    SegmentGEMMWrapper,
+    bmm_fp8,
+    gemm_fp8_nt_groupwise,
+    group_gemm_fp8_nt_groupwise,
+    mm_fp4,
+)
 from flashinfer_tpu_torch.ops.attention.pod import PODWithPagedKVCacheWrapper
 from flashinfer_tpu_torch.ops.attention.single import (
     single_decode_with_kv_cache,
@@ -40,9 +48,11 @@ from flashinfer_tpu_torch.serving.engine import (
 
 __all__ = ["EngineConfig", "GenerationRequest", "LlamaConfig",
            "LlamaServingEngine", "PODWithPagedKVCacheWrapper",
-           "chain_speculative_sampling", "fused_add_rmsnorm",
+           "SegmentGEMMWrapper", "bmm_fp8", "chain_speculative_sampling",
+           "fp4", "fp8", "fused_add_rmsnorm", "gemm", "gemm_fp8_nt_groupwise",
            "gemma_fused_add_rmsnorm", "gemma_rmsnorm",
-           "min_p_sampling_from_probs", "params_from_numpy", "propose_ngram",
+           "group_gemm_fp8_nt_groupwise", "min_p_sampling_from_probs",
+           "mm_fp4", "params_from_numpy", "propose_ngram",
            "rmsnorm", "sampling_from_logits", "sampling_from_probs",
            "single_decode_with_kv_cache", "single_prefill_with_kv_cache",
            "softmax", "top_k_mask_logits", "top_k_renorm_probs",

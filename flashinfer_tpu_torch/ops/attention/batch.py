@@ -12,7 +12,7 @@ This slice covers paged caches with the default softmax variant (sm_scale,
 logits soft cap), causal and sliding-window masks, and an explicit
 ``kv_chunk_size``. Ragged KV, custom and multi-item masks, other variants,
 attention sinks and pages smaller than 8 raise ``NotImplementedError``
-(ROADMAP Queue 1, item 6).
+(ROADMAP Queue 1, item 5).
 """
 
 from __future__ import annotations
@@ -52,7 +52,7 @@ __all__ = [
     "run_device_plan",
 ]
 
-_NOT_IN_SLICE = "not in this slice of the port (ROADMAP Queue 1, item 6)"
+_NOT_IN_SLICE = "not in this slice of the port (ROADMAP Queue 1, item 5)"
 
 
 def _bucket(n: int, minimum: int = 1) -> int:

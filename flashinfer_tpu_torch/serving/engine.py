@@ -10,8 +10,8 @@ runs out.
 
 The device step is plain PyTorch around the package's CUDA kernels: RMSNorm
 (every norm after the first adds the residual in the same launch), paged
-attention and the sampler. On CPU tensors every kernel runs its plain
-version.
+attention, the sampler and, with 8-bit weights, the grouped GEMM as every
+matmul (``_wmm``). On CPU tensors every kernel runs its plain version.
 
 The decode step has fixed shapes, as JAX's jitted ``_decode_step``: all
 ``max_batch`` slots run, a ``valid`` mask marks the live ones, and one
@@ -29,11 +29,16 @@ and adds its next token; sampled runs ``chain_speculative_sampling`` on
 the top-k/top-p renormalised targets with one-hot drafts. The KV of the
 rejected rows is rolled back.
 
-This slice serves model-dtype weights with KV caches in the model dtype,
-e4m3 (``torch.float8_e4m3fn``) or linear int8, in the NHD or HND layout,
-greedy or sampled. Weight quantization raises ``NotImplementedError``
-(ROADMAP Queue 1, item 1). ``EngineConfig`` has no ``interpret`` field:
-the JAX engine's Pallas interpret switch has no meaning on the card.
+The engine serves model-dtype, e4m3 or linear-int8 weights
+(``weight_dtype``; the 8-bit ones quantized at init as JAX's engine does,
+with per-output-channel scales) with KV caches in the model dtype, e4m3
+(``torch.float8_e4m3fn``) or linear int8, in the NHD or HND layout, greedy
+or sampled. An 8-bit weight runs ``ops.gemm_grouped.w8_matmul``: one
+launch of the grouped GEMM that decodes the weight in registers and
+applies its scales to the f32 accumulator, in every path (prefill, the
+graphed decode step, the window, the verify step, ``score()``,
+``calibrate_kv_scales``). ``EngineConfig`` has no ``interpret`` field: the
+JAX engine's Pallas interpret switch has no meaning on the card.
 """
 
 from __future__ import annotations
@@ -48,11 +53,15 @@ import torch.nn.functional as F
 
 from flashinfer_tpu_torch.models.llama import (
     PER_LAYER,
+    SCALE_SUFFIXES,
     LlamaConfig,
-    check_dense_params,
+    e4m3_views,
     llama_init_weights,
+    quantize_llama_weights_fp8,
+    quantize_llama_weights_int8,
 )
 from flashinfer_tpu_torch.ops.activation import silu_and_mul
+from flashinfer_tpu_torch.ops.gemm_grouped import w8_matmul
 from flashinfer_tpu_torch.ops.attention.batch import (
     BatchDecodeWithPagedKVCacheWrapper,
     BatchPrefillWithPagedKVCacheWrapper,
@@ -101,6 +110,9 @@ class EngineConfig:
     kv_dtype: str = "model"
     # per-tensor 8-bit KV scale: one float for K and V, or (k_scale, v_scale)
     kv_scale: object = 0.05
+    # "model": the model dtype; "fp8_e4m3": e4m3 matmul weights with one f32
+    # scale an output channel (amax / 448); "int8": linear int8 (amax / 127).
+    # Embedding and norms stay in the model dtype.
     weight_dtype: str = "model"
     # G > 0: propose G draft tokens a sequence (``propose_ngram``) and
     # verify all G + 1 rows in one step; a step emits 1 to G + 1 tokens
@@ -131,13 +143,35 @@ class GenerationRequest:
 
 def fuse_qkv_weights(params: Dict[str, torch.Tensor]
                      ) -> Dict[str, torch.Tensor]:
-    """Concatenate wq/wk/wv into one wqkv, so each layer runs one QKV
-    matmul."""
+    """Concatenate wq/wk/wv (and their 8-bit scales) into one wqkv, so each
+    layer runs one QKV matmul."""
     if "wqkv" in params or "wq" not in params:
         return params
     p = dict(params)
-    p["wqkv"] = torch.cat([p.pop("wq"), p.pop("wk"), p.pop("wv")], dim=-1)
+    for suf in ("",) + SCALE_SUFFIXES:
+        if "wq" + suf in p:
+            p["wqkv" + suf] = torch.cat(
+                [p.pop("wq" + suf), p.pop("wk" + suf), p.pop("wv" + suf)],
+                dim=-1)
     return p
+
+
+def _wmm(x: torch.Tensor, params: Dict[str, torch.Tensor],
+         name: str) -> torch.Tensor:
+    """``x @ params[name]``; an 8-bit weight (a ``_scale`` or ``_iscale``
+    key beside it) through ``w8_matmul``, its scale applied to the f32
+    product (flashinfer_tpu/serving/engine.py:904)."""
+    for suf in SCALE_SUFFIXES:
+        if name + suf in params:
+            return w8_matmul(x, params[name], params[name + suf])
+    return x @ params[name]
+
+
+def _layer_keys(params: Dict[str, torch.Tensor]) -> Tuple[str, ...]:
+    """The keys of the per-layer tensors (stacked on a leading layer axis),
+    8-bit scales included."""
+    return tuple(k for k in params if k in PER_LAYER or any(
+        k == base + suf for base in PER_LAYER for suf in SCALE_SUFFIXES))
 
 
 def _norm_kv_scale(s) -> Tuple[float, float]:
@@ -145,12 +179,6 @@ def _norm_kv_scale(s) -> Tuple[float, float]:
         ks, vs = s
         return float(ks), float(vs)
     return float(s), float(s)
-
-
-def _not_in_slice(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not in this slice of the port (ROADMAP Queue 1, "
-        f"item {item})")
 
 
 class LlamaServingEngine:
@@ -165,8 +193,8 @@ class LlamaServingEngine:
             raise ValueError(f"unknown kv_dtype {config.kv_dtype!r}")
         if config.kv_layout not in ("NHD", "HND"):
             raise ValueError(f"unknown kv_layout {config.kv_layout!r}")
-        if config.weight_dtype != "model":
-            raise _not_in_slice(f"weight_dtype={config.weight_dtype!r}", 1)
+        if config.weight_dtype not in ("model", "fp8_e4m3", "int8"):
+            raise ValueError(f"unknown weight_dtype {config.weight_dtype!r}")
         if config.page_size < 8:
             raise ValueError(
                 f"engine page_size must be >= 8, got {config.page_size}")
@@ -174,9 +202,24 @@ class LlamaServingEngine:
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = llama_init_weights(gen, mc, self.device)
-        check_dense_params(params)
-        self.params = fuse_qkv_weights(
-            {k: v.to(self.device) for k, v in params.items()})
+        params = e4m3_views({k: v.to(self.device) for k, v in params.items()})
+        # quantized here as JAX's engine does (its __init__, engine.py:
+        # 134-164), on the device, a layer at a time
+        if config.weight_dtype == "fp8_e4m3":
+            if "wo_iscale" in params:
+                raise ValueError(
+                    "weight_dtype='fp8_e4m3' but params hold linear-int8 "
+                    "containers (_iscale keys present)")
+            if params["wo"].dtype != torch.float8_e4m3fn:
+                params = quantize_llama_weights_fp8(params)
+        elif config.weight_dtype == "int8" and "wo_iscale" not in params:
+            if params["wo"].dtype in (torch.int8, torch.float8_e4m3fn):
+                raise ValueError(
+                    "weight_dtype='int8' but params hold e4m3 bits (8-bit "
+                    "weights without _iscale keys)")
+            params = quantize_llama_weights_int8(params)
+        self.params = fuse_qkv_weights(params)
+        self._layer_keys = _layer_keys(self.params)
         self.pool = PagePool(config.num_pages, config.page_size)
         # sampling seeds are drawn on the host, one int32 per step
         self.generator = torch.Generator().manual_seed(seed + 1)
@@ -745,7 +788,7 @@ class LlamaServingEngine:
         if sel is not None:  # the add is elementwise: select first
             x, mlp = x[sel], mlp[sel]
         x = fused_add_rmsnorm(mlp, x, p["final_norm"], mc.rms_eps)[0]
-        return (x @ p["lm_head"]).float()
+        return _wmm(x, p, "lm_head").float()
 
     def _run_layers(self, x, positions, page_rows, entries, dplan):
         """The layers over the residual stream x. Returns (x, the last MLP
@@ -765,10 +808,9 @@ class LlamaServingEngine:
             kc, vc = kc.view(torch.int8), vc.view(torch.int8)
         mlp = None
         for layer in range(mc.num_layers):
-            lp = {k: self.params[k][layer] for k in PER_LAYER
-                  if k in self.params}
+            lp = {k: self.params[k][layer] for k in self._layer_keys}
             xn, x = add_rmsnorm(mlp, x, lp["attn_norm"], mc.rms_eps)
-            qkv = xn @ lp["wqkv"]
+            qkv = _wmm(xn, lp, "wqkv")
             q = qkv[:, : hq * d].reshape(n, hq, d)
             k = qkv[:, hq * d: (hq + hkv) * d].reshape(n, hkv, d)
             v = qkv[:, (hq + hkv) * d:].reshape(n, hkv, d)
@@ -794,10 +836,10 @@ class LlamaServingEngine:
                 kv_indices_offset=layer * num_pages,
             )[:n]
             xn, x = fused_add_rmsnorm(
-                (attn.reshape(n, hq * d) @ lp["wo"]).to(x.dtype), x,
+                _wmm(attn.reshape(n, hq * d), lp, "wo").to(x.dtype), x,
                 lp["mlp_norm"], mc.rms_eps)
-            mlp = (silu_and_mul(xn @ lp["w_gate_up"]) @ lp["w_down"]).to(
-                x.dtype)
+            mlp = _wmm(silu_and_mul(_wmm(xn, lp, "w_gate_up")), lp,
+                       "w_down").to(x.dtype)
         return x, mlp
 
     def _quantize_kv(self, t: torch.Tensor, scale: float) -> torch.Tensor:

@@ -85,10 +85,14 @@ def resolve_device(device: str | torch.device) -> torch.device:
 
 def tensor_from_numpy(arr, device: torch.device) -> torch.Tensor:
     """A numpy array (as the JAX package's arrays convert) as a tensor on
-    ``device``; ml_dtypes bfloat16 arrays keep their bits."""
+    ``device``; ml_dtypes bfloat16 and float8_e4m3fn arrays keep their
+    bits."""
     arr = np.asarray(arr)
     if arr.dtype.name == "bfloat16":
         t = torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16)
+    elif arr.dtype.name == "float8_e4m3fn":
+        t = torch.from_numpy(arr.view(np.uint8).copy()).view(
+            torch.float8_e4m3fn)
     else:
         t = torch.from_numpy(arr.copy())
     return t.to(device)

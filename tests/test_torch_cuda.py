@@ -1618,3 +1618,229 @@ def test_pod_modes_on_the_card(dev, dtype):
         for x, y in zip(res[a], res[b]):
             torch.testing.assert_close(x.cpu().float(), y.cpu().float(),
                                        **tol)
+
+
+# ------------------------------------------------------------ 8-bit weights
+
+def _w8_weights(dev, wdt, e, k, n, nk, gen, ftz_codes=False):
+    """8-bit weights quantized per output column, as the models' are:
+    (weights [E, K, N] or [E, N, K], scales [E, N]). ``ftz_codes`` writes
+    denormal codes and the NaN code into a few e4m3 weights, which the bit
+    decode turns into +-0 and +-480."""
+    w = torch.randn((e, n, k) if nk else (e, k, n), device=dev,
+                    generator=gen) * k ** -0.5
+    kdim = -1 if nk else -2
+    top = 127.0 if wdt == torch.int8 else 448.0
+    s = w.abs().amax(dim=kdim, keepdim=True).clamp_min(1e-30) / top
+    if wdt == torch.int8:
+        q = torch.clamp(torch.round(w / s), -127, 127).to(torch.int8)
+    else:
+        q = (w / s).to(torch.float8_e4m3fn)
+        if ftz_codes:
+            b = q.view(torch.uint8).view(-1)
+            b[::7] = 0x03  # a denormal
+            b[3::29] = 0x86  # a negative denormal
+            b[5::101] = 0x7F  # NaN, decoded to 480
+    return q, s.reshape(e, n)
+
+
+@pytest.mark.parametrize("mode", ["e4m3", "e4m3_ftz", "int8"])
+@pytest.mark.parametrize("tm", [16, 32, 64, 128])
+@pytest.mark.parametrize("nk", [False, True])
+@pytest.mark.parametrize("rows", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("col", [False, True])
+def test_grouped_gemm_8bit_modes_match_plain(dev, mode, tm, nk, rows, col):
+    """The kernel's 8-bit modes against its plain version: e4m3 converted
+    exactly or by the bit decode (denormal and NaN codes in the weights),
+    linear int8; bf16 rows (tensor cores) and f32 rows (CUDA cores); one
+    scale an expert or one an output column."""
+    from flashinfer_tpu_torch.ops.gemm_grouped import (
+        grouped_gemm_padded,
+        grouped_gemm_padded_plain,
+    )
+
+    rng = np.random.default_rng(tm + 7)
+    k, n = 256, 384
+    x, _, eot, sc = _gg_case(dev, torch.bfloat16, tm, k, n, nk, rng)
+    x = x.to(rows)
+    wdt = torch.int8 if mode == "int8" else torch.float8_e4m3fn
+    gen = torch.Generator(device=dev).manual_seed(tm)
+    w, col_sc = _w8_weights(dev, wdt, 6, k, n, nk, gen,
+                            ftz_codes=mode == "e4m3_ftz")
+    kw = dict(out_dtype=torch.float32, rhs_nk=nk,
+              e4m3_ftz=mode == "e4m3_ftz")
+    scales = col_sc if col else sc
+    got = grouped_gemm_padded(x, w, eot, scales, **kw)
+    want = grouped_gemm_padded_plain(x, w, eot, scales, **kw)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(want).all())
+    out = torch.bfloat16 if rows == torch.bfloat16 else torch.float32
+    _gg_check(got.to(out), want.to(out), eot, tm, out)
+
+
+@pytest.mark.parametrize("wdt", [torch.float8_e4m3fn, torch.int8])
+@pytest.mark.parametrize("xdt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows", [1, 8, 16, 17, 32, 33, 200])
+@pytest.mark.parametrize("k,n", [(96, 400), (160, 48), (4096, 1024)])
+def test_w8_matmul_matches_plain(dev, wdt, xdt, rows, k, n):
+    """``w8_matmul`` (one launch, tm 16 / 32 / 128 by rows, no padded copy:
+    the kernel reads zeros past the rows and stores only them) against its
+    plain version, JAX's ``_wmm`` arithmetic; K not a multiple of the
+    64-deep stage, N ragged against the 128- and 256-column tiles. bf16:
+    the plain version rounds the product to bf16 before the scale, the
+    kernel once after it (one bf16 step, 2^-7, plus 1e-3 of the rms)."""
+    from flashinfer_tpu_torch.ops.gemm_grouped import (
+        grouped_gemm_padded,
+        w8_matmul,
+        w8_matmul_plain,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(rows * 7 + k)
+    w, s = _w8_weights(dev, wdt, 1, k, n, False, gen, ftz_codes=True)
+    x = torch.randn(rows, k, device=dev, generator=gen).to(xdt)
+    before = grouped_gemm_padded.launches
+    got = w8_matmul(x, w[0], s)
+    assert grouped_gemm_padded.launches == before + 1
+    want = w8_matmul_plain(x, w[0], s)
+    torch.cuda.synchronize()
+    assert got.shape == (rows, n) and got.dtype == xdt
+    rms = float(want.float().pow(2).mean().sqrt())
+    rtol = 2 ** -7 if xdt == torch.bfloat16 else 1e-3
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=1e-3 * rms)
+
+
+def test_w8_matmul_refuses_what_the_kernel_cannot_run(dev):
+    """bf16 rows need K % 32 == 0 and N % 16 == 0; the call raises, naming
+    the constraint, and takes no other route."""
+    from flashinfer_tpu_torch.ops.gemm_grouped import w8_matmul
+
+    x = torch.randn(8, 48, device=dev).bfloat16()
+    w = torch.zeros(48, 64, device=dev).to(torch.int8)
+    s = torch.ones(1, 64, device=dev)
+    with pytest.raises(ValueError, match="K % 32 == 0"):
+        w8_matmul(x, w, s)
+    with pytest.raises(ValueError, match="N % 16 == 0"):
+        w8_matmul(torch.randn(8, 64, device=dev).bfloat16(),
+                  torch.zeros(64, 40, device=dev).to(torch.int8),
+                  torch.ones(1, 40, device=dev))
+
+
+@pytest.mark.parametrize("wdt", [torch.float8_e4m3fn, torch.int8])
+def test_w8_matmul_in_a_cuda_graph(dev, wdt):
+    """Captured, then replayed on new rows written into the captured input:
+    the eager call's output on those rows."""
+    from flashinfer_tpu_torch.ops.gemm_grouped import w8_matmul
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    w, s = _w8_weights(dev, wdt, 1, 512, 768, False, gen)
+    x = torch.randn(8, 512, device=dev, generator=gen).bfloat16()
+    w8_matmul(x, w[0], s)  # builds
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = w8_matmul(x, w[0], s)
+    for _ in range(2):
+        x.copy_(torch.randn(8, 512, device=dev, generator=gen))
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, w8_matmul(x, w[0], s))
+
+
+@pytest.mark.parametrize("wdt", ["fp8_e4m3", "int8"])
+@pytest.mark.parametrize("mode", [dict(), dict(decode_window=4),
+                                  dict(spec_tokens=3)],
+                         ids=["decode", "window4", "spec3"])
+def test_tiny_8bit_engine_on_the_card_matches_cpu(dev, wdt, mode):
+    """Greedy tokens of the f32 tiny engine with 8-bit weights on the card
+    (every matmul a grouped-GEMM launch on the CUDA cores, graphed steps)
+    equal the CPU engine's (every plain version)."""
+    from flashinfer_tpu_torch import EngineConfig, LlamaConfig, \
+        LlamaServingEngine
+    from flashinfer_tpu_torch.ops.gemm_grouped import grouped_gemm_padded
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mc = LlamaConfig.tiny()
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, mc.vocab_size, n).tolist()
+               for n in (9, 30, 4)]
+    outs, params = [], None
+    for device in ("cpu", "cuda"):
+        cfg = EngineConfig(model=mc, max_batch=2, num_pages=64, page_size=8,
+                           max_seq_len=64, greedy=True, weight_dtype=wdt,
+                           device=device, **mode)
+        eng = LlamaServingEngine(cfg, params=params, seed=0)
+        params = {k: v.cpu() for k, v in eng.params.items()}
+        before = grouped_gemm_padded.launches
+        reqs = [eng.add_request(p, 6) for p in prompts]
+        eng.run_to_completion(max_steps=100)
+        outs.append([r.output for r in reqs])
+    assert grouped_gemm_padded.launches > before
+    assert outs[0] == outs[1]
+
+
+@pytest.mark.parametrize("wdt", ["fp8_e4m3", "int8"])
+@pytest.mark.parametrize("greedy", [True, False])
+def test_graphed_8bit_decode_matches_eager(dev, wdt, greedy):
+    """The bf16 tiny engine with 8-bit weights: the decode step replayed
+    from CUDA graphs emits the eager step's tokens, and the grouped GEMM
+    runs every matmul of a step (4 a layer and the lm_head)."""
+    from flashinfer_tpu_torch.ops.gemm_grouped import grouped_gemm_padded
+
+    rng = np.random.default_rng(26)
+    prompts = [rng.integers(0, 256, n).tolist() for n in (9, 30, 4, 17, 12)]
+    runs = []
+    for graphs in (False, True):
+        gg0 = grouped_gemm_padded.launches
+        outs, eng, _ = _bf16_engine_run(prompts, 10, greedy=greedy,
+                                        weight_dtype=wdt, cuda_graphs=graphs)
+        runs.append((outs, eng, grouped_gemm_padded.launches - gg0))
+    (want, eager, gg_e), (got, eng, gg_g) = runs
+    assert got == want
+    layers = eng.cfg.model.num_layers
+    assert eng.graphs.captures >= 1
+    assert gg_g == gg_e + (4 * layers + 1) * eng.graphs.captures
+    assert gg_e >= (4 * layers + 1) * eager.decode_steps
+
+
+@pytest.mark.parametrize("wdt", [torch.bfloat16, torch.float8_e4m3fn,
+                                 torch.int8])
+@pytest.mark.parametrize("tm", [16, 32, 64, 128])
+@pytest.mark.parametrize("nk", [False, True])
+def test_grouped_gemm_split_k(dev, wdt, tm, nk):
+    """Few tiles over a deep K (ragged: 992 is not a multiple of the
+    64-deep stage): the kernel splits K and the last split of each tile
+    sums the partials in split order. Against the plain version, bit for
+    bit across launches (eager and replayed from a CUDA graph), with -1
+    tiles and a ragged last column tile."""
+    from flashinfer_tpu_torch.ops.gemm_grouped import (
+        _split_k,
+        _tile_n,
+        grouped_gemm_padded,
+        grouped_gemm_padded_plain,
+    )
+
+    rng = np.random.default_rng(tm + 11)
+    k, n = 992, 400
+    x, _, eot, sc = _gg_case(dev, torch.bfloat16, tm, 1024, n, nk, rng)
+    x = x[:, :k].contiguous()
+    gen = torch.Generator(device=dev).manual_seed(tm + 1)
+    if wdt == torch.bfloat16:
+        w = _gg_weights(dev, wdt, 6, k, n, nk, gen)
+        scales = sc
+    else:
+        w, scales = _w8_weights(dev, wdt, 6, k, n, nk, gen)
+    tile_n = _tile_n(tm, w.dtype, nk)
+    assert _split_k(eot.numel() * -(-n // tile_n), k, 1, dev)[0] > 1
+    kw = dict(out_dtype=torch.bfloat16, rhs_nk=nk)
+    got = grouped_gemm_padded(x, w, eot, scales, **kw)
+    want = grouped_gemm_padded_plain(x, w, eot, scales, **kw)
+    torch.cuda.synchronize()
+    _gg_check(got, want, eot, tm, torch.bfloat16)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        again = grouped_gemm_padded(x, w, eot, scales, **kw)
+    for _ in range(3):
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(again, got)

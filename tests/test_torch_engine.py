@@ -199,10 +199,12 @@ def test_engine_single_sequence_exceeding_pool_raises(params):
 
 
 @pytest.mark.parametrize("change", [
-    dict(weight_dtype="fp8_e4m3"), dict(weight_dtype="int8")])
+    dict(weight_dtype="fp4"), dict(weight_dtype="bf16")])
 def test_outside_the_slice_raises(params, change):
+    """Every weight_dtype of JAX's engine is served ("model", "fp8_e4m3",
+    "int8": tests/test_torch_weights.py); any other raises JAX's
+    ValueError."""
     cfg = dataclasses.replace(
         EngineConfig(model=MC, device="cpu", **BASE), **change)
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP Queue 1, item 1\)"):
+    with pytest.raises(ValueError, match="unknown weight_dtype"):
         LlamaServingEngine(cfg, params=params)
