@@ -17,12 +17,14 @@ Run from the root of a checkout. Phases, in order:
    paged attention, the sampler and RMSNorm at the shapes the Llama-3-8B
    engine gives them (paged attention also at the speculative verify plan,
    at head_dim 256 and on POD's combined plan; the sampler also in renorm
-   mode at the verify step's 32 rows and its draw); MLA attention at
+   mode at the verify step's 32 rows and its draw, and at the DeepSeek and
+   Mixtral paths' vocabularies); MLA attention at
    DeepSeek-V2-Lite shapes (decode and causal prefill, bf16/e4m3/int8
    caches); the grouped GEMM (both MoE GEMMs, bf16 and e4m3 weights) at
-   the V2-Lite decode and prefill routings and a Mixtral-8x7B layer, and
-   as ``w8_matmul`` (one group, per-column scales) at Llama-3-8B's five
-   weight shapes, 8 / 32 / 4096 rows, e4m3 and int8 weights, beside the
+   the V2-Lite decode and prefill routings, a Mixtral-8x7B layer and
+   Mixtral's decode routing (8 tokens, top-2 of 8), and as ``w8_matmul``
+   (one group, per-column scales) at Llama-3-8B's five weight shapes, 8 /
+   32 / 4096 rows, e4m3 and int8 weights, beside the
    cast + ``torch.matmul`` route and bf16 ``torch.matmul``; the flash kernel at Llama-3-8B prefill (8192 tokens
    causal), chunked prefill (2048 at the tail of 8192) and decode (32K
    keys), DeepSeek-V2-Lite's MHA prefill (d 192, dv 128), each variant at
@@ -36,14 +38,22 @@ Run from the root of a checkout. Phases, in order:
    (the pod path: its launches are read here); the modes must agree with
    their plain versions and each other; the two-launch mode is then traced
    (device time by kernel family, busy share);
-6. tiny references: the f32 tiny Llama engine and the f32 tiny DeepSeek
-   decode loop on the card (every kernel on) emit the greedy tokens of the
-   same model on the CPU (every plain version); the tiny engine with
+6. cascade: ``MultiLevelCascadeAttentionWrapper`` with 32 requests sharing
+   a 4096-token prefix (level 0) and their own suffixes of 64-512 tokens
+   (level 1, causal), Llama-3-8B attention widths, page 16, decode (1 query
+   token a request; NHD and HND) and append (16; NHD): against flat
+   ``BatchAttention`` over the concatenated page tables and the f32
+   oracle, each plan's paged-kernel launch against its plain version,
+   cascade and flat timed (the cascade path: its launches are read here);
+7. tiny references: the f32 tiny Llama engine, and the f32 tiny DeepSeek
+   and Mixtral decode loops, on the card (every kernel on) emit the greedy
+   tokens of the same model on the CPU (every plain version); the tiny
+   engine with
    speculative decoding (3 drafts) on repetitive prompts emits them on the
    card, on the CPU and without drafts, with drafts accepted; the tiny
    engine with e4m3 and int8 weights (decode, window 4, 3 drafts) emits
    the CPU's tokens;
-7. engine: ``LlamaServingEngine`` at Llama-3-8B widths and depth in bf16,
+8. engine: ``LlamaServingEngine`` at Llama-3-8B widths and depth in bf16,
    random weights from a seeded CUDA generator, 12 requests of 64-512
    prompt tokens and 32 new tokens on 8 slots, sampled and greedy, in three
    modes: the decode step eager (``cuda_graphs=False``), replayed from CUDA
@@ -63,7 +73,7 @@ Run from the root of a checkout. Phases, in order:
    grouped GEMM runs every matmul), graphed greedy and eager greedy
    (tokens identical), and int8 graphed greedy, each with its agreement
    with the bf16 greedy tokens;
-8. DeepSeek: ``deepseek_decode_step`` at DeepSeek-V2-Lite widths and full
+9. DeepSeek: ``deepseek_decode_step`` at DeepSeek-V2-Lite widths and full
    depth (27 layers) in bf16, random weights from a seeded CUDA generator,
    8 requests of 32-128 prompt tokens prefilled token by token and 32 new
    tokens each, one MLA plan per step: sampled (top-k 40, top-p 0.9: the
@@ -71,7 +81,13 @@ Run from the root of a checkout. Phases, in order:
    then a short greedy run on e4m3 caches and the e4m3 witness (one step
    on bf16, e4m3 and bf16-fed-e4m3-values caches: the last two must
    agree);
-9. one ``{"kernels": [...]}`` line, then the result line.
+10. Mixtral: ``mixtral_decode_step`` at Mixtral-8x7B's widths and 16 of its
+   32 layers (32 are ~93 GB in bf16) in bf16, random weights from a seeded
+   CUDA generator, the DeepSeek phase's traffic (8 requests of 32-128
+   prompt tokens fed token by token, 32 new tokens each, page 16), a fresh
+   decode plan a step: sampled (the Mixtral path, whose launch counts are
+   read from this run) and greedy;
+11. one ``{"kernels": [...]}`` line, then the result line.
 
 The script exits non-zero, and prints no result line, when the machine has
 no CUDA device, when it is not run from a checkout, or when any phase fails.
@@ -132,6 +148,8 @@ GG_CASES = (
     # the JAX bench's Mixtral-8x7B layer (benchmarks/
     # flashinfer_tpu_benchmark.py:559-566)
     ("mixtral_layer", 4096, 8, 2, 4096, 14336),
+    # the decode routing the Mixtral phase serves: 8 tokens, top-2 of 8
+    ("mixtral_decode", 8, 8, 2, 4096, 14336),
 )
 
 
@@ -525,6 +543,7 @@ SAMPLER_CASES = (
     ("llama", 8, 128256, "top_k_top_p_seq", "sample"),
     ("deepseek", 8, 102400, "top_k_top_p_seq", "sample"),
     ("deepseek_one", 1, 102400, "top_k_top_p_seq", "sample"),
+    ("mixtral", 8, 32000, "top_k_top_p_seq", "sample"),
     ("llama_renorm", 8, 128256, "top_k_top_p_seq", "renorm"),
     ("llama_mask", 8, 128256, "top_k", "mask_logits"),
     # the spec verify step (batch 8, 3 drafts): top-k renorm of its 32
@@ -911,10 +930,11 @@ def _library_grouped_mm(torch, x_sorted, w_nk, group_sizes):
 
 def check_grouped_gemm(torch, np):
     """Both MoE GEMMs (gate/up with bf16 output, down with f32 output) on
-    bf16 and e4m3 weights in the models' [E, N, K] layout, at three
+    bf16 and e4m3 weights in the models' [E, N, K] layout, at four
     routings: V2-Lite decode (8 tokens, top-6 of 64 experts, 2048 -> 2816
-    and 1408 -> 2048), a 2048-token V2-Lite prefill, and the JAX bench's
-    Mixtral-8x7B layer (4096 tokens, top-2 of 8, 4096 <-> 14336)."""
+    and 1408 -> 2048), a 2048-token V2-Lite prefill, the JAX bench's
+    Mixtral-8x7B layer (4096 tokens, top-2 of 8, 4096 <-> 14336) and
+    Mixtral's decode (8 tokens of it)."""
     from flashinfer_tpu_torch.ops.fused_moe import (
         RoutingMethodType,
         _permute_by_expert,
@@ -1823,6 +1843,8 @@ LLAMA_W8_PATH = LLAMA_PATH + ("grouped_gemm",)
 SPEC_TOKENS = 3  # drafts a sequence in the spec modes
 DEEPSEEK_PATH = ("mla_attention", "grouped_gemm", "rmsnorm",
                  "sampler_family")
+MIXTRAL_PATH = ("paged_attention", "grouped_gemm", "rmsnorm",
+                "sampler_family")
 SINGLE_PATH = ("flash_attention",)
 POD_PATH = ("flash_attention", "paged_attention")
 
@@ -2225,26 +2247,30 @@ def _engine_variants(torch, np, mc, params, prompts, greedy_outs, n_new=8):
 
 # ----------------------------------------------------------------- DeepSeek
 
-def deepseek_serve(torch, np, cfg, params, prompts, n_new, *, device,
-                   sampled, kv="model", kv_scale=0.25, chunk=64, seed=0,
-                   profile_at=None):
-    """Serve ``prompts`` through ``deepseek_decode_step``: every step feeds
-    each unfinished request its next prompt token (prefill token by token)
-    or its last generated token, under one MLA plan, and a request emits a
-    token from its last prompt position on, until it has ``n_new``.
-    Sampled: top-k 40, top-p 0.9 on the sampler kernel; else greedy. The
-    caches are bf16 (``kv="model"``) or e4m3 with ``kv_scale``. With
-    ``profile_at``, the three steps from that one are traced (and left out
-    of the step times). Request i takes pages from the bottom of the pool
-    in turn (request i's first page is page i). Returns a dict: ``outs``
-    (the tokens of each request), ``wall_s``, ``step_ms``, ``profile``, the
-    first and the last step's logits (``logits0``, ``logits``) and the
-    caches (``ckv``, ``kpe``)."""
-    from flashinfer_tpu_torch.models.deepseek import deepseek_decode_step
-    from flashinfer_tpu_torch.ops.attention.mla import (
-        BatchMLAPagedAttentionWrapper,
-    )
-    from flashinfer_tpu_torch.ops.rope import rope_cos_sin_cache
+def _pages_needed(prompts, n_new, page_size):
+    """Pages of a pool that gives every request room for its prompt and
+    ``n_new`` tokens."""
+    total = max(len(p) for p in prompts) + n_new
+    return len(prompts) * -(-total // page_size)
+
+
+def _token_loop(torch, np, prompts, n_new, page_size, forward, *, device,
+                sampled, seed=0, profile_at=None):
+    """Serve ``prompts`` a token a step: every step feeds each unfinished
+    request its next prompt token (prefill token by token) or its last
+    generated token, all at position t, and a request emits a token from
+    its last prompt position on, until it has ``n_new``. ``forward(tokens,
+    t, indptr, indices, last, tables)`` plans and runs the step for the
+    live requests (``tables``: kv_indices, kv_indptr and kv_last_page_len
+    as int32 device tensors, uploaded with the tokens in one copy) and
+    returns their logits [live, vocab] f32. Sampled: top-k 40, top-p 0.9
+    on the sampler kernel; else greedy. With ``profile_at``, the three
+    steps from that one are traced (and left out of the step times).
+    Request i takes pages from the bottom of a pool of ``_pages_needed``
+    pages in turn (request i's first page is page i). Returns a dict:
+    ``outs`` (the tokens of each request), ``wall_s``, ``step_ms``,
+    ``profile`` and the first and the last step's logits (``logits0``,
+    ``logits``)."""
     from flashinfer_tpu_torch.ops.sampling import (
         draw_seed,
         softmax,
@@ -2252,19 +2278,9 @@ def deepseek_serve(torch, np, cfg, params, prompts, n_new, *, device,
     )
     from flashinfer_tpu_torch.scheduler.page_pool import PagePool
 
-    B, L = len(prompts), cfg.num_layers
-    total = max(len(p) for p in prompts) + n_new
-    per_req = -(-total // MLA_PAGE)
-    pool = PagePool(B * per_req, MLA_PAGE)
+    B = len(prompts)
+    pool = PagePool(_pages_needed(prompts, n_new, page_size), page_size)
     seqs = [pool.create() for _ in prompts]
-    dt = torch.float8_e4m3fn if kv == "e4m3" else cfg.dtype
-    shape = (L, B * per_req, MLA_PAGE)
-    ckv = torch.zeros(*shape, cfg.head_dim_ckv, device=device).to(dt)
-    kpe = torch.zeros(*shape, cfg.head_dim_kpe, device=device).to(dt)
-    cos_sin = (rope_cos_sin_cache(total, cfg.head_dim_kpe,
-                                  rope_theta=cfg.rope_theta, device=device)
-               if kv == "e4m3" else None)
-    sm_scale = (cfg.head_dim_qk_nope + cfg.head_dim_kpe) ** -0.5
     gen = torch.Generator().manual_seed(seed)
     outs = [[] for _ in prompts]
     step_ms, prof, logits = [], None, {}
@@ -2276,11 +2292,6 @@ def deepseek_serve(torch, np, cfg, params, prompts, n_new, *, device,
         for i in live:
             pool.extend(seqs[i], t + 1)
         indptr, indices, last = pool.batch_export([seqs[i] for i in live])
-        w = BatchMLAPagedAttentionWrapper(device=device)
-        w.plan(np.arange(len(live) + 1), indptr, indices,
-               np.full(len(live), t + 1), cfg.num_heads, cfg.head_dim_ckv,
-               cfg.head_dim_kpe, MLA_PAGE, sm_scale=sm_scale,
-               kv_chunk_size=chunk)
         toks = [prompts[i][t] if t < len(prompts[i]) else outs[i][-1]
                 for i in live]
         host = np.concatenate([toks, indices, indptr, last]).astype(np.int64)
@@ -2288,10 +2299,7 @@ def deepseek_serve(torch, np, cfg, params, prompts, n_new, *, device,
         n, ni = len(live), len(indices)
         tabs = (dev[n: n + ni].int(), dev[n + ni: 2 * n + ni + 1].int(),
                 dev[2 * n + ni + 1:].int())
-        lg, _, _ = deepseek_decode_step(
-            params, cfg, dev[:n], torch.full((n,), t, device=device), ckv,
-            kpe, *tabs, w, kv_scale=kv_scale if kv == "e4m3" else 1.0,
-            cos_sin_cache=cos_sin)
+        lg = forward(dev[:n], t, indptr, indices, last, tabs)
         logits.setdefault("logits0", lg)
         logits["logits"] = lg
         emit = [j for j, i in enumerate(live) if t >= len(prompts[i]) - 1]
@@ -2319,7 +2327,47 @@ def deepseek_serve(torch, np, cfg, params, prompts, n_new, *, device,
         step_ms.append((time.perf_counter() - ts) * 1e3)
     sync()
     return dict(outs=outs, wall_s=time.perf_counter() - t0, step_ms=step_ms,
-                profile=prof, ckv=ckv, kpe=kpe, **logits)
+                profile=prof, **logits)
+
+
+def deepseek_serve(torch, np, cfg, params, prompts, n_new, *, device,
+                   sampled, kv="model", kv_scale=0.25, chunk=64, seed=0,
+                   profile_at=None):
+    """Serve ``prompts`` through ``deepseek_decode_step`` in
+    ``_token_loop``, one MLA plan a step (KV chunk ``chunk``). The caches
+    are bf16 (``kv="model"``) or e4m3 with ``kv_scale``. Returns
+    ``_token_loop``'s dict and the caches (``ckv``, ``kpe``)."""
+    from flashinfer_tpu_torch.models.deepseek import deepseek_decode_step
+    from flashinfer_tpu_torch.ops.attention.mla import (
+        BatchMLAPagedAttentionWrapper,
+    )
+    from flashinfer_tpu_torch.ops.rope import rope_cos_sin_cache
+
+    L = cfg.num_layers
+    total = max(len(p) for p in prompts) + n_new
+    dt = torch.float8_e4m3fn if kv == "e4m3" else cfg.dtype
+    shape = (L, _pages_needed(prompts, n_new, MLA_PAGE), MLA_PAGE)
+    ckv = torch.zeros(*shape, cfg.head_dim_ckv, device=device).to(dt)
+    kpe = torch.zeros(*shape, cfg.head_dim_kpe, device=device).to(dt)
+    cos_sin = (rope_cos_sin_cache(total, cfg.head_dim_kpe,
+                                  rope_theta=cfg.rope_theta, device=device)
+               if kv == "e4m3" else None)
+    sm_scale = (cfg.head_dim_qk_nope + cfg.head_dim_kpe) ** -0.5
+
+    def forward(toks, t, indptr, indices, last, tabs):
+        n = len(toks)
+        w = BatchMLAPagedAttentionWrapper(device=device)
+        w.plan(np.arange(n + 1), indptr, indices, np.full(n, t + 1),
+               cfg.num_heads, cfg.head_dim_ckv, cfg.head_dim_kpe, MLA_PAGE,
+               sm_scale=sm_scale, kv_chunk_size=chunk)
+        return deepseek_decode_step(
+            params, cfg, toks, torch.full((n,), t, device=device), ckv, kpe,
+            *tabs, w, kv_scale=kv_scale if kv == "e4m3" else 1.0,
+            cos_sin_cache=cos_sin)[0]
+
+    return dict(_token_loop(torch, np, prompts, n_new, MLA_PAGE, forward,
+                            device=device, sampled=sampled, seed=seed,
+                            profile_at=profile_at), ckv=ckv, kpe=kpe)
 
 
 @contextlib.contextmanager
@@ -2469,6 +2517,64 @@ def phase_tiny_deepseek(torch, np):
         raise AssertionError(f"card and CPU DeepSeek disagree: {bad}")
 
 
+def _served_modes(torch, np, name, path, serve, vocab, prompts, n_new,
+                  card):
+    """Serve ``prompts`` sampled and then greedy through ``serve(prompts,
+    n_new, sampled=..., profile_at=...)`` (a ``_token_loop`` server),
+    each run's launch counts of ``path`` zeroed just before it; three steps
+    from half the shortest prompt on are traced. The sampled run fails the
+    phase if a kernel of ``path`` launched no time. Returns a dict:
+    ``sampled`` and ``greedy`` (tokens/s, step ms, launches, profile, peak
+    memory) and their tokens under ``sampled_outs``, ``greedy_outs``."""
+    results = {}
+    for mode in ("sampled", "greedy"):
+        counters = _reset_counts()
+        run = serve(prompts, n_new, sampled=mode == "sampled",
+                    profile_at=min(len(p) for p in prompts) // 2)
+        outs, wall, step_ms, prof = (run["outs"], run["wall_s"],
+                                     run["step_ms"], run["profile"])
+        del run
+        counts = {k: counters[k].launches for k in path}
+        assert all(len(o) == n_new for o in outs), [len(o) for o in outs]
+        assert all(0 <= t < vocab for o in outs for t in o)
+        gen_tokens = sum(len(o) for o in outs)
+        res = dict(tokens_per_s=gen_tokens / wall, wall_s=wall,
+                   generated_tokens=gen_tokens, steps=len(step_ms) + 3,
+                   step_ms_median=float(np.median(step_ms)),
+                   step_ms_p90=float(np.percentile(step_ms, 90)),
+                   launches=counts, profile=prof,
+                   first_tokens=[o[:4] for o in outs[:3]],
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        if prof:
+            prof["busy_share"] = (prof["device_ms_per_step"]
+                                  / res["step_ms_median"])
+        results[mode] = res
+        results[f"{mode}_outs"] = outs
+        log(f"{name} {mode}: {gen_tokens} tokens in {wall:.2f} s = "
+            f"{res['tokens_per_s']:.1f} tokens/s over {res['steps']} steps "
+            f"(prompts {[len(p) for p in prompts]} fed token by token); step "
+            f"median {res['step_ms_median']:.2f} ms, p90 "
+            f"{res['step_ms_p90']:.2f} ms; launches {counts}; peak memory "
+            f"{res['peak_mem_gb']:.2f} GB [{card}]")
+        if prof:
+            log(f"{name} {mode} profile, per step at batch "
+                f"{len(prompts)}: device {prof['device_ms_per_step']:.2f} ms "
+                f"in {prof['device_ops_per_step']} device ops (traced wall "
+                f"{prof['profiled_wall_ms_per_step']:.2f} ms), busy share "
+                f"{prof['busy_share']:.3f}; by family "
+                f"{json.dumps(prof['ms_per_step'])}")
+            for ms, n, kname in prof["top_kernels"]:
+                log(f"  device {ms:8.3f} ms  x{n:<5d} {kname}")
+        else:
+            log(f"{name} {mode} profile: the profiler recorded no device "
+                "time (not measured)")
+        missing = [k for k, n in counts.items() if n == 0]
+        if mode == "sampled" and missing:
+            raise AssertionError(f"kernels not launched on the {name} path: "
+                                 f"{missing}")
+    return results
+
+
 def phase_deepseek(torch, np, card):
     from flashinfer_tpu_torch.models.deepseek import (
         DeepSeekConfig,
@@ -2488,54 +2594,13 @@ def phase_deepseek(torch, np, card):
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
                for n in rng.integers(32, 129, 8)]
-    n_new = 32
-    results = {}
-    for mode in ("sampled", "greedy"):
-        counters = _reset_counts()
-        run = deepseek_serve(torch, np, cfg, params, prompts, n_new,
-                             device=DEVICE, sampled=mode == "sampled",
-                             profile_at=min(len(p) for p in prompts) // 2)
-        outs, wall, step_ms, prof = (run["outs"], run["wall_s"],
-                                     run["step_ms"], run["profile"])
-        del run
-        counts = {k: counters[k].launches for k in DEEPSEEK_PATH}
-        assert all(len(o) == n_new for o in outs), [len(o) for o in outs]
-        assert all(0 <= t < cfg.vocab_size for o in outs for t in o)
-        gen_tokens = sum(len(o) for o in outs)
-        res = dict(tokens_per_s=gen_tokens / wall, wall_s=wall,
-                   generated_tokens=gen_tokens, steps=len(step_ms) + 3,
-                   step_ms_median=float(np.median(step_ms)),
-                   step_ms_p90=float(np.percentile(step_ms, 90)),
-                   launches=counts, profile=prof,
-                   first_tokens=[o[:4] for o in outs[:3]],
-                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-        if prof:
-            prof["busy_share"] = (prof["device_ms_per_step"]
-                                  / res["step_ms_median"])
-        results[mode] = res
-        results[f"{mode}_outs"] = outs
-        log(f"deepseek {mode}: {gen_tokens} tokens in {wall:.2f} s = "
-            f"{res['tokens_per_s']:.1f} tokens/s over {res['steps']} steps "
-            f"(prompts {[len(p) for p in prompts]} fed token by token); step "
-            f"median {res['step_ms_median']:.2f} ms, p90 "
-            f"{res['step_ms_p90']:.2f} ms; launches {counts}; peak memory "
-            f"{res['peak_mem_gb']:.2f} GB [{card}]")
-        if prof:
-            log(f"deepseek {mode} profile, per step at batch 8: device "
-                f"{prof['device_ms_per_step']:.2f} ms in "
-                f"{prof['device_ops_per_step']} device ops (traced wall "
-                f"{prof['profiled_wall_ms_per_step']:.2f} ms), busy share "
-                f"{prof['busy_share']:.3f}; by family "
-                f"{json.dumps(prof['ms_per_step'])}")
-            for ms, n, name in prof["top_kernels"]:
-                log(f"  device {ms:8.3f} ms  x{n:<5d} {name}")
-        else:
-            log(f"deepseek {mode} profile: the profiler recorded no device "
-                "time (not measured)")
-        missing = [k for k, n in counts.items() if n == 0]
-        if mode == "sampled" and missing:
-            raise AssertionError(f"kernels not launched on the DeepSeek "
-                                 f"path: {missing}")
+
+    def serve(prompts, n_new, **kw):
+        return deepseek_serve(torch, np, cfg, params, prompts, n_new,
+                              device=DEVICE, **kw)
+
+    results = _served_modes(torch, np, "deepseek", DEEPSEEK_PATH, serve,
+                            cfg.vocab_size, prompts, 32, card)
     n_e4m3 = 4
     run = deepseek_serve(torch, np, cfg, params, prompts, n_e4m3,
                          device=DEVICE, sampled=False, kv="e4m3")
@@ -2554,6 +2619,351 @@ def phase_deepseek(torch, np, card):
     del params
     torch.cuda.empty_cache()
     return results
+
+
+# ------------------------------------------------------------------ Mixtral
+
+# Mixtral-8x7B's published widths (MixtralConfig's defaults: huggingface.co/
+# mistralai/Mixtral-8x7B-v0.1, config.json) at 16 of its 32 layers: the 32
+# layers' bf16 weights are ~93 GB, more than the card's 80; 16 are ~46.5 GB
+MIXTRAL_LAYERS = 16
+MIXTRAL_PAGE = 16
+MIXTRAL_KV_CHUNK = 64
+
+
+def mixtral_serve(torch, np, cfg, params, prompts, n_new, *, device,
+                  sampled, page_size=MIXTRAL_PAGE, chunk=MIXTRAL_KV_CHUNK,
+                  seed=0, profile_at=None):
+    """Serve ``prompts`` through ``mixtral_decode_step`` in ``_token_loop``:
+    NHD caches [L, pages, page_size, kv heads, head_dim] in the model
+    dtype, a fresh ``BatchDecodeWithPagedKVCacheWrapper`` plan a step (KV
+    chunk ``chunk``). Returns ``_token_loop``'s dict and the caches (``k``,
+    ``v``)."""
+    from flashinfer_tpu_torch.models.mixtral import mixtral_decode_step
+    from flashinfer_tpu_torch.ops.attention.batch import (
+        BatchDecodeWithPagedKVCacheWrapper,
+    )
+
+    shape = (cfg.num_layers, _pages_needed(prompts, n_new, page_size),
+             page_size, cfg.num_kv_heads, cfg.head_dim)
+    kc = torch.zeros(shape, dtype=cfg.dtype, device=device)
+    vc = torch.zeros_like(kc)
+
+    def forward(toks, t, indptr, indices, last, tabs):
+        w = BatchDecodeWithPagedKVCacheWrapper(kv_layout="NHD",
+                                               device=device)
+        w.plan(indptr, indices, last, cfg.num_qo_heads, cfg.num_kv_heads,
+               cfg.head_dim, page_size, kv_chunk_size=chunk)
+        return mixtral_decode_step(
+            params, cfg, toks, torch.full((len(toks),), t, device=device),
+            (kc, vc), *tabs, w)[0]
+
+    return dict(_token_loop(torch, np, prompts, n_new, page_size, forward,
+                            device=device, sampled=sampled, seed=seed,
+                            profile_at=profile_at), k=kc, v=vc)
+
+
+def phase_tiny_mixtral(torch, np):
+    """Greedy tokens of the f32 tiny Mixtral, card (every kernel on) vs CPU
+    (every plain version), and the card run's launches of the kernels on
+    its path."""
+    from flashinfer_tpu_torch.models.mixtral import (
+        MixtralConfig,
+        mixtral_init_weights,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = MixtralConfig.tiny()
+    params = mixtral_init_weights(torch.Generator().manual_seed(0), cfg,
+                                  "cpu")
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in (7, 3, 12)]
+    outs = []
+    for device in ("cpu", DEVICE):
+        counters = _reset_counts()
+        p = {k: v.to(device) for k, v in params.items()}
+        outs.append(mixtral_serve(torch, np, cfg, p, prompts, 8,
+                                  device=device, sampled=False, page_size=8,
+                                  chunk=8)["outs"])
+    counts = {k: counters[k].launches for k in MIXTRAL_PATH
+              if k != "sampler_family"}  # greedy: no draw
+    same = outs[0] == outs[1]
+    log(f"tiny f32 Mixtral: card {'==' if same else '!='} cpu; card "
+        f"launches {counts}")
+    if not same or not all(counts.values()):
+        raise AssertionError(f"card and CPU Mixtral disagree, or a kernel "
+                             f"did not launch: {outs} {counts}")
+
+
+def phase_mixtral(torch, np, card):
+    from flashinfer_tpu_torch.models.mixtral import (
+        MixtralConfig,
+        mixtral_init_weights,
+    )
+
+    cfg = MixtralConfig(num_layers=MIXTRAL_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    t0 = time.perf_counter()
+    params = mixtral_init_weights(gen, cfg, DEVICE)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in params.values())
+    log(f"Mixtral-8x7B widths, {cfg.num_layers} of 32 layers: "
+        f"{n_params / 1e9:.3f}B parameters, bf16 ({n_params * 2 / 1e9:.1f} "
+        f"GB), {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+               for n in rng.integers(32, 129, 8)]
+
+    def serve(prompts, n_new, **kw):
+        return mixtral_serve(torch, np, cfg, params, prompts, n_new,
+                             device=DEVICE, **kw)
+
+    results = _served_modes(torch, np, "mixtral", MIXTRAL_PATH, serve,
+                            cfg.vocab_size, prompts, 32, card)
+    results["weights_gb"] = n_params * 2 / 1e9
+    results["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params
+    torch.cuda.empty_cache()
+    return results
+
+
+# ------------------------------------------------------------------ cascade
+
+# 32 requests share a 4096-token prefix (level 0, one group, not causal)
+# and each reads its own suffix of 64-512 tokens (level 1, causal), at
+# Llama-3-8B's attention widths, bf16, page 16, KV chunk 512
+CASCADE_REQUESTS = 32
+CASCADE_PREFIX = 4096
+CASCADE_SUFFIX = (64, 512)
+CASCADE_PAGE = 16
+CASCADE_KV_CHUNK = 512
+# (mode, query tokens a request, layouts)
+CASCADE_MODES = (("decode", 1, ("NHD", "HND")), ("append", 16, ("NHD",)))
+
+
+def _cascade_tables(np):
+    """The cascade's page tables: prefix pages 0..255 shared, then each
+    request's suffix pages, in a seeded permutation of the pool. Returns
+    (num_pages, suffix lengths, level tables, flat table); a table is
+    (kv_indptr, kv_indices, kv_last_page_len)."""
+    ps = CASCADE_PAGE
+    rng = np.random.default_rng(13)
+    suffix = rng.integers(CASCADE_SUFFIX[0], CASCADE_SUFFIX[1] + 1,
+                          CASCADE_REQUESTS)
+    n_pre = CASCADE_PREFIX // ps
+    n_suf = -(-suffix // ps)
+    num_pages = n_pre + int(n_suf.sum())
+    perm = rng.permutation(num_pages)
+    pre_pages, suf_pages = perm[:n_pre], perm[n_pre:]
+    suf_indptr = np.concatenate([[0], np.cumsum(n_suf)])
+    last = suffix - (n_suf - 1) * ps
+    level0 = (np.array([0, n_pre]), pre_pages, np.array([ps]))
+    level1 = (suf_indptr, suf_pages, last)
+    flat_indices = np.concatenate([
+        np.concatenate([pre_pages, suf_pages[a:b]])
+        for a, b in zip(suf_indptr[:-1], suf_indptr[1:])])
+    flat = (suf_indptr + n_pre * np.arange(CASCADE_REQUESTS + 1),
+            flat_indices, last)
+    return num_pages, suffix, (level0, level1), flat
+
+
+def phase_cascade(torch, np, card):
+    """``MultiLevelCascadeAttentionWrapper`` (two levels) against flat
+    ``BatchAttention`` over the concatenated page tables (the prefix's
+    pages named in every request), both modes: o and lse to the attention
+    tolerances, and against the f32 oracle (``attention_reference`` over
+    each request's keys); each level's and the flat plan's kernel launch
+    against its plain version on the same plan; cascade and flat timed
+    with CUDA events over caches rotated through ``LAYERS_ROTATED`` copies
+    (a CUDA graph of 10 calls, and eager), each beside the byte bound of
+    the function (every key read once) and of what the flat plan reads (the
+    prefix once a request), and traced (device time by kernel family). The
+    cascade path's launch counts are read from each layout's first cascade
+    run, counts zeroed just before each."""
+    from flashinfer_tpu_torch.ops.attention.batch import (
+        BatchAttention,
+        pack_queries,
+    )
+    from flashinfer_tpu_torch.ops.attention.cascade import (
+        MultiLevelCascadeAttentionWrapper,
+    )
+    from flashinfer_tpu_torch.ops.attention.kernels.paged import (
+        batch_paged_attention_run,
+    )
+    from flashinfer_tpu_torch.ops.attention.reference import (
+        attention_reference,
+    )
+    from flashinfer_tpu_torch.utils import TensorLayout
+
+    hq, hkv, d = LLAMA_HEADS
+    ps, nreq = CASCADE_PAGE, CASCADE_REQUESTS
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    num_pages, suffix, levels, flat = _cascade_tables(np)
+    kv_lens = CASCADE_PREFIX + suffix
+    launches = {"paged_attention": 0}
+    rows = []
+    for mode, qo, layouts in CASCADE_MODES:
+        qo_indptr = np.arange(nreq + 1) * qo
+        nnz = nreq * qo
+        q = torch.randn(nnz, hq, d, device=dev, generator=gen,
+                        dtype=torch.bfloat16)
+        for layout in layouts:
+            shape = ((LAYERS_ROTATED * num_pages, hkv, ps, d)
+                     if layout == "HND"
+                     else (LAYERS_ROTATED * num_pages, ps, hkv, d))
+            kc, vc = (torch.randn(shape, device=dev, generator=gen,
+                                  dtype=torch.bfloat16) for _ in range(2))
+            kw = dict(kv_chunk_size=CASCADE_KV_CHUNK)
+            casc = MultiLevelCascadeAttentionWrapper(
+                2, kv_layout=layout, device=DEVICE).plan(
+                    [np.array([0, nnz]), qo_indptr],
+                    *zip(*levels), hq, hkv, d, ps, causal=True, **kw)
+            flat_w = BatchAttention(kv_layout=layout, device=DEVICE).plan(
+                qo_indptr, *flat, hq, hkv, d, ps, causal=True, **kw)
+            layer = [0]
+
+            def cache(rotate=True):
+                off = (layer[0] % LAYERS_ROTATED) * num_pages
+                if rotate:
+                    layer[0] += 1
+                return kc[off:off + num_pages], vc[off:off + num_pages]
+
+            def run(w, rotate=True):
+                return w.run(q, cache(rotate), return_lse=True)
+
+            counters = _reset_counts()
+            got = run(casc, rotate=False)
+            launches["paged_attention"] += counters[
+                "paged_attention"].launches
+            want = run(flat_w, rotate=False)
+            torch.cuda.synchronize()
+            chk = _attn_check(torch, got, want)
+            # the f32 oracle, request by request
+            k0, v0 = cache(rotate=False)
+            if layout == "HND":
+                k0, v0 = k0.transpose(1, 2), v0.transpose(1, 2)
+            ind, idx = flat[0], flat[1]
+            ref_o, ref_lse = [], []
+            for r in range(nreq):
+                pages = torch.from_numpy(idx[ind[r]:ind[r + 1]]).to(dev)
+                kr = k0[pages].reshape(-1, hkv, d)[:kv_lens[r]]
+                vr = v0[pages].reshape(-1, hkv, d)[:kv_lens[r]]
+                o_r, l_r = attention_reference(q[r * qo:(r + 1) * qo].float(),
+                                               kr.float(), vr.float(),
+                                               causal=True)
+                ref_o.append(o_r)
+                ref_lse.append(l_r)
+            oracle = _attn_check(torch, got, (torch.cat(ref_o),
+                                              torch.cat(ref_lse)))
+            # each plan's kernel launch against its plain version, timed
+            # alone beside its bound: every key it reads once (the flat
+            # plan names the prefix's pages in every request, but reading
+            # them once is the least it must move)
+            plain = []
+            n_pre = len(levels[0][1])
+            once = np.concatenate([[CASCADE_PREFIX], suffix])
+            for label, w, lens, qos, keys, pages in (
+                    ("level0", casc.levels[0], [CASCADE_PREFIX], [nnz],
+                     once[:1], n_pre),
+                    ("level1", casc.levels[1], suffix, [qo] * nreq, suffix,
+                     num_pages - n_pre),
+                    ("flat", flat_w, kv_lens, [qo] * nreq, once,
+                     len(flat[1]))):
+                dp = w.device_plan
+                m = dp.meta
+                qp = pack_queries(dp, q)
+                pkw = dict(tile_q=m.tile_q, group=hq // hkv, causal=m.causal,
+                           sm_scale=m.sm_scale,
+                           kv_layout=TensorLayout[layout],
+                           row_valid=dp.segment("row_valid"))
+                tabs = (dp.segment("kv_indices"), dp.segment("plan"))
+
+                def launch(fn, rotate=True):
+                    return fn(qp, *cache(rotate), *tabs, **pkw)
+
+                def plain_fn(*args, **kw_):
+                    return _paged_plain(torch, *args, **kw_)
+
+                c = _attn_check(torch, launch(batch_paged_attention_run,
+                                              rotate=False),
+                                launch(plain_fn, rotate=False))
+                k_ms = cuda_ms(torch, lambda: launch(
+                    batch_paged_attention_run), 20, graph=True)
+                p_ms = cuda_ms(torch, lambda: launch(plain_fn), 2, warmup=1)
+                pairs = (_attention_work(lens, qos, hq) if m.causal else
+                         sum(int(a) * int(b) for a, b in zip(lens, qos)) * hq)
+                p_bytes = _attention_bytes(tabs[1], pages, keys, m.tile_q,
+                                           hkv, d, 2)
+                pb_ms, pb_by = bound_ms(p_bytes, 4 * d * pairs)
+                plain.append(dict(plan=label, tile_q=m.tile_q,
+                                  T=m.num_work_items, splits=m.max_splits,
+                                  ms=k_ms, plain_ms=p_ms, bound_ms=pb_ms,
+                                  bound_by=pb_by, **c))
+            torch.cuda.synchronize()
+            del got, want, ref_o, ref_lse
+            ms = {name: cuda_ms(torch, lambda w=w: run(w), 10, graph=True)
+                  for name, w in (("cascade", casc), ("flat", flat_w))}
+            call_ms = {name: cuda_ms(torch, lambda w=w: run(w), 10)
+                       for name, w in (("cascade", casc), ("flat", flat_w))}
+            # device time by kernel family: the paged kernel against the
+            # plain PyTorch around it (q packing, split merges, level merge)
+            fams = {}
+            for name, w in (("cascade", casc), ("flat", flat_w)):
+                prof = _profile_steps(torch, lambda w=w: run(w), 3)
+                fams[name] = prof and dict(
+                    device_ms=prof["device_ms_per_step"],
+                    device_ops=prof["device_ops_per_step"],
+                    by_family=prof["ms_per_step"])
+            tok_bytes = 2 * hkv * d * 2  # K and V of a token, bf16
+            qo_bytes = nnz * hq * (2 * d * 2 + 4)  # q read, o and lse out
+            nbytes = int(kv_lens.sum() - (nreq - 1) * CASCADE_PREFIX) \
+                * tok_bytes + qo_bytes
+            flat_bytes = int(kv_lens.sum()) * tok_bytes + qo_bytes
+            ops = 4 * d * _attention_work(kv_lens, [qo] * nreq, hq)
+            b_ms, b_by = bound_ms(nbytes, ops)
+            ok = chk["ok"] and oracle["ok"] and all(x["ok"] for x in plain)
+            row = dict(mode=mode, layout=layout, qo=qo, nnz=nnz,
+                       kv_tokens=int(kv_lens.sum()), vs_flat=chk,
+                       vs_oracle=oracle, plain=plain, ms=ms, call_ms=call_ms,
+                       bound_bytes=nbytes, flat_bytes=flat_bytes,
+                       bound_ops=ops, bound_ms=b_ms, bound_by=b_by,
+                       flat_bytes_ms=flat_bytes / HBM_BYTES_PER_S * 1e3,
+                       profile=fams, ok=ok)
+            rows.append(row)
+            log(f"cascade {mode:6s} {layout} q={list(q.shape)} prefix "
+                f"{CASCADE_PREFIX} + suffixes {int(suffix.min())}-"
+                f"{int(suffix.max())}: vs flat err_o={chk['err_o']:.2e} "
+                f"(limit ratio {chk['o_ratio']:.3f}) err_lse="
+                f"{chk['err_lse']:.2e}; vs f32 oracle err_o="
+                f"{oracle['err_o']:.2e} (limit ratio "
+                f"{oracle['o_ratio']:.3f}) err_lse={oracle['err_lse']:.2e}; "
+                f"cascade ms={ms['cascade']:.4f} call_ms="
+                f"{call_ms['cascade']:.4f}; flat ms={ms['flat']:.4f} "
+                f"call_ms={call_ms['flat']:.4f}; bound_ms={b_ms:.5f} ({b_by}; "
+                f"the flat plan's reads {row['flat_bytes_ms']:.5f} ms at the "
+                f"byte rate) {'ok' if ok else 'MISMATCH'} [{card}]")
+            for name, f in fams.items():
+                log(f"  {name} profile, a call: " + (
+                    f"device {f['device_ms']:.4f} ms in {f['device_ops']} "
+                    f"ops; by family {json.dumps(f['by_family'])}" if f
+                    else "the profiler recorded no device time (not "
+                    "measured)"))
+            for x in plain:
+                log(f"  paged_attention {x['plan']:6s} tile_q={x['tile_q']} "
+                    f"T={x['T']} splits={x['splits']} vs plain err_o="
+                    f"{x['err_o']:.2e} (limit ratio {x['o_ratio']:.3f}) "
+                    f"err_lse={x['err_lse']:.2e} ms={x['ms']:.4f} plain_ms="
+                    f"{x['plain_ms']:.3f} bound_ms={x['bound_ms']:.5f} "
+                    f"({x['bound_by']}) {'ok' if x['ok'] else 'MISMATCH'}")
+            del kc, vc
+            torch.cuda.empty_cache()
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"cascade attention disagrees: {bad}")
+    return dict(rows=rows, launches=launches)
 
 
 # --------------------------------------------------------------------- main
@@ -2604,11 +3014,15 @@ def main() -> int:
                    torch, np)
     single = ph.run("single request", phase_single_request, torch, np, card)
     pod = ph.run("POD", phase_pod, torch, np, card)
+    casc = ph.run("cascade", phase_cascade, torch, np, card)
     ph.run("tiny reference", phase_tiny_reference, torch, np)
     ph.run("tiny DeepSeek reference", phase_tiny_deepseek, torch, np)
+    ph.run("tiny Mixtral reference", phase_tiny_mixtral, torch, np)
     eng = ph.run("engine", phase_engine, torch, np, card)
     torch.cuda.empty_cache()
     dsk = ph.run("DeepSeek", phase_deepseek, torch, np, card)
+    torch.cuda.empty_cache()
+    mix = ph.run("Mixtral", phase_mixtral, torch, np, card)
 
     # each path's sampled run, its counts set to 0 just before it; a kernel
     # on both paths reports the launches of both runs
@@ -2619,8 +3033,10 @@ def main() -> int:
                "llama_w8": (eng or {}).get("w8", {}).get(
                    W8_MODES[0][0], {}).get("launches", {}),
                "deepseek": (dsk or {}).get("sampled", {}).get("launches", {}),
+               "mixtral": (mix or {}).get("sampled", {}).get("launches", {}),
                "single": (single or {}).get("launches", {}),
-               "pod": (pod or {}).get("launches", {})}
+               "pod": (pod or {}).get("launches", {}),
+               "cascade": (casc or {}).get("launches", {})}
 
     def launches(name):
         return sum(counts.get(name, 0) for counts in by_path.values())
@@ -2686,11 +3102,8 @@ def main() -> int:
             plain_ms=main_row["plain_ms"], bound_ms=main_row["bound_ms"],
             bound_by=main_row["bound_by"],
             library_ms=main_row["library_ms"],
-            # the paths that launch it, and w8_matmul (the engine's _wmm
-            # on 8-bit weights) at Llama-3-8B's decode gate/up, e4m3
-            launches_by_path={k: v.get("grouped_gemm", 0)
-                              for k, v in by_path.items()
-                              if v.get("grouped_gemm")},
+            # w8_matmul (the engine's _wmm on 8-bit weights) at
+            # Llama-3-8B's decode gate/up, e4m3
             w8_ms=w8_row["ms"], w8_plain_ms=w8_row["plain_ms"],
             w8_bound_ms=w8_row["bound_ms"], w8_bound_by=w8_row["bound_by"],
             w8_cast_matmul_ms=w8_row["cast_matmul_ms"],
@@ -2706,6 +3119,10 @@ def main() -> int:
             plain_ms=main_row["plain_ms"], bound_ms=main_row["bound_ms"],
             bound_by=main_row["bound_by"],
             library_ms=main_row["library_ms"]))
+    for row in kernels:  # the paths that launch each kernel
+        row["launches_by_path"] = {k: v[row["name"]]
+                                   for k, v in by_path.items()
+                                   if v.get(row["name"])}
     log(f"total {time.perf_counter() - t_start:.1f} s [{card}]")
     if args.out:
         with open(args.out, "w") as f:
@@ -2713,7 +3130,8 @@ def main() -> int:
                            rmsnorm=norm, mla=mla, grouped_gemm=gg,
                            w8_matmul=w8,
                            flash=flash, single=single, pod=pod,
-                           engine=eng, deepseek=dsk, kernels=kernels,
+                           cascade=casc, engine=eng, deepseek=dsk,
+                           mixtral=mix, kernels=kernels,
                            launches_by_path=by_path, failed=ph.failed), f,
                       indent=1)
     if ph.failed:

@@ -1,4 +1,4 @@
-"""Gated activations (counterpart of flashinfer_tpu/ops/activation.py:30-77).
+"""Gated activations (counterpart of flashinfer_tpu/ops/activation.py:30-51).
 
 x = [..., 2*d]: the first half is the gate input, the second the up
 projection; out = act(gate) * up in f32, cast back to x's dtype.
@@ -15,7 +15,7 @@ import torch.nn.functional as F
 
 from flashinfer_tpu_torch.ops.fp4 import fp4_quantize
 
-__all__ = ["silu_and_mul", "gelu_and_mul",
+__all__ = ["silu_and_mul", "gelu_and_mul", "gelu_tanh_and_mul",
            "silu_and_mul_nvfp4_batched_quantize"]
 
 
@@ -29,6 +29,14 @@ def gelu_and_mul(x: torch.Tensor, *, enable_pdl: bool = None) -> torch.Tensor:
     """Exact (erf) GeLU gate."""
     d = x.shape[-1] // 2
     g = F.gelu(x[..., :d].float(), approximate="none")
+    return (g * x[..., d:].float()).to(x.dtype)
+
+
+def gelu_tanh_and_mul(x: torch.Tensor, *,
+                      enable_pdl: bool = None) -> torch.Tensor:
+    """tanh-approximated GeLU gate."""
+    d = x.shape[-1] // 2
+    g = F.gelu(x[..., :d].float(), approximate="tanh")
     return (g * x[..., d:].float()).to(x.dtype)
 
 

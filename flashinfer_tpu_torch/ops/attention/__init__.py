@@ -6,6 +6,9 @@ from flashinfer_tpu_torch.ops.attention.batch import (
     PlanMeta,
     run_device_plan,
 )
+from flashinfer_tpu_torch.ops.attention.cascade import (
+    MultiLevelCascadeAttentionWrapper,
+)
 from flashinfer_tpu_torch.ops.attention.kernels.flash import (
     flash_attention_dense,
     flash_attention_plain,
@@ -29,7 +32,10 @@ from flashinfer_tpu_torch.ops.attention.single import (
 from flashinfer_tpu_torch.ops.attention.state import (
     gather_merge_states,
     merge_state,
+    merge_state_in_place,
     merge_states,
+    scatter_merge_states,
+    variable_length_merge_states,
 )
 from flashinfer_tpu_torch.ops.attention.variants import (
     AttentionVariant,
@@ -47,6 +53,7 @@ __all__ = [
     "DefaultAttention",
     "DevicePlan",
     "FlashSigmoid",
+    "MultiLevelCascadeAttentionWrapper",
     "PODWithPagedKVCacheWrapper",
     "PlanMeta",
     "attention_reference",
@@ -57,11 +64,14 @@ __all__ = [
     "gather_merge_states",
     "make_default_variant",
     "merge_state",
+    "merge_state_in_place",
     "merge_states",
     "mla_paged_plain",
     "mla_paged_run",
     "paged_attention_plain",
     "run_device_plan",
+    "scatter_merge_states",
     "single_decode_with_kv_cache",
     "single_prefill_with_kv_cache",
+    "variable_length_merge_states",
 ]

@@ -9,6 +9,8 @@ are headless: ckv [pages, page_size, d_ckv], kpe [pages, page_size, d_kpe].
 The JAX package appends functionally (``cache.at[...].set``, made in-place
 by buffer donation); here the appends write the caches in place and return
 them. 8-bit caches are written through an int8 view of their bytes.
+``unpack_paged_kv_cache`` and ``block_sparse_indices_to_vector_sparse_offsets``
+follow JAX's (:44, :196).
 """
 
 from __future__ import annotations
@@ -24,9 +26,33 @@ __all__ = [
     "get_batch_indices_positions",
     "append_paged_kv_cache",
     "append_paged_mla_kv_cache",
+    "unpack_paged_kv_cache",
+    "block_sparse_indices_to_vector_sparse_offsets",
 ]
 
 KVCache = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
+
+
+def _split_pair(paged_kv_cache: KVCache
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    if isinstance(paged_kv_cache, (tuple, list)):
+        return paged_kv_cache[0], paged_kv_cache[1]
+    if paged_kv_cache.shape[1] != 2:
+        raise ValueError("single-tensor paged cache must be [pages, 2, "
+                         f"...]; got {tuple(paged_kv_cache.shape)}")
+    return paged_kv_cache[:, 0], paged_kv_cache[:, 1]
+
+
+def unpack_paged_kv_cache(paged_kv_cache: KVCache,
+                          kv_layout: str | TensorLayout = "NHD"
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A (k, v) pair or a [pages, 2, ...] tensor in ``kv_layout`` as (k, v)
+    views, each NHD [pages, page_size, num_kv_heads, head_dim]."""
+    layout = check_kv_layout(kv_layout)
+    k, v = _split_pair(paged_kv_cache)
+    if layout == TensorLayout.HND:
+        k, v = k.transpose(1, 2), v.transpose(1, 2)
+    return k, v
 
 
 def get_seq_lens(kv_indptr: torch.Tensor, kv_last_page_len: torch.Tensor,
@@ -103,13 +129,7 @@ def append_paged_kv_cache(
     114). ``valid`` [nnz] bool marks rows to write; False rows are
     dropped. Returns the cache."""
     layout = check_kv_layout(kv_layout)
-    if isinstance(paged_kv_cache, (tuple, list)):
-        k, v = paged_kv_cache
-    else:
-        if paged_kv_cache.shape[1] != 2:
-            raise ValueError("single-tensor paged cache must be [pages, 2, "
-                             f"...]; got {tuple(paged_kv_cache.shape)}")
-        k, v = paged_kv_cache[:, 0], paged_kv_cache[:, 1]
+    k, v = _split_pair(paged_kv_cache)
     hnd = layout == TensorLayout.HND
     page_size = k.shape[2] if hnd else k.shape[1]
     page_ids, entry_ids, keep = _slots(batch_indices, positions, kv_indices,
@@ -142,3 +162,38 @@ def append_paged_mla_kv_cache(
     _scatter(kpe_cache[..., : append_kpe.shape[-1]], append_kpe, page_ids,
              entry_ids, keep)
     return ckv_cache, kpe_cache
+
+
+def block_sparse_indices_to_vector_sparse_offsets(
+    block_sparse_indices: torch.Tensor,
+    block_sparse_indptr: torch.Tensor,
+    vector_sparse_offsets: torch.Tensor,
+    vector_sparse_indptr: torch.Tensor,
+    kv_lens: torch.Tensor,
+    stride_block: int,
+    stride_n: int,
+    block_size: int,
+) -> torch.Tensor:
+    """Per-token offsets of a block-sparse KV layout: token j of row r
+    (entries vector_sparse_indptr[r]:[r + 1] of the output) lies in block
+    block_sparse_indices[block_sparse_indptr[r] + j // block_size], at
+    block * stride_block + (j % block_size) * stride_n; entries past the
+    row's kv_lens are 0. Returns a new tensor of
+    ``vector_sparse_offsets``' shape and dtype (the JAX package's
+    functional update), or, for blocks of one token with stride_block ==
+    stride_n, ``block_sparse_indices * stride_n``, as JAX does."""
+    if block_size == 1 and stride_block == stride_n:
+        return block_sparse_indices * stride_n
+    num_out = vector_sparse_offsets.shape[0]
+    vec_indptr = vector_sparse_indptr.long()
+    blk_indptr = block_sparse_indptr.long()
+    token = torch.arange(num_out, device=vec_indptr.device)
+    row = (torch.searchsorted(vec_indptr, token, right=True) - 1).clamp(
+        0, blk_indptr.shape[0] - 2)
+    elem = token - vec_indptr[row]
+    in_bounds = elem < kv_lens.long()[row]
+    src = block_sparse_indices.long()[
+        (blk_indptr[row] + elem // block_size).clamp(
+            0, block_sparse_indices.shape[0] - 1)]
+    offsets = src * stride_block + (elem % block_size) * stride_n
+    return torch.where(in_bounds, offsets, 0).to(vector_sparse_offsets.dtype)

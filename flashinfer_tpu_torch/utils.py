@@ -1,7 +1,8 @@
 """Small shared helpers: KV layout enum, integer rounding, device checks.
 
 Counterpart of ``flashinfer_tpu/utils/__init__.py`` for the PyTorch port
-(only what the ported paths need).
+(only what the ported paths need, and the three enums the package
+exports).
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ import numpy as np
 import torch
 
 __all__ = [
+    "MaskMode",
     "PosEncodingMode",
     "TensorLayout",
     "apply_logits_soft_cap",
@@ -22,6 +24,15 @@ __all__ = [
     "resolve_device",
     "tensor_from_numpy",
 ]
+
+
+class MaskMode(enum.IntEnum):
+    """Attention mask modes (flashinfer_tpu/utils/__init__.py:43)."""
+
+    NON_CAUSAL = 0
+    CAUSAL = 1
+    CUSTOM = 2
+    MULTIITEMSCORING = 3
 
 
 class TensorLayout(enum.IntEnum):

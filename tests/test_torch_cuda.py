@@ -1844,3 +1844,128 @@ def test_grouped_gemm_split_k(dev, wdt, tm, nk):
         g.replay()
         torch.cuda.synchronize()
         assert torch.equal(again, got)
+
+
+def test_fused_moe_mixtral_decode_routing(dev):
+    """``fused_moe(backend="pallas")`` at the decode routing the Mixtral
+    phase serves: 8 tokens, top-2 of 8 experts (Renormalize), 4096 <->
+    14336, bf16 weights in [E, N, K]: the grouped-GEMM pipeline (two
+    launches, tm 16) against the CPU's plain route."""
+    from flashinfer_tpu_torch.ops.fused_moe import (
+        RoutingMethodType,
+        fused_moe,
+        route_tokens,
+        select_moe_tm,
+    )
+    from flashinfer_tpu_torch.ops.gemm_grouped import grouped_gemm_padded
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    m, e, top_k, hidden, inter = 8, 8, 2, 4096, 14336
+    x = torch.randn(m, hidden, device=dev, generator=gen).bfloat16()
+    w13 = torch.randn(e, 2 * inter, hidden, device=dev, generator=gen,
+                      dtype=torch.bfloat16).mul_(hidden ** -0.5)
+    w2 = torch.randn(e, hidden, inter, device=dev, generator=gen,
+                     dtype=torch.bfloat16).mul_(inter ** -0.5)
+    ids, sc = route_tokens(torch.randn(m, e, device=dev, generator=gen),
+                           top_k, RoutingMethodType.Renormalize)
+    assert select_moe_tm(m * top_k, e) == 16
+    before = grouped_gemm_padded.launches
+    got = fused_moe(x, w13, w2, ids, sc, out_dtype=torch.float32,
+                    backend="pallas")
+    torch.cuda.synchronize()
+    assert grouped_gemm_padded.launches == before + 2
+    want = fused_moe(*(t.cpu() for t in (x, w13, w2, ids, sc)),
+                     out_dtype=torch.float32, backend="pallas")
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-2,
+                               atol=2e-2 * float(want.abs().max()))
+
+
+def test_tiny_mixtral_decode_on_the_card_matches_cpu(dev):
+    """``chip_smoke.mixtral_serve`` on the f32 tiny Mixtral: the card (the
+    paged, grouped-GEMM and norm kernels) emits the CPU's greedy tokens
+    (every plain version), with the last step's logits to 1e-4."""
+    import chip_smoke
+    from flashinfer_tpu_torch.models.mixtral import (
+        MixtralConfig,
+        mixtral_init_weights,
+    )
+    from flashinfer_tpu_torch.ops.attention.kernels.paged import (
+        batch_paged_attention_run,
+    )
+    from flashinfer_tpu_torch.ops.gemm_grouped import grouped_gemm_padded
+    from flashinfer_tpu_torch.ops.norm import rmsnorm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = MixtralConfig.tiny()
+    params = mixtral_init_weights(torch.Generator().manual_seed(3), cfg,
+                                  "cpu")
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (6, 2, 9)]
+    runs = {}
+    for device in ("cpu", "cuda"):
+        before = [f.launches for f in (batch_paged_attention_run,
+                                       grouped_gemm_padded, rmsnorm)]
+        runs[device] = chip_smoke.mixtral_serve(
+            torch, np, cfg, {k: v.to(device) for k, v in params.items()},
+            prompts, 5, device=device, sampled=False, page_size=8, chunk=8)
+    launched = [f.launches - b for f, b in zip(
+        (batch_paged_attention_run, grouped_gemm_padded, rmsnorm), before)]
+    assert all(launched), launched
+    assert runs["cuda"]["outs"] == runs["cpu"]["outs"]
+    torch.testing.assert_close(runs["cuda"]["logits"].cpu(),
+                               runs["cpu"]["logits"], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["NHD", "HND"])
+@pytest.mark.parametrize("qo", [1, 16])
+def test_cascade_on_the_card_matches_cpu(dev, dtype, layout, qo):
+    """Two-level cascade attention (4 requests sharing a 64-token prefix,
+    suffixes of 20-70 tokens, causal at the last level), decode (1 query
+    token a request) and append (16): the card's levels (the paged kernel)
+    against the CPU's (its plain version), and against flat attention on
+    the card over the concatenated page tables."""
+    from flashinfer_tpu_torch.ops.attention.batch import BatchAttention
+    from flashinfer_tpu_torch.ops.attention.cascade import (
+        MultiLevelCascadeAttentionWrapper,
+    )
+
+    ps, hq, hkv, d, chunk, nreq, prefix = 16, 8, 2, 128, 32, 4, 64
+    rng = np.random.default_rng(qo)
+    suffix = rng.integers(max(20, qo), 71, nreq)
+    n_pre, n_suf = prefix // ps, -(-suffix // ps)
+    num_pages = n_pre + int(n_suf.sum())
+    perm = rng.permutation(num_pages)
+    suf_indptr = np.concatenate([[0], np.cumsum(n_suf)])
+    last = suffix - (n_suf - 1) * ps
+    qo_indptr = np.arange(nreq + 1) * qo
+    levels = [(np.array([0, nreq * qo]), np.array([0, n_pre]), perm[:n_pre],
+               np.array([ps])),
+              (qo_indptr, suf_indptr, perm[n_pre:], last)]
+    flat_idx = np.concatenate([np.concatenate([perm[:n_pre],
+                                               perm[n_pre + a:n_pre + b]])
+                               for a, b in zip(suf_indptr[:-1],
+                                               suf_indptr[1:])])
+    shape = ((num_pages, hkv, ps, d) if layout == "HND"
+             else (num_pages, ps, hkv, d))
+    gen = torch.Generator().manual_seed(qo)
+    q = torch.randn(nreq * qo, hq, d, generator=gen).to(dtype)
+    k, v = (torch.randn(shape, generator=gen).to(dtype) for _ in range(2))
+    out = {}
+    for device in ("cpu", "cuda"):
+        w = MultiLevelCascadeAttentionWrapper(2, kv_layout=layout,
+                                              device=device)
+        w.plan(*zip(*levels), hq, hkv, d, ps, causal=True,
+               kv_chunk_size=chunk)
+        out[device] = w.run(q.to(device), (k.to(device), v.to(device)),
+                            return_lse=True)
+    fw = BatchAttention(kv_layout=layout, device="cuda").plan(
+        qo_indptr, suf_indptr + n_pre * np.arange(nreq + 1), flat_idx, last,
+        hq, hkv, d, ps, causal=True, kv_chunk_size=chunk)
+    flat = fw.run(q.to(dev), (k.to(dev), v.to(dev)), return_lse=True)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for want in (out["cpu"], tuple(t.cpu() for t in flat)):
+        torch.testing.assert_close(out["cuda"][0].float().cpu(),
+                                   want[0].float(), atol=tol, rtol=tol)
+        torch.testing.assert_close(out["cuda"][1].cpu(), want[1], atol=1e-3,
+                                   rtol=1e-4)
