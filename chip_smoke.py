@@ -45,7 +45,21 @@ Run from the root of a checkout. Phases, in order:
    ``BatchAttention`` over the concatenated page tables and the f32
    oracle, each plan's paged-kernel launch against its plain version,
    cascade and flat timed (the cascade path: its launches are read here);
-7. tiny references: the f32 tiny Llama engine, and the f32 tiny DeepSeek
+7. paged surface: the paged-attention surface at full width, each case
+   through the wrapper a user calls (the surface path: its launches are
+   read here): an EAGLE-style tree verify step (8 requests, contexts of
+   512-4096 and a 64-token draft tree each, packed custom mask),
+   multi-item scoring (2 requests: a 1024-token prefix and 64 items of 16),
+   GPT-OSS-120B attention with sinks and a 128-token window (decode batch
+   8 over 4096 keys, a 2048-token prefill), MPT-7B's ALiBi (8 prompts of
+   1024, then their decode), ragged prefill (8 contiguous prompts of
+   512-4096), decode on pages of 1 and 4 tokens, BSR (8192 x 8192 in 64 x
+   64 blocks, ~10%) and variable block-sparse (4096 tokens, blocks of
+   32-256, ~20%), and ``kv_chunk_size=None`` on the engine's decode and
+   prefill batches: each against the f32 oracle and its kernel launch
+   against the plain version, timed beside its bound, the plain version,
+   SDPA and, where the wrapper gathers its keys, the gather;
+8. tiny references: the f32 tiny Llama engine, and the f32 tiny DeepSeek
    and Mixtral decode loops, on the card (every kernel on) emit the greedy
    tokens of the same model on the CPU (every plain version); the tiny
    engine with
@@ -53,7 +67,7 @@ Run from the root of a checkout. Phases, in order:
    card, on the CPU and without drafts, with drafts accepted; the tiny
    engine with e4m3 and int8 weights (decode, window 4, 3 drafts) emits
    the CPU's tokens;
-8. engine: ``LlamaServingEngine`` at Llama-3-8B widths and depth in bf16,
+9. engine: ``LlamaServingEngine`` at Llama-3-8B widths and depth in bf16,
    random weights from a seeded CUDA generator, 12 requests of 64-512
    prompt tokens and 32 new tokens on 8 slots, sampled and greedy, in three
    modes: the decode step eager (``cuda_graphs=False``), replayed from CUDA
@@ -73,7 +87,7 @@ Run from the root of a checkout. Phases, in order:
    grouped GEMM runs every matmul), graphed greedy and eager greedy
    (tokens identical), and int8 graphed greedy, each with its agreement
    with the bf16 greedy tokens;
-9. DeepSeek: ``deepseek_decode_step`` at DeepSeek-V2-Lite widths and full
+10. DeepSeek: ``deepseek_decode_step`` at DeepSeek-V2-Lite widths and full
    depth (27 layers) in bf16, random weights from a seeded CUDA generator,
    8 requests of 32-128 prompt tokens prefilled token by token and 32 new
    tokens each, one MLA plan per step: sampled (top-k 40, top-p 0.9: the
@@ -81,13 +95,13 @@ Run from the root of a checkout. Phases, in order:
    then a short greedy run on e4m3 caches and the e4m3 witness (one step
    on bf16, e4m3 and bf16-fed-e4m3-values caches: the last two must
    agree);
-10. Mixtral: ``mixtral_decode_step`` at Mixtral-8x7B's widths and 16 of its
+11. Mixtral: ``mixtral_decode_step`` at Mixtral-8x7B's widths and 16 of its
    32 layers (32 are ~93 GB in bf16) in bf16, random weights from a seeded
    CUDA generator, the DeepSeek phase's traffic (8 requests of 32-128
    prompt tokens fed token by token, 32 new tokens each, page 16), a fresh
    decode plan a step: sampled (the Mixtral path, whose launch counts are
    read from this run) and greedy;
-11. one ``{"kernels": [...]}`` line, then the result line.
+12. one ``{"kernels": [...]}`` line, then the result line.
 
 The script exits non-zero, and prints no result line, when the machine has
 no CUDA device, when it is not run from a checkout, or when any phase fails.
@@ -370,13 +384,19 @@ def _attention_bytes(plan, pages, kv_lens, tile_q, hkv, d, kv_itemsize):
     return kv + q + out + p.size * 4 + pages * 4
 
 
-def _attn_check(torch, got, want):
+def _attn_check(torch, got, want, mag=None):
     """err_o (largest |o| error), o_ratio (the largest error over its ATTN
     limit: <= 1 passes), ref_at_worst (|ref o| where that ratio is
-    reached), err_lse, same_inf (-inf lse at the same places) and ok."""
+    reached), err_lse, same_inf (-inf lse at the same places) and ok.
+    ``mag``, the f32 oracle's sum of P |v| at each element, widens the
+    absolute limit to 2^-8 of it where it exceeds 1: P's bf16 rounding errs
+    by up to 2^-9 of each term of o, and the terms need not cancel as o's
+    do (a causal row over a few keys)."""
     (o, lse), (ref_o, ref_lse) = got, want
     diff = (o.float() - ref_o.float()).abs()
-    ratios = diff / (ATTN_RTOL_O * ref_o.float().abs() + ATTN_ATOL_O)
+    atol = (ATTN_ATOL_O if mag is None
+            else ATTN_ATOL_O * mag.float().clamp(min=1.0))
+    ratios = diff / (ATTN_RTOL_O * ref_o.float().abs() + atol)
     worst = int(ratios.argmax())
     finite = torch.isfinite(ref_lse)
     same_inf = bool(torch.equal(finite, torch.isfinite(lse)))
@@ -414,9 +434,11 @@ def _pod_combined_case(np):
             np.concatenate([[POD_CHUNK], np.ones_like(kv_lens)]))
 
 
-def _paged_plain(torch, q, kc, vc, kv_idx, plan, items=256, **kw):
+def _paged_plain(torch, q, kc, vc, kv_idx, plan, items=256, work_mask=None,
+                 **kw):
     """``paged_attention_plain`` over the work list ``items`` items at a
-    time (POD's combined plan holds ~1000 items of 256 rows x 512 keys)."""
+    time (POD's combined plan holds ~1000 items of 256 rows x 512 keys),
+    with their rows of ``work_mask``."""
     from flashinfer_tpu_torch.ops.attention.kernels.paged import (
         paged_attention_plain,
     )
@@ -424,7 +446,9 @@ def _paged_plain(torch, q, kc, vc, kv_idx, plan, items=256, **kw):
     rows = plan.reshape(12, -1)
     outs = [paged_attention_plain(
                 q, kc, vc, kv_idx,
-                rows[:, a:a + items].contiguous().reshape(-1), **kw)
+                rows[:, a:a + items].contiguous().reshape(-1),
+                work_mask=None if work_mask is None
+                else work_mask[a:a + items], **kw)
             for a in range(0, rows.shape[1], items)]
     return tuple(torch.cat(x) for x in zip(*outs))
 
@@ -435,7 +459,10 @@ def check_paged_attention(torch, np, lens_decode, lens_prefill):
     and prefill plans (NHD and HND; bf16, e4m3 and int8 caches), the same
     decode at head_dim 256, and POD's combined plan (HND, Llama-3-8B widths:
     32 decodes in 256-row tiles beside a 2048-token chunk)."""
-    from flashinfer_tpu_torch.ops.attention.batch import pack_queries
+    from flashinfer_tpu_torch.ops.attention.batch import (
+        kernel_caches,
+        pack_queries,
+    )
     from flashinfer_tpu_torch.ops.attention.kernels.paged import (
         batch_paged_attention_run,
     )
@@ -2966,6 +2993,430 @@ def phase_cascade(torch, np, card):
     return dict(rows=rows, launches=launches)
 
 
+# ------------------------------------------------------------ paged surface
+
+SURFACE_PAGE = 16
+SURFACE_CHUNK = 512
+# GPT-OSS-120B attention (huggingface.co/openai/gpt-oss-120b config.json:
+# num_attention_heads 64, num_key_value_heads 8, head_dim 64,
+# sliding_window 128)
+GPT_OSS_HEADS = (64, 8, 64)
+GPT_OSS_WINDOW = 128
+# MPT-7B attention (huggingface.co/mosaicml/mpt-7b config.json: n_heads 32,
+# d_model 4096, ALiBi, no GQA)
+MPT_7B_HEADS = (32, 32, 128)
+# token counts of the cases: contexts and draft of the tree verify step;
+# prefix, items and item length of multi-item scoring; the sink decode's
+# keys and prefill's tokens; ALiBi's prompts; the ragged prompts' and the
+# small pages' key range; the BSR side and block; the variable blocks'
+# side and extents
+SURFACE_SIZES = dict(tree=(512, 4096, 64), multi_item=(1024, 64, 16),
+                     sink=(4096, 2048), alibi=1024, ragged=(512, 4096),
+                     small_pages=(1024, 4096), bsr=(8192, 64),
+                     variable=(4096, 32, 256))
+SURFACE_CASES = ("tree_verify", "multi_item", "sink_decode", "sink_prefill",
+                 "alibi_prefill", "alibi_decode", "ragged", "page1_decode",
+                 "page4_decode", "bsr", "variable_bsr", "chunk_none_decode",
+                 "chunk_none_prefill")
+
+
+def _paged_table(np, rng, lens, ps):
+    """(kv_indptr, kv_indices: a seeded permutation of the pool, last page
+    lengths, pool pages) of requests of ``lens`` tokens on pages of ps."""
+    lens = np.asarray(lens, np.int64)
+    npages = -(-lens // ps)
+    indptr = np.concatenate([[0], np.cumsum(npages)])
+    pool = int(indptr[-1])
+    return indptr, rng.permutation(pool), lens - (npages - 1) * ps, pool
+
+
+def _block_sizes(np, rng, total, lo, hi):
+    """Block extents in [lo, hi] summing to ``total`` (the last one cut)."""
+    sizes = []
+    while sum(sizes) < total:
+        sizes.append(int(rng.integers(lo, hi + 1)))
+    sizes[-1] -= sum(sizes) - total
+    return np.asarray(sizes, np.int64)
+
+
+def _surface_case(torch, np, name, lens_decode, lens_prefill):
+    """One case of the paged-surface phase: a dict of its heads, a wrapper
+    factory ``make(backend)``, the plan's (args, kw), q, the run inputs of
+    cache copy i (``inputs(i)``: what ``run`` takes after q) and the kv
+    cache ``BatchAttention.run`` sees for them (``kv_cache(i)``)."""
+    from flashinfer_tpu_torch.ops.attention import batch, sparse
+    from flashinfer_tpu_torch.ops.attention.single import (
+        default_alibi_slopes,
+    )
+    from flashinfer_tpu_torch.ops.attention.variants import (
+        make_default_variant,
+    )
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SURFACE_CASES.index(name))
+    rng = np.random.default_rng(31 + SURFACE_CASES.index(name))
+    hq, hkv, d = LLAMA_HEADS
+    ps, L = SURFACE_PAGE, LAYERS_ROTATED
+
+    def rand(*shape):
+        return torch.randn(*shape, device=dev, generator=gen,
+                           dtype=torch.bfloat16)
+
+    def paged(pool, ps_=ps, heads=None):
+        hk, dd = heads or (hkv, d)
+        kvs = [(rand(pool, ps_, hk, dd), rand(pool, ps_, hk, dd))
+               for _ in range(L)]
+        return dict(inputs=lambda i: (kvs[i],), kv_cache=lambda i: kvs[i])
+
+    def wrapper(cls, **kw):
+        return lambda b: cls(kv_layout="NHD", backend=b, device=DEVICE, **kw)
+
+    kw = dict(kv_chunk_size=SURFACE_CHUNK)
+    c = dict(heads=(hq, hkv, d))
+    size = SURFACE_SIZES
+    if name == "tree_verify":  # 8 requests: context + a 64-token draft tree
+        lo, hi, draft = size["tree"]
+        ctx = rng.integers(lo, hi + 1, 8)
+        masks = []
+        for n in ctx:
+            anc = np.eye(draft, dtype=bool)  # node i: itself and ancestors
+            for i in range(1, draft):
+                anc[i] |= anc[rng.integers(0, i)]
+            masks.append(np.concatenate([np.ones((draft, n), bool), anc], 1))
+        indptr, idx, last, pool = _paged_table(np, rng, ctx + draft, ps)
+        bits = np.concatenate([m.ravel() for m in masks])
+        c.update(make=wrapper(batch.BatchPrefillWithPagedKVCacheWrapper),
+                 plan=((np.arange(9) * draft, indptr, idx, last, hq, hkv, d,
+                        ps),
+                       dict(kw, packed_custom_mask=np.packbits(bits),
+                            mask_indptr=np.concatenate(
+                                [[0], np.cumsum([m.size for m in masks])]))),
+                 q=rand(8 * draft, hq, d), **paged(pool))
+    elif name == "multi_item":  # 1024-token prefix + 64 items of 16
+        prefix, items, item_len = size["multi_item"]
+        n = prefix + items * item_len
+        indptr, idx, last, pool = _paged_table(np, rng, [n, n], ps)
+        tpos = np.tile(np.arange(item_len), 2 * items)  # delimiter first
+        c.update(make=wrapper(batch.BatchPrefillWithPagedKVCacheWrapper),
+                 plan=((np.asarray([0, n, 2 * n]), indptr, idx, last, hq,
+                        hkv, d, ps),
+                       dict(kw, causal=True,
+                            prefix_len_ptr=np.asarray([prefix, prefix]),
+                            token_pos_in_items_ptr=tpos,
+                            token_pos_in_items_len=items * item_len)),
+                 q=rand(2 * n, hq, d), **paged(pool))
+    elif name.startswith("sink"):  # GPT-OSS: sinks, a 128-token window
+        hq, hkv, d = GPT_OSS_HEADS
+        sink = torch.randn(hq, device=dev, generator=gen)
+        keys, prompt = size["sink"]
+        lens, qo = (([keys] * 8, np.arange(9)) if name == "sink_decode"
+                    else ([prompt], np.asarray([0, prompt])))
+        indptr, idx, last, pool = _paged_table(np, rng, lens, ps)
+        c.update(heads=(hq, hkv, d), sink=sink,
+                 make=lambda b: batch.BatchAttentionWithAttentionSinkWrapper(
+                     sink, kv_layout="NHD", backend=b, device=DEVICE),
+                 plan=((qo, indptr, idx, last, hq, hkv, d, ps),
+                       dict(kw, causal=name == "sink_prefill",
+                            window_left=GPT_OSS_WINDOW - 1)),
+                 q=rand(int(qo[-1]), hq, d), **paged(pool, heads=(hkv, d)))
+    elif name.startswith("alibi"):  # MPT-7B: ALiBi, no GQA
+        hq, hkv, d = MPT_7B_HEADS
+        variant = make_default_variant(use_alibi=True)
+        slopes = default_alibi_slopes(hq, DEVICE)
+        prefill = name == "alibi_prefill"
+        n = size["alibi"]
+        lens = [n] * 8 if prefill else [n + 1] * 8
+        indptr, idx, last, pool = _paged_table(np, rng, lens, ps)
+        cls = (batch.BatchPrefillWithPagedKVCacheWrapper if prefill
+               else batch.BatchDecodeWithPagedKVCacheWrapper)
+        args = (indptr, idx, last, hq, hkv, d, ps)
+        if prefill:
+            args = (np.arange(9) * n,) + args
+        c.update(heads=(hq, hkv, d), alibi=slopes,
+                 make=wrapper(cls, variant=variant),
+                 plan=(args, dict(kw, causal=prefill,
+                                  variant_params={"alibi_slopes": slopes})),
+                 q=rand(8 * n if prefill else 8, hq, d),
+                 **paged(pool, heads=(hkv, d)))
+    elif name == "ragged":  # contiguous K/V, 8 prompts, causal
+        lo, hi = size["ragged"]
+        ind = np.concatenate([[0], np.cumsum(rng.integers(lo, hi + 1, 8))])
+        kvs = [(rand(int(ind[-1]), hkv, d), rand(int(ind[-1]), hkv, d))
+               for _ in range(L)]
+        c.update(make=lambda b: batch.BatchPrefillWithRaggedKVCacheWrapper(
+                     backend=b, device=DEVICE),
+                 plan=((ind, ind, hq, hkv, d), dict(kw, causal=True)),
+                 q=rand(int(ind[-1]), hq, d), inputs=lambda i: kvs[i],
+                 kv_cache=lambda i: tuple(t[:, None] for t in kvs[i]))
+    elif name in ("page1_decode", "page4_decode"):  # token slots permuted
+        ps1 = 1 if name == "page1_decode" else 4
+        lo, hi = size["small_pages"]
+        indptr, idx, last, pool = _paged_table(
+            np, rng, rng.integers(lo, hi + 1, 8), ps1)
+        c.update(make=wrapper(batch.BatchDecodeWithPagedKVCacheWrapper),
+                 plan=((indptr, idx, last, hq, hkv, d, ps1), kw),
+                 q=rand(8, hq, d), **paged(pool, ps1))
+    elif name in ("bsr", "variable_bsr"):
+        if name == "bsr":  # R = C blocks, ~10% of them
+            n, R = size["bsr"]
+            C = R
+            rows = cols = np.full(n // R, R)
+        else:  # blocks of varying extents, ~20%
+            n, lo, hi = size["variable"]
+            rows = _block_sizes(np, rng, n, lo, hi)
+            cols = _block_sizes(np, rng, n, lo, hi)
+        m = rng.random((len(rows), len(cols))) < (0.1 if name == "bsr"
+                                                  else 0.2)
+        m[np.arange(len(rows)), rng.integers(0, len(cols), len(rows))] = True
+        kvs = [(rand(n, hkv, d), rand(n, hkv, d)) for _ in range(L)]
+        if name == "bsr":
+            def make(b):
+                return sparse.BlockSparseAttentionWrapper(backend=b,
+                                                          device=DEVICE)
+            plan = ((np.concatenate([[0], np.cumsum(m.sum(1))]),
+                     np.nonzero(m)[1], n, n, R, C, hq, hkv, d), kw)
+            def view(i):
+                return tuple(t.reshape(n // C, C, hkv, d) for t in kvs[i])
+        else:
+            def make(b):
+                return sparse.VariableBlockSparseAttentionWrapper(
+                    backend=b, device=DEVICE)
+            plan = ((m, rows, cols, hq, hkv, d), kw)
+            def view(i):
+                return tuple(t[:, None] for t in kvs[i])
+        c.update(make=make, plan=plan, q=rand(n, hq, d),
+                 inputs=lambda i: kvs[i], kv_cache=view)
+    elif name in ("chunk_none_decode", "chunk_none_prefill"):
+        decode = name == "chunk_none_decode"
+        lens = lens_decode if decode else lens_prefill
+        indptr, idx, last, pool = _paged_table(np, rng, lens, ps)
+        cls = (batch.BatchDecodeWithPagedKVCacheWrapper if decode
+               else batch.BatchPrefillWithPagedKVCacheWrapper)
+        args = (indptr, idx, last, hq, hkv, d, ps)
+        if not decode:
+            args = (np.concatenate([[0], np.cumsum(lens)]),) + args
+        c.update(make=wrapper(cls), plan=(args, dict(causal=not decode)),
+                 q=rand(len(lens) if decode else int(sum(lens)), hq, d),
+                 **paged(pool))
+    return c
+
+
+def _surface_work(np, w):
+    """(query-head, key) pairs the plan's mask keeps, and the distinct key
+    tokens they read (a token: its page and slot in the caller's table),
+    from the wrapper's host copy of its requests."""
+    h, m = w._state.host, w.device_plan.meta
+    qo_ind, kv_ind, kv_idx = h["qo_indptr"], h["kv_indptr"], h["kv_indices"]
+    pairs, tokens = 0, []
+    for r in range(len(qo_ind) - 1):
+        qo, kv = int(qo_ind[r + 1] - qo_ind[r]), int(h["kv_lens"][r])
+        keep = _keep_matrix(np, m, h["req_masks"], r, qo, kv)
+        pairs += int(keep.sum())
+        cols = np.nonzero(keep.any(0))[0]
+        ps = h["page_size"]
+        tokens.append(kv_idx[kv_ind[r] + cols // ps] * ps + cols % ps)
+    keys = len(np.unique(np.concatenate(tokens))) if tokens else 0
+    return pairs * m.num_qo_heads, keys
+
+
+def _keep_matrix(np, meta, masks, r, qo, kv):
+    """Request r's [qo, kv] keep mask: causal, window and its own mask."""
+    q_pos = (kv - qo + np.arange(qo))[:, None]
+    k_pos = np.arange(kv)[None, :]
+    keep = np.ones((qo, kv), bool)
+    if meta.causal:
+        keep &= k_pos <= q_pos
+    if meta.window_left >= 0:
+        keep &= k_pos > q_pos - meta.window_left - 1
+    if masks is not None:
+        keep &= masks[r]
+    return keep
+
+
+def _mask_input_bytes(np, plan_kw):
+    """Bytes of the mask the caller hands the function: the packed custom
+    mask's bits (a dense one counted as bits too) and the int32 index
+    arrays of either form. The work mask the plan legalises them into is
+    reported beside it, not counted in the bound."""
+    n = 0
+    for key, v in plan_kw.items():
+        if v is None:
+            continue
+        if key == "packed_custom_mask":
+            n += np.asarray(v).size
+        elif key == "custom_mask":
+            n += -(-np.asarray(v).size // 8)
+        elif key in ("mask_indptr", "prefix_len_ptr",
+                     "token_pos_in_items_ptr", "max_item_len_ptr"):
+            n += 4 * np.asarray(v).size
+    return n
+
+
+def _surface_library(torch, np, w, c, q, kv_cache):
+    """One ``scaled_dot_product_attention`` call a request over its keys
+    (gathered beforehand, not timed) with its boolean keep mask (ALiBi: a
+    bf16 bias with -inf where masked); None where no such call exists (the
+    sinks)."""
+    import torch.nn.functional as F
+
+    if "sink" in c:
+        return None
+    h, m = w._state.host, w.device_plan.meta
+    keys = w._request_keys(kv_cache)
+    calls = []
+    for r in range(len(h["qo_indptr"]) - 1):
+        a, b = int(h["qo_indptr"][r]), int(h["qo_indptr"][r + 1])
+        kr, vr = (t.transpose(0, 1)[None] for t in keys(r))
+        keep = torch.from_numpy(_keep_matrix(
+            np, m, h["req_masks"], r, b - a, kr.shape[2])).to(q.device)
+        mask = keep
+        if "alibi" in c:
+            rel = (torch.arange(kr.shape[2], device=q.device)[None, :]
+                   - (kr.shape[2] - (b - a)
+                      + torch.arange(b - a, device=q.device))[:, None])
+            bias = c["alibi"][:, None, None] * rel[None].float()
+            mask = torch.where(keep, bias, float("-inf")).bfloat16()
+        calls.append((q[a:b].transpose(0, 1)[None], kr, vr, mask))
+
+    def run():
+        return [F.scaled_dot_product_attention(
+                    qr, kr, vr, attn_mask=mk, scale=m.sm_scale,
+                    enable_gqa=True) for qr, kr, vr, mk in calls]
+    return run
+
+
+def phase_paged_surface(torch, np, card, lens_decode, lens_prefill):
+    """The paged-attention surface at full width, each case through the
+    wrapper a user calls (the surface path: its paged launches are read
+    from each case's first run, counts zeroed just before it): a tree
+    verify step under a packed custom mask, multi-item scoring, GPT-OSS
+    sinks with a 128-token window (decode and prefill), MPT-7B ALiBi
+    (prefill and decode), ragged prefill, pages of 1 and 4, BSR and
+    variable block-sparse, and ``kv_chunk_size=None`` on the engine's
+    decode and prefill batches. Each case: the wrapper against the f32
+    oracle (its reference backend on f32 copies of q and the caches), its
+    kernel launch against ``paged_attention_plain`` on the same inputs (the
+    ATTN limits), the launch timed in a CUDA graph over caches rotated
+    through ``LAYERS_ROTATED`` copies beside its bound (each key the mask
+    keeps read once, the caller's mask, q, o and lse; the kept pairs'
+    operations at the bf16 rate), the wrapper's call, the plain version,
+    SDPA a call a request and, where the wrapper gathers its keys (small
+    pages, ragged KV, variable blocks), the gather alone."""
+    from flashinfer_tpu_torch.ops.attention.batch import (
+        kernel_caches,
+        pack_queries,
+    )
+    from flashinfer_tpu_torch.ops.attention.kernels.paged import (
+        batch_paged_attention_run,
+    )
+
+    L = LAYERS_ROTATED
+    launches = {"paged_attention": 0}
+    rows = []
+    for name in SURFACE_CASES:
+        c = _surface_case(torch, np, name, lens_decode, lens_prefill)
+        hq, hkv, d = c["heads"]
+        q = c["q"]
+        w = c["make"]("auto").plan(*c["plan"][0], **c["plan"][1])
+        counters = _reset_counts()
+        got = w.run(q, *c["inputs"](0), return_lse=True)
+        n_launch = counters["paged_attention"].launches
+        launches["paged_attention"] += n_launch
+        ref = c["make"]("reference").plan(*c["plan"][0], **c["plan"][1])
+
+        def f32(abs_v):  # copy 0's run inputs in f32 (|v| with abs_v)
+            x = c["inputs"](0)
+            k, v = x[0] if len(x) == 1 else x
+            kv = (k.float(), v.float().abs() if abs_v else v.float())
+            return (kv,) if len(x) == 1 else kv
+
+        mag = ref.run(q.float(), *f32(True))
+        oracle = _attn_check(torch, got, ref.run(q.float(), *f32(False),
+                                                 return_lse=True), mag)
+        del ref, mag
+        dp, st = w.device_plan, w._state
+        m = dp.meta
+        views = [kernel_caches(dp, *c["kv_cache"](i), w._layout)[:3]
+                 for i in range(L)]
+        qp = pack_queries(dp, q)
+        tabs = (dp.segment("kv_indices"), dp.segment("plan"))
+        kw = dict(tile_q=m.tile_q, group=m.gqa_group, causal=m.causal,
+                  sm_scale=m.sm_scale, window_left=m.window_left,
+                  row_valid=dp.segment("row_valid"), work_mask=dp.work_mask,
+                  variant=st.variant, variant_params=st.variant_params)
+        turn = [0]
+
+        def copy(rotate=True):  # the cache copy of this call
+            turn[0] += rotate
+            return turn[0] % L
+
+        def launch(fn, rotate=True):
+            kc, vc, layout = views[copy(rotate)]
+            return fn(qp, kc, vc, *tabs, kv_layout=layout, **kw)
+
+        items = max(1, int(2 ** 31 // (m.num_kv_heads * m.tile_q
+                                       * m.kv_chunk_size * 4)))
+
+        def plain(*args, **kw_):
+            return _paged_plain(torch, *args, items=items, **kw_)
+
+        chk = _attn_check(torch, launch(batch_paged_attention_run, False),
+                          launch(plain, False))
+        torch.cuda.synchronize()
+        ms = cuda_ms(torch, lambda: launch(batch_paged_attention_run), 10,
+                     graph=True)
+        call_ms = cuda_ms(torch, lambda: w.run(q, *c["inputs"](copy())), 5)
+        repack_ms = None
+        if name in ("ragged", "page1_decode", "page4_decode",
+                    "variable_bsr"):
+            repack_ms = cuda_ms(torch, lambda: kernel_caches(
+                dp, *c["kv_cache"](copy()), w._layout), 10, graph=True)
+        plain_ms = cuda_ms(torch, lambda: launch(plain), 1, warmup=1)
+        lib = _surface_library(torch, np, w, c, q, c["kv_cache"](0))
+        library_ms = cuda_ms(torch, lib, 3, warmup=1) if lib else None
+        del lib
+        pairs, keys = _surface_work(np, w)
+        mask_bytes = _mask_input_bytes(np, c["plan"][1])
+        work_mask_bytes = (0 if dp.work_mask is None
+                           else dp.work_mask.numel())
+        nbytes = (keys * hkv * 2 * d * 2 + m.nnz * hq * (2 * d * 2 + 4)
+                  + mask_bytes)
+        b_ms, b_by = bound_ms(nbytes, 4 * d * pairs)
+        ok = chk["ok"] and oracle["ok"] and n_launch == 1
+        row = dict(case=name, heads=[hq, hkv, d], nnz=m.nnz,
+                   q_shape=list(qp.shape), T=m.num_work_items,
+                   tile_q=m.tile_q, chunk=m.kv_chunk_size,
+                   splits=m.max_splits, page_size=m.page_size,
+                   mask_bytes=mask_bytes, work_mask_bytes=work_mask_bytes,
+                   kept_pairs=pairs, keys=keys,
+                   launches=n_launch, vs_plain=chk, vs_oracle=oracle, ms=ms,
+                   call_ms=call_ms, repack_ms=repack_ms, plain_ms=plain_ms,
+                   library_ms=library_ms, bound_bytes=nbytes,
+                   bound_ops=4 * d * pairs, bound_ms=b_ms, bound_by=b_by,
+                   err_o=chk["err_o"], ok=ok)
+        rows.append(row)
+        log(f"surface {name:18s} heads={hq}/{hkv}/{d} nnz={m.nnz} "
+            f"T={m.num_work_items} tile_q={m.tile_q} chunk="
+            f"{m.kv_chunk_size} splits={m.max_splits} page={m.page_size} "
+            f"mask={mask_bytes} B work_mask={work_mask_bytes} B: vs plain err_o={chk['err_o']:.2e} "
+            f"(limit ratio {chk['o_ratio']:.3f}) err_lse="
+            f"{chk['err_lse']:.2e}; vs f32 oracle err_o="
+            f"{oracle['err_o']:.2e} (limit ratio {oracle['o_ratio']:.3f}) "
+            f"err_lse={oracle['err_lse']:.2e}; ms={ms:.4f} call_ms="
+            f"{call_ms:.4f} repack_ms="
+            f"{'none' if repack_ms is None else f'{repack_ms:.4f}'} "
+            f"plain_ms={plain_ms:.3f} library_ms="
+            f"{'none' if library_ms is None else f'{library_ms:.4f}'} "
+            f"bound_ms={b_ms:.5f} ({b_by}) launches={n_launch} "
+            f"{'ok' if ok else 'MISMATCH'} [{card}]")
+        del c, w, views, qp, got, kw
+        torch.cuda.empty_cache()
+    bad = [r["case"] for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"paged surface cases failed: {bad}")
+    return dict(rows=rows, launches=launches)
+
+
 # --------------------------------------------------------------------- main
 
 def main() -> int:
@@ -3015,6 +3466,9 @@ def main() -> int:
     single = ph.run("single request", phase_single_request, torch, np, card)
     pod = ph.run("POD", phase_pod, torch, np, card)
     casc = ph.run("cascade", phase_cascade, torch, np, card)
+    surf = ph.run("paged surface", phase_paged_surface, torch, np, card,
+                  lens_decode, lens_prefill)
+    torch.cuda.empty_cache()
     ph.run("tiny reference", phase_tiny_reference, torch, np)
     ph.run("tiny DeepSeek reference", phase_tiny_deepseek, torch, np)
     ph.run("tiny Mixtral reference", phase_tiny_mixtral, torch, np)
@@ -3036,7 +3490,8 @@ def main() -> int:
                "mixtral": (mix or {}).get("sampled", {}).get("launches", {}),
                "single": (single or {}).get("launches", {}),
                "pod": (pod or {}).get("launches", {}),
-               "cascade": (casc or {}).get("launches", {})}
+               "cascade": (casc or {}).get("launches", {}),
+               "surface": (surf or {}).get("launches", {})}
 
     def launches(name):
         return sum(counts.get(name, 0) for counts in by_path.values())
@@ -3130,7 +3585,8 @@ def main() -> int:
                            rmsnorm=norm, mla=mla, grouped_gemm=gg,
                            w8_matmul=w8,
                            flash=flash, single=single, pod=pod,
-                           cascade=casc, engine=eng, deepseek=dsk,
+                           cascade=casc, surface=surf, engine=eng,
+                           deepseek=dsk,
                            mixtral=mix, kernels=kernels,
                            launches_by_path=by_path, failed=ph.failed), f,
                       indent=1)

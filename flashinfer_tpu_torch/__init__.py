@@ -5,10 +5,12 @@ Entry points run on the card by default; pass ``device="cpu"`` to run every
 kernel's plain PyTorch version instead. The CUDA kernels build with nvcc at
 first use (``flashinfer_tpu_torch.jit``).
 
-``__all__`` holds the names of the JAX package's ``__all__`` that the port
-computes. The Llama serving engine, the model configurations and the op
+``__all__`` holds the names of the JAX package's ``__all__``, all of which
+the port computes. The Llama serving engine, the model configurations and the op
 namespaces are attributes here too, as in the JAX package, outside
 ``__all__``."""
+
+__version__ = "0.1.0"  # the JAX package's version, which the port tracks
 
 from flashinfer_tpu_torch.models.llama import (  # noqa: F401
     LlamaConfig,
@@ -22,8 +24,10 @@ from flashinfer_tpu_torch.ops.activation import (
 )
 from flashinfer_tpu_torch.ops.attention.batch import (
     BatchAttention,
+    BatchAttentionWithAttentionSinkWrapper,
     BatchDecodeWithPagedKVCacheWrapper,
     BatchPrefillWithPagedKVCacheWrapper,
+    BatchPrefillWithRaggedKVCacheWrapper,
 )
 from flashinfer_tpu_torch.ops.attention.cascade import (
     MultiLevelCascadeAttentionWrapper,
@@ -35,6 +39,10 @@ from flashinfer_tpu_torch.ops.attention.pod import PODWithPagedKVCacheWrapper
 from flashinfer_tpu_torch.ops.attention.single import (
     single_decode_with_kv_cache,
     single_prefill_with_kv_cache,
+)
+from flashinfer_tpu_torch.ops.attention.sparse import (
+    BlockSparseAttentionWrapper,
+    VariableBlockSparseAttentionWrapper,
 )
 from flashinfer_tpu_torch.ops.attention.state import (
     merge_state,
@@ -99,14 +107,19 @@ from flashinfer_tpu_torch.serving.engine import (  # noqa: F401
 from flashinfer_tpu_torch.utils import MaskMode, PosEncodingMode, TensorLayout
 
 __all__ = [
+    "__version__",
     "MaskMode",
     "PosEncodingMode",
     "TensorLayout",
     # attention
     "BatchAttention",
+    "BatchAttentionWithAttentionSinkWrapper",
     "BatchDecodeWithPagedKVCacheWrapper",
     "BatchPrefillWithPagedKVCacheWrapper",
+    "BatchPrefillWithRaggedKVCacheWrapper",
     "BatchMLAPagedAttentionWrapper",
+    "BlockSparseAttentionWrapper",
+    "VariableBlockSparseAttentionWrapper",
     "MultiLevelCascadeAttentionWrapper",
     "PODWithPagedKVCacheWrapper",
     "single_prefill_with_kv_cache",

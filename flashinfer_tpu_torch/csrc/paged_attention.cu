@@ -51,6 +51,14 @@
 // f32 numerics (f32 q with an f32 or int8 cache) run on the CUDA cores: a
 // CTA per (item, kv head, 8 or 32 rows), 64-key tiles converted to f32 in
 // shared memory, one or two output columns a thread.
+//
+// Masks and ALiBi, in all three kernels: a plan's work mask (uint8 [T,
+// tile_q, chunk], the custom or multi-item mask legalised on the host) is
+// read a byte a (row, key) where a tile is tested key by key, and a masked
+// plan tests every tile so. ALiBi (slopes f32 [hq]) and the soft cap take
+// the elementwise path after S: scale, + slope * (kv_pos - q_pos), cap, then
+// log2(e), in the plain version's order and roundings; the default path
+// (neither) keeps its scale folded into the exponent.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -85,10 +93,13 @@ struct Params {
   const int* plan;        // [12 * T]
   const int* kv_indices;  // page table
   const int* row_valid;   // [q_rows] or null (every row real)
+  const unsigned char* work_mask;  // [T, tile_q, mask_chunk] or null
+  const float* alibi;     // [kvh * group] ALiBi slopes, or null
   void* o;                // [T, kvh, tile_q, dv] in q's dtype
   float* lse;             // [T, kvh, tile_q]
   int T, kvh, q_rows, tile_q, d, dv, page_size, layout_hnd;
   int kv_indices_offset, group, causal, window_left, q_f32, kv_i8;
+  int mask_chunk;  // keys a work-mask row holds (the plan's kv_chunk_size)
   int box_rows, stages, byte_stages;  // tensor-core kernel
   float scale_log2;  // sm_scale * k_scale * log2(e)
   float sm_scale;    // sm_scale * k_scale (soft cap path)
@@ -97,12 +108,13 @@ struct Params {
 
 
 struct Item {
-  int qo_tile, qo_start, kv_start, span, page0, q_pos_base;
+  int w, qo_tile, qo_start, kv_start, span, page0, q_pos_base;
 };
 
 __device__ __forceinline__ Item load_item(const Params& p, int w) {
   const int T = p.T;
   Item it;
+  it.w = w;
   it.qo_tile = p.plan[kQoTile * T + w];
   it.qo_start = p.plan[kQoStart * T + w];
   it.kv_start = p.plan[kKvStart * T + w];
@@ -135,11 +147,38 @@ __device__ __forceinline__ void key_range(const Params& p, const Item& it,
   if (hi < lo) hi = lo;
 }
 
-__device__ __forceinline__ bool keep(const Params& p, const Item& it, int tok,
-                                     int lk) {
+// Whether row r (its token at tok) sees the item's local key lk.
+__device__ __forceinline__ bool keep(const Params& p, const Item& it, int r,
+                                     int tok, int lk) {
   const int pos = it.kv_start + lk;
   return lk < it.span && !(p.causal && pos > tok) &&
-         !(p.window_left >= 0 && pos < tok - p.window_left);
+         !(p.window_left >= 0 && pos < tok - p.window_left) &&
+         (p.work_mask == nullptr ||
+          (r < p.tile_q &&
+           p.work_mask[(size_t(it.w) * p.tile_q + r) * p.mask_chunk + lk]));
+}
+
+// ALiBi's slope for row r of kv head h: its query head is h * group + its
+// packed row's index in the request modulo the group.
+__device__ __forceinline__ float alibi_slope(const Params& p, const Item& it,
+                                             int h, int r) {
+  return p.alibi == nullptr
+             ? 0.f
+             : p.alibi[h * p.group + (it.qo_tile * p.tile_q + r) % p.group];
+}
+
+// The elementwise path's base-2 logit of raw score s (row at tok, key at
+// pos): the scale, ALiBi's bias, the soft cap, then log2(e). Explicit
+// roundings keep the compiler from fusing the multiply and the add, which
+// the plain version rounds apart.
+__device__ __forceinline__ float general_logit(const Params& p, float s,
+                                               float slope, int tok, int pos) {
+  if (p.alibi == nullptr && !(p.soft_cap > 0.f)) return s * p.scale_log2;
+  float x = __fmul_rn(s, p.sm_scale);
+  if (p.alibi != nullptr)
+    x = __fadd_rn(x, __fmul_rn(slope, float(pos - tok)));
+  if (p.soft_cap > 0.f) return p.soft_cap * tanhf(x / p.soft_cap) * kLog2e;
+  return __fmul_rn(x, kLog2e);
 }
 
 // The merge identity (o = 0, lse = -inf) for rows [r0, r1) of item w, head h.
@@ -513,9 +552,13 @@ __global__ void __launch_bounds__(384, 1)
   const int tok_lo = q_tok(p, it, wrow0), tok_hi = q_tok(p, it, last);
   const int ra = wrow0 + warp * 16 + g, rb = ra + 8;
   const int tok_a = q_tok(p, it, ra), tok_b = q_tok(p, it, rb);
+  const float slope_a = alibi_slope(p, it, h, ra);
+  const float slope_b = alibi_slope(p, it, h, rb);
   // the default path folds its scale into the exponent after the row max,
-  // which needs it positive; the soft cap and any other scale go elementwise
-  const bool general = p.soft_cap > 0.f || !(p.scale_log2 > 0.f);
+  // which needs it positive; ALiBi, the soft cap and any other scale go
+  // elementwise
+  const bool general =
+      p.soft_cap > 0.f || p.alibi != nullptr || !(p.scale_log2 > 0.f);
   const int tail = it.span % TK ? it.span / TK : -1;  // the tile ending inside
 
   float o[kO];
@@ -545,23 +588,21 @@ __global__ void __launch_bounds__(384, 1)
     // s[4j + c]: row g (c < 2) or g + 8, local key t*TK + 8j + 2tq + (c & 1)
     const int key0 = t * TK + 2 * tq;
     if (general) {
-      if (p.soft_cap > 0.f) {
 #pragma unroll
-        for (int k = 0; k < kS; ++k)
-          s[k] = p.soft_cap * tanhf(s[k] * p.sm_scale / p.soft_cap) * kLog2e;
-      } else {
-#pragma unroll
-        for (int k = 0; k < kS; ++k) s[k] *= p.scale_log2;
-      }
+      for (int k = 0; k < kS; ++k)
+        s[k] = general_logit(p, s[k], (k & 2) ? slope_b : slope_a,
+                             (k & 2) ? tok_b : tok_a,
+                             it.kv_start + key0 + (k >> 2) * 8 + (k & 1));
     }
     const bool full =
-        (t + 1) * TK <= it.span &&
+        p.work_mask == nullptr && (t + 1) * TK <= it.span &&
         !(p.causal && it.kv_start + (t + 1) * TK - 1 > tok_lo) &&
         !(p.window_left >= 0 && it.kv_start + t * TK < tok_hi - p.window_left);
     if (!full) {  // an edge: test each (row, key)
 #pragma unroll
       for (int k = 0; k < kS; ++k)
-        if (!keep(p, it, (k & 2) ? tok_b : tok_a, key0 + (k >> 2) * 8 + (k & 1)))
+        if (!keep(p, it, (k & 2) ? rb : ra, (k & 2) ? tok_b : tok_a,
+                  key0 + (k >> 2) * 8 + (k & 1)))
           s[k] = -CUDART_INF_F;
     }
     const float c = general ? 1.f : p.scale_log2;  // raw logit -> base 2
@@ -772,11 +813,15 @@ __global__ void __launch_bounds__(384, 1)
   asm volatile("bar.sync 1, 128;\n" ::: "memory");
 
   int tok[kR];
+  float slope[kR];
 #pragma unroll
-  for (int jr = 0; jr < kR; ++jr)
+  for (int jr = 0; jr < kR; ++jr) {
     tok[jr] = q_tok(p, it, 8 * (jr >> 1) + 2 * tq + (jr & 1));
+    slope[jr] = alibi_slope(p, it, h, 8 * (jr >> 1) + 2 * tq + (jr & 1));
+  }
   const int tok_lo = q_tok(p, it, 0), tok_hi = q_tok(p, it, last);
-  const bool general = p.soft_cap > 0.f || !(p.scale_log2 > 0.f);
+  const bool general =
+      p.soft_cap > 0.f || p.alibi != nullptr || !(p.scale_log2 > 0.f);
   const float c = general ? 1.f : p.scale_log2;  // raw logit -> base 2
   const int tail = it.span % TK ? it.span / TK : -1;
   float m[kR], l[kR], o[kVB][kN];
@@ -815,18 +860,22 @@ __global__ void __launch_bounds__(384, 1)
     for (int mb = 0; mb < kMB; ++mb) hold<kN>(s[mb]);
     if (lane == 0) mbar_arrive(&ring.empty_k[st]);
 
+    // s[mb][k]: key t*TK + mb*64 + 16 warp + g (+ 8 for bit 1 of k), tile
+    // row 8 (k >> 2) + 2tq + (k & 1), whose token and slope are jr's
     if (general) {
 #pragma unroll
       for (int mb = 0; mb < kMB; ++mb)
 #pragma unroll
-        for (int k = 0; k < kN; ++k)
-          s[mb][k] = p.soft_cap > 0.f
-                         ? p.soft_cap * tanhf(s[mb][k] * p.sm_scale / p.soft_cap) *
-                               kLog2e
-                         : s[mb][k] * p.scale_log2;
+        for (int k = 0; k < kN; ++k) {
+          const int jr = 2 * (k >> 2) + (k & 1);
+          s[mb][k] = general_logit(
+              p, s[mb][k], slope[jr], tok[jr],
+              it.kv_start + t * TK + mb * 64 + warp * 16 + g +
+                  ((k >> 1) & 1) * 8);
+        }
     }
     const bool full =
-        (t + 1) * TK <= it.span &&
+        p.work_mask == nullptr && (t + 1) * TK <= it.span &&
         !(p.causal && it.kv_start + (t + 1) * TK - 1 > tok_lo) &&
         !(p.window_left >= 0 && it.kv_start + t * TK < tok_hi - p.window_left);
     if (!full) {
@@ -835,7 +884,8 @@ __global__ void __launch_bounds__(384, 1)
 #pragma unroll
         for (int k = 0; k < kN; ++k) {
           const int key = t * TK + mb * 64 + warp * 16 + g + ((k >> 1) & 1) * 8;
-          if (!keep(p, it, tok[2 * (k >> 2) + (k & 1)], key))
+          if (!keep(p, it, 8 * (k >> 2) + 2 * tq + (k & 1),
+                    tok[2 * (k >> 2) + (k & 1)], key))
             s[mb][k] = -CUDART_INF_F;
         }
     }
@@ -1042,8 +1092,12 @@ __global__ void __launch_bounds__(kThreads) paged_f32_kernel(const Params p) {
   }
   const int jq = tid % kTileF32, rg = tid / kTileF32;
   int tok[RPT];
+  float slope[RPT];
 #pragma unroll
-  for (int r = 0; r < RPT; ++r) tok[r] = q_tok(p, it, row0 + rg * RPT + r);
+  for (int r = 0; r < RPT; ++r) {
+    tok[r] = q_tok(p, it, row0 + rg * RPT + r);
+    slope[r] = alibi_slope(p, it, h, row0 + rg * RPT + r);
+  }
 
   float m_reg[RPW], l_reg[RPW];
 #pragma unroll
@@ -1085,15 +1139,10 @@ __global__ void __launch_bounds__(kThreads) paged_f32_kernel(const Params p) {
     const int lk = k0 + jq;
 #pragma unroll
     for (int r = 0; r < RPT; ++r) {
-      float x;
-      if (p.soft_cap > 0.f) {
-        x = s[r] * p.sm_scale;
-        x = p.soft_cap * tanhf(x / p.soft_cap) * kLog2e;
-      } else {
-        x = s[r] * p.scale_log2;
-      }
+      const float x =
+          general_logit(p, s[r], slope[r], tok[r], it.kv_start + lk);
       p_s[(rg * RPT + r) * kTileF32 + jq] =
-          keep(p, it, tok[r], lk) ? x : -CUDART_INF_F;
+          keep(p, it, row0 + rg * RPT + r, tok[r], lk) ? x : -CUDART_INF_F;
     }
     __syncthreads();
 
@@ -1306,24 +1355,29 @@ cudaError_t launch_tc(const Params& p, int kv_dtype, int pages,
 }  // namespace
 
 // q [kvh, q_rows, d] (bf16 or f32); k [.., d] and v [.., dv] paged caches
-// of `pages` pages; row_valid [q_rows] int32 or null. bf16 q with a bf16,
+// of `pages` pages; row_valid [q_rows] int32 or null; work_mask uint8 [T,
+// tile_q, mask_chunk] or null; alibi f32 [kvh * group] or null. bf16 q with a bf16,
 // e4m3 or int8 cache, and f32 q with an e4m3 cache, run on the tensor
 // cores (page_size % 8 == 0, 16-byte-aligned caches); f32 q with an f32
 // or int8 cache on the CUDA cores.
 extern "C" int fi_paged_attention(
     const void* q, const void* k, const void* v, const int* plan,
-    const int* kv_indices, const int* row_valid, void* o, float* lse, int T,
-    int kvh, int q_rows, int tile_q, int d, int dv, int page_size, int pages,
-    int layout_hnd, int kv_indices_offset, int group, float sm_scale,
-    float v_scale, int causal, int window_left, float soft_cap, int q_dtype,
-    int kv_dtype, void* stream) {
+    const int* kv_indices, const int* row_valid,
+    const unsigned char* work_mask, const float* alibi, void* o, float* lse,
+    int T, int kvh, int q_rows, int tile_q, int d, int dv, int page_size,
+    int pages, int layout_hnd, int kv_indices_offset, int group,
+    int mask_chunk, float sm_scale, float v_scale, int causal,
+    int window_left, float soft_cap, int q_dtype, int kv_dtype,
+    void* stream) {
   if (d <= 0 || d > 256 || d % 16 != 0 || dv <= 0 || dv > 256 ||
       dv % 16 != 0 || tile_q <= 0 || tile_q % 8 != 0 || T <= 0 ||
-      page_size <= 0 || group <= 0)
+      page_size <= 0 || group <= 0 ||
+      (work_mask != nullptr && mask_chunk <= 0))
     return int(cudaErrorInvalidValue);
   Params p;
   p.q = q; p.k = k; p.v = v; p.plan = plan; p.kv_indices = kv_indices;
-  p.row_valid = row_valid; p.o = o; p.lse = lse;
+  p.row_valid = row_valid; p.work_mask = work_mask; p.alibi = alibi;
+  p.mask_chunk = mask_chunk; p.o = o; p.lse = lse;
   p.T = T; p.kvh = kvh; p.q_rows = q_rows; p.tile_q = tile_q; p.d = d;
   p.dv = dv; p.page_size = page_size; p.layout_hnd = layout_hnd;
   p.kv_indices_offset = kv_indices_offset; p.group = group;

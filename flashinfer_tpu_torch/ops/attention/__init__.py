@@ -1,7 +1,9 @@
 from flashinfer_tpu_torch.ops.attention.batch import (
     BatchAttention,
+    BatchAttentionWithAttentionSinkWrapper,
     BatchDecodeWithPagedKVCacheWrapper,
     BatchPrefillWithPagedKVCacheWrapper,
+    BatchPrefillWithRaggedKVCacheWrapper,
     DevicePlan,
     PlanMeta,
     run_device_plan,
@@ -29,6 +31,10 @@ from flashinfer_tpu_torch.ops.attention.single import (
     single_decode_with_kv_cache,
     single_prefill_with_kv_cache,
 )
+from flashinfer_tpu_torch.ops.attention.sparse import (
+    BlockSparseAttentionWrapper,
+    VariableBlockSparseAttentionWrapper,
+)
 from flashinfer_tpu_torch.ops.attention.state import (
     gather_merge_states,
     merge_state,
@@ -47,9 +53,12 @@ from flashinfer_tpu_torch.ops.attention.variants import (
 __all__ = [
     "AttentionVariant",
     "BatchAttention",
+    "BatchAttentionWithAttentionSinkWrapper",
     "BatchDecodeWithPagedKVCacheWrapper",
     "BatchMLAPagedAttentionWrapper",
     "BatchPrefillWithPagedKVCacheWrapper",
+    "BatchPrefillWithRaggedKVCacheWrapper",
+    "BlockSparseAttentionWrapper",
     "DefaultAttention",
     "DevicePlan",
     "FlashSigmoid",
@@ -73,5 +82,6 @@ __all__ = [
     "scatter_merge_states",
     "single_decode_with_kv_cache",
     "single_prefill_with_kv_cache",
+    "VariableBlockSparseAttentionWrapper",
     "variable_length_merge_states",
 ]

@@ -7,8 +7,9 @@ levels and to their own suffix at the last level; each level is one planned
 together with ``merge_state``. The merge is plain PyTorch, as JAX's is
 (``state.py``, outside any Pallas kernel).
 
-The levels' plans take what ``BatchAttention.plan`` takes, so an explicit
-``kv_chunk_size`` and pages of 8 tokens or more (ROADMAP Queue 1, item 4).
+The levels' plans take what ``BatchAttention.plan`` takes: any page size
+(small pages repacked at ``run()``) and ``kv_chunk_size`` None (the
+library's choice) among them.
 """
 
 from __future__ import annotations
@@ -71,7 +72,8 @@ class MultiLevelCascadeAttentionWrapper:
     ) -> "MultiLevelCascadeAttentionWrapper":
         """One host index set a level (``BatchAttention.plan``'s qo_indptr,
         kv_indptr, kv_indices and kv_last_page_len); ``kwargs`` go to every
-        level's plan (``kv_chunk_size`` among them)."""
+        level's plan (``kv_chunk_size`` among them; None leaves it to the
+        library)."""
         if len(qo_indptr_arr) != self._num_levels:
             raise ValueError(f"{len(qo_indptr_arr)} index sets for "
                              f"{self._num_levels} levels")

@@ -20,16 +20,31 @@ holding the JAX package's e4m3 bits is read through
 ``.view(torch.float8_e4m3fn)``), or int8 as a linear container
 (value = q * scale). ``k_scale`` folds into the
 softmax scale and ``v_scale`` multiplies the output, as on the TPU.
+
+Masks and variants, as the TPU kernel takes them: ``work_mask`` is the
+plan's legalised custom or multi-item mask (uint8 [T, tile_q,
+kv_chunk_size], a column per key of the item's chunk), ANDed with causal
+and window. A variant's logit transform sees the logits after the scale
+and before the soft cap; ALiBi (``variant_params["alibi_slopes"]``, f32
+[num_qo_heads]) adds ``slope[head] * (kv_pos - q_pos)`` there. A packed
+row's query head is ``kv_head * group + (qo_tile * tile_q + row) % group``,
+its true head in its request (the TPU kernel takes ``row % group`` of the
+row in its tile, which agrees only where tile_q is a multiple of the
+group).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 
 from flashinfer_tpu_torch import jit
+from flashinfer_tpu_torch.ops.attention.variants import (
+    VARIANT_JIT,
+    AttentionVariant,
+)
 from flashinfer_tpu_torch.utils import TensorLayout
 
 __all__ = ["batch_paged_attention_run", "paged_attention_plain"]
@@ -43,6 +58,7 @@ _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_E4M3, _KV_I8 = 2, 3
 _LOG2E = 1.4426950408889634
 _LN2 = 0.6931471805599453
+NON_SOFTMAX = "non-softmax variants: use the dense kernel"
 
 
 def _kv_format(k: torch.Tensor) -> str:
@@ -52,6 +68,23 @@ def _kv_format(k: torch.Tensor) -> str:
     if k.dtype == torch.int8:
         return "int8"
     return "model"
+
+
+def _resolve_variant(variant: Optional[AttentionVariant], variant_params,
+                     logits_soft_cap: float):
+    """(soft cap, ALiBi slopes or None, hooks or None). A built-in variant
+    becomes the numbers the kernel reads; a variant with hooks of the
+    caller's own is returned as ``hooks`` (the plain version runs them)."""
+    if variant is None:
+        return float(logits_soft_cap), None, None
+    if not variant.use_softmax:
+        raise ValueError(NON_SOFTMAX)
+    spec = variant.kernel
+    if spec is None or variant.query_transform is not None \
+            or variant.logits_mask is not None:
+        return 0.0, None, variant
+    alibi = variant_params["alibi_slopes"] if spec.use_alibi else None
+    return float(spec.logits_soft_cap), alibi, None
 
 
 def paged_attention_plain(
@@ -72,6 +105,9 @@ def paged_attention_plain(
     kv_layout: TensorLayout = TensorLayout.NHD,
     kv_indices_offset: int = 0,
     row_valid: Optional[torch.Tensor] = None,
+    work_mask: Optional[torch.Tensor] = None,
+    variant: Optional[AttentionVariant] = None,
+    variant_params: Any = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The work list in plain PyTorch, all items at once: each item's KV
     chunk is gathered page by page into [T, kvh, C, d] and attended in one
@@ -81,7 +117,10 @@ def paged_attention_plain(
     product in the dtype of the V operand (q's dtype; bf16 for e4m3,
     whose decode the TPU kernel runs in bf16, so q is rounded to bf16 too),
     rounded as 2^(s - ceil(max s)) in the base-2 domain, which the kernel's
-    online softmax reproduces exactly."""
+    online softmax reproduces exactly. ``variant``'s hooks (query and logit
+    transforms, logit mask) run here only."""
+    cap, alibi, hooks = _resolve_variant(variant, variant_params,
+                                         logits_soft_cap)
     fmt = _kv_format(k_cache)
     kvh, q_rows, d = q_packed.shape
     dev = q_packed.device
@@ -123,27 +162,43 @@ def paged_attention_plain(
 
     q = q_packed[:, rows.clamp(max=q_rows - 1)].permute(1, 0, 2, 3)
     pv_dtype = torch.bfloat16 if fmt == "e4m3" else q_packed.dtype
-    qf = q.to(pv_dtype).float()  # [T, kvh, tile_q, d]
+    qf = q.float()  # [T, kvh, tile_q, d]
+    if hooks is not None and hooks.query_transform is not None:
+        qf = hooks.query_transform(variant_params, qf)
+    qf = qf.to(pv_dtype).float()
+
+    col = torch.arange(C, device=dev)
+    kv_pos = (kv_start[:, None] + col[None, :])[:, None, None, :]  # [T,1,1,C]
+    local = (p[_QO_TILE][:, None] * tile_q
+             + torch.arange(tile_q, device=dev)[None, :])  # [T, tile_q]
+    q_tok = (p[_Q_POS_BASE][:, None] + local // group)[:, None, :, None]
+    head = (torch.arange(kvh, device=dev)[None, :, None] * group
+            + (local % group)[:, None, :])[..., None]  # [T, kvh, tile_q, 1]
+    transform = hooks is not None and hooks.logits_transform is not None
 
     # base-2 softmax domain of the kernels: log2(e) rides the scale, or is
-    # applied after the soft cap
+    # applied after the transforms (ALiBi, the caller's, the soft cap)
     s = torch.einsum("thrd,thcd->thrc", qf, kf)
-    if logits_soft_cap > 0.0:
+    if cap > 0.0 or alibi is not None or transform:
         s = s * (sm_scale * k_scale)
-        s = logits_soft_cap * torch.tanh(s / logits_soft_cap) * _LOG2E
+        if alibi is not None:
+            s = s + alibi.to(dev).float()[head] * (kv_pos - q_tok).float()
+        if transform:
+            s = hooks.logits_transform(variant_params, s, q_tok, kv_pos, head)
+        if cap > 0.0:
+            s = cap * torch.tanh(s / cap)
+        s = s * _LOG2E
     else:
         s = s * (sm_scale * k_scale * _LOG2E)
-    col = torch.arange(C, device=dev)
-    kv_pos = kv_start[:, None] + col[None, :]  # [T, C]
-    q_tok = p[_Q_POS_BASE][:, None] + (
-        p[_QO_TILE][:, None] * tile_q
-        + torch.arange(tile_q, device=dev)[None, :]) // group  # [T, tile_q]
-    mask = (col[None, :] < span[:, None])[:, None, :]  # [T, 1, C]
+    mask = (col[None, :] < span[:, None])[:, None, None, :]  # [T, 1, 1, C]
     if causal:
-        mask = mask & (kv_pos[:, None, :] <= q_tok[:, :, None])
+        mask = mask & (kv_pos <= q_tok)
     if window_left >= 0:
-        mask = mask & (kv_pos[:, None, :] > q_tok[:, :, None] - window_left - 1)
-    mask = mask[:, None]  # [T, 1, tile_q | 1, C]
+        mask = mask & (kv_pos > q_tok - window_left - 1)
+    if work_mask is not None:
+        mask = mask & (work_mask[:, None, :, :C] != 0)
+    if hooks is not None and hooks.logits_mask is not None:
+        mask = mask & hooks.logits_mask(variant_params, q_tok, kv_pos, head)
     s2 = torch.where(mask, s, float("-inf"))
     # the ceiling of the base-2 max, as the kernel takes it (an integer,
     # so its online rescales are exact powers of two)
@@ -166,13 +221,28 @@ def _lib():
     fn = lib.fi_paged_attention
     if fn.argtypes is None:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [P, P, P, P, P, P, P, P,  # q k v plan idx valid o lse
-                       # T kvh rows tq d dv ps pages hnd off grp
-                       I, I, I, I, I, I, I, I, I, I, I,
+        fn.argtypes = [P, P, P, P, P, P,  # q k v plan idx valid
+                       P, P, P, P,  # work_mask alibi o lse
+                       # T kvh rows tq d dv ps pages hnd off grp chunk
+                       I, I, I, I, I, I, I, I, I, I, I, I,
                        # scales causal window cap dtypes stream
                        F, F, I, I, F, I, I, P]
         fn.restype = I
     return fn
+
+
+def _device_arg(t: Optional[torch.Tensor], name: str, dtype: torch.dtype,
+                numel: int) -> Optional[torch.Tensor]:
+    """t as a contiguous CUDA tensor of ``dtype`` with at least ``numel``
+    elements, or raise."""
+    if t is None:
+        return None
+    if (t.dtype != dtype or not t.is_cuda or not t.is_contiguous()
+            or t.numel() < numel):
+        raise ValueError(f"{name} must be a contiguous {dtype} CUDA tensor "
+                         f"of {numel} elements; got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
+    return t
 
 
 def batch_paged_attention_run(
@@ -193,24 +263,38 @@ def batch_paged_attention_run(
     kv_layout: TensorLayout = TensorLayout.NHD,
     kv_indices_offset: int = 0,
     row_valid: Optional[torch.Tensor] = None,
+    work_mask: Optional[torch.Tensor] = None,
+    variant: Optional[AttentionVariant] = None,
+    variant_params: Any = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run the planned work list. q_packed [kvh, rows, d] (GQA-packed, per
     request tile_q-aligned); k caches NHD [P, ps, kvh, d] or HND
     [P, kvh, ps, d], v caches the same with dv columns; kv_indices int32
     page table; plan int32 [12 * T]; row_valid int32 [rows] or None (every
-    row real): a 64-row block of padding rows is skipped.
+    row real): a 64-row block of padding rows is skipped. ``work_mask``
+    uint8 [T, tile_q, chunk] or None; ``variant`` (with ``variant_params``:
+    ALiBi's f32 [kvh * group] "alibi_slopes") replaces ``logits_soft_cap``
+    where given.
 
     A CUDA tensor launches the kernel (or raises); a CPU tensor takes
     ``paged_attention_plain``. bf16 numerics (bf16 q, or an e4m3 cache) run
-    on the tensor cores and need pages of a multiple of 8 tokens; f32 q
-    with an f32 or int8 cache runs on the CUDA cores."""
+    on the tensor cores and need pages of a multiple of 8 tokens (the
+    wrappers repack other pages); f32 q with an f32 or int8 cache runs on
+    the CUDA cores. A variant with hooks of the caller's own runs in the
+    plain version only, and a non-softmax variant in neither."""
     kw = dict(tile_q=tile_q, group=group, causal=causal, sm_scale=sm_scale,
               k_scale=k_scale, v_scale=v_scale, window_left=window_left,
               logits_soft_cap=logits_soft_cap, kv_layout=kv_layout,
-              kv_indices_offset=kv_indices_offset, row_valid=row_valid)
+              kv_indices_offset=kv_indices_offset, row_valid=row_valid,
+              work_mask=work_mask, variant=variant,
+              variant_params=variant_params)
+    cap, alibi, hooks = _resolve_variant(variant, variant_params,
+                                         logits_soft_cap)
     if not q_packed.is_cuda:
         return paged_attention_plain(q_packed, k_cache, v_cache, kv_indices,
                                      plan, **kw)
+    if hooks is not None:
+        raise NotImplementedError(f"variant {hooks.name!r}: {VARIANT_JIT}")
     fmt = _kv_format(k_cache)
     kvh, q_rows, d = q_packed.shape
     if q_packed.dtype not in _Q_CODES:
@@ -237,21 +321,29 @@ def batch_paged_attention_run(
     if tensor_cores and (ps % 8 or k_cache.data_ptr() % 16
                          or v_cache.data_ptr() % 16):
         raise ValueError(f"the tensor-core paged kernel takes pages of a "
-                         f"multiple of 8 tokens in 16-byte-aligned caches; "
-                         f"got page_size={ps}")
+                         f"multiple of 8 tokens in 16-byte-aligned caches "
+                         f"(the wrappers repack other pages); got "
+                         f"page_size={ps}")
     for t, name in ((k_cache, "k"), (v_cache, "v"), (kv_indices, "kv_indices"),
                     (plan, "plan")):
         if not t.is_cuda or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous CUDA tensor")
     if kv_indices.dtype != torch.int32 or plan.dtype != torch.int32:
         raise TypeError("plan and kv_indices must be int32")
-    if row_valid is not None:
-        if (row_valid.dtype != torch.int32 or not row_valid.is_cuda
-                or not row_valid.is_contiguous()
-                or row_valid.numel() < q_rows):
-            raise ValueError(f"row_valid must be a contiguous int32 CUDA "
-                             f"tensor of {q_rows} rows")
     T = plan.numel() // 12
+    row_valid = _device_arg(row_valid, "row_valid", torch.int32, q_rows)
+    chunk = 0
+    if work_mask is not None:
+        if work_mask.dtype in (torch.int8, torch.bool):
+            work_mask = work_mask.view(torch.uint8)
+        if work_mask.dim() != 3 or tuple(work_mask.shape[:2]) != (T, tile_q):
+            raise ValueError(f"work_mask {tuple(work_mask.shape)} is not "
+                             f"[{T}, {tile_q}, chunk]")
+        chunk = work_mask.shape[2]
+        work_mask = _device_arg(work_mask, "work_mask", torch.uint8, 0)
+    if alibi is not None:
+        alibi = _device_arg(alibi.reshape(-1), "alibi_slopes", torch.float32,
+                            kvh * group)
     q_packed = q_packed.contiguous()
     o = torch.empty(T, kvh, tile_q, dv, dtype=q_packed.dtype,
                     device=q_packed.device)
@@ -259,13 +351,17 @@ def batch_paged_attention_run(
                       device=q_packed.device)
     kv_code = {"model": _Q_CODES[q_packed.dtype], "e4m3": _KV_E4M3,
                "int8": _KV_I8}[fmt]
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     err = _lib()(
         q_packed.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        plan.data_ptr(), kv_indices.data_ptr(),
-        None if row_valid is None else row_valid.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), T, kvh, q_rows, tile_q, d, dv, ps, k_cache.shape[0],
-        int(hnd), int(kv_indices_offset), group, float(sm_scale * k_scale),
-        float(v_scale), int(causal), int(window_left), float(logits_soft_cap),
+        plan.data_ptr(), kv_indices.data_ptr(), ptr(row_valid),
+        ptr(work_mask), ptr(alibi), o.data_ptr(), lse.data_ptr(), T, kvh,
+        q_rows, tile_q, d, dv, ps, k_cache.shape[0], int(hnd),
+        int(kv_indices_offset), group, chunk, float(sm_scale * k_scale),
+        float(v_scale), int(causal), int(window_left), cap,
         _Q_CODES[q_packed.dtype], kv_code,
         torch.cuda.current_stream(q_packed.device).cuda_stream)
     jit.check(err, "paged attention kernel")

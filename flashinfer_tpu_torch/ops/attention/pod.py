@@ -24,7 +24,6 @@ from flashinfer_tpu_torch.ops.attention.single import (
     single_prefill_with_kv_cache,
 )
 from flashinfer_tpu_torch.ops.page import append_paged_kv_cache
-from flashinfer_tpu_torch.utils import resolve_device
 
 __all__ = ["PODWithPagedKVCacheWrapper"]
 
@@ -32,11 +31,13 @@ __all__ = ["PODWithPagedKVCacheWrapper"]
 class PODWithPagedKVCacheWrapper:
     """One prefill + a decode batch under one plan."""
 
-    def __init__(self, kv_layout: str = "HND", *,
-                 device: str | torch.device = "cuda"):
-        self._device = resolve_device(device)
-        self._attn = BatchAttention(kv_layout=kv_layout, device=self._device)
+    def __init__(self, float_workspace_buffer=None, kv_layout: str = "HND",
+                 backend: str = "auto", **kw):
+        self._attn = BatchAttention(kv_layout=kv_layout, backend=backend,
+                                    **kw)
+        self._device = self._attn._device
         self._layout = kv_layout
+        self._backend = backend
         self._combined = False
 
     def plan(
@@ -49,7 +50,7 @@ class PODWithPagedKVCacheWrapper:
         head_dim: int,
         page_size: int,
         *,
-        kv_chunk_size: int,
+        kv_chunk_size: Optional[int] = None,
         sm_scale: Optional[float] = None,
         window_left: int = -1,
         logits_soft_cap: float = 0.0,
@@ -62,8 +63,8 @@ class PODWithPagedKVCacheWrapper:
     ):
         """Plan the decode batch (host arrays); with
         ``prefill_page_indices``, plan the prefill request into the same
-        work list. ``kv_chunk_size`` and the other ``kwargs`` go to
-        ``BatchAttention.plan``."""
+        work list. ``kv_chunk_size`` (None: the library's choice) and the
+        other ``kwargs`` go to ``BatchAttention.plan``."""
         indptr = np.asarray(indptr, np.int64)
         indices = np.asarray(indices, np.int64)
         last_page_len = np.asarray(last_page_len, np.int64)
@@ -151,7 +152,7 @@ class PODWithPagedKVCacheWrapper:
 
         p = single_prefill_with_kv_cache(
             q_p, k_p, v_p, causal=causal_p, return_lse=return_lse,
-            **self._prefill_cfg)
+            backend=self._backend, **self._prefill_cfg)
         d = self._attn.run(q_d, paged_kv_cache, return_lse=return_lse,
                            **kwargs)
         if return_lse:

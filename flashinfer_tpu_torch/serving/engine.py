@@ -195,9 +195,12 @@ class LlamaServingEngine:
             raise ValueError(f"unknown kv_layout {config.kv_layout!r}")
         if config.weight_dtype not in ("model", "fp8_e4m3", "int8"):
             raise ValueError(f"unknown weight_dtype {config.weight_dtype!r}")
-        if config.page_size < 8:
-            raise ValueError(
-                f"engine page_size must be >= 8, got {config.page_size}")
+        # the paged kernel addresses pages in multiples of 8 tokens, and the
+        # decode step's CUDA graph takes the plan's blob alone, never a
+        # repacked cache (JAX's engine takes any page_size >= 8)
+        if config.page_size < 8 or config.page_size % 8:
+            raise ValueError("engine page_size must be a multiple of 8, got "
+                             f"{config.page_size}")
         self.device = resolve_device(config.device)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)

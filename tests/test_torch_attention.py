@@ -185,11 +185,31 @@ def test_wrapper_run_matches_dense_reference():
 
 
 def test_slice_limits_raise():
+    """What the first slices refused now computes: a decode plan on pages
+    of 4 tokens and a prefill plan with a custom mask agree with the dense
+    oracle. Running before planning still raises."""
     w = torch_batch.BatchDecodeWithPagedKVCacheWrapper(device="cpu")
-    with pytest.raises(NotImplementedError):
-        w.plan([0, 1], [0], [1], 4, 2, 32, 4, kv_chunk_size=16)
-    with pytest.raises(NotImplementedError):
-        w.plan([0, 1], [0], [1], 4, 2, 32, 8, kv_chunk_size=16,
-               custom_mask=np.ones(1, bool))
     with pytest.raises(RuntimeError, match="plan"):
         w.run(torch.zeros(1, 4, 32), (torch.zeros(1), torch.zeros(1)))
+    rng = np.random.default_rng(7)
+    k, v = (torch.from_numpy(rng.standard_normal((3, HKV, 4, D)).astype(
+        np.float32)) for _ in range(2))
+    q = torch.from_numpy(rng.standard_normal((1, HQ, D)).astype(np.float32))
+    w.plan([0, 2], [2, 0], [3], HQ, HKV, D, 4, kv_chunk_size=16)
+    keys = [x[[2, 0]].permute(0, 2, 1, 3).reshape(8, HKV, D)[:7]
+            for x in (k, v)]
+    want, _ = attention_reference(q, *keys)
+    torch.testing.assert_close(w.run(q, (k, v)), want, atol=2e-5, rtol=2e-5)
+
+    mask = rng.random((3, 7)) > 0.3
+    mask[:, 0] = True
+    q3 = torch.from_numpy(rng.standard_normal((3, HQ, D)).astype(np.float32))
+    kp, vp = (torch.nn.functional.pad(x, (0, 0, 0, 4)) for x in (k, v))
+    p = torch_batch.BatchPrefillWithPagedKVCacheWrapper(device="cpu")
+    p.plan([0, 3], [0, 1], [1], [7], HQ, HKV, D, 8, causal=True,
+           kv_chunk_size=16, custom_mask=mask.ravel())
+    keys = [x[1, :, :7].transpose(0, 1) for x in (kp, vp)]
+    want, _ = attention_reference(q3, *keys, causal=True,
+                                  custom_mask=torch.from_numpy(mask))
+    torch.testing.assert_close(p.run(q3, (kp, vp)), want, atol=2e-5,
+                               rtol=2e-5)

@@ -357,6 +357,173 @@ def test_paged_kernel_in_a_cuda_graph(dev, kv):
     torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-4)
 
 
+def _surface_plan(mode, feature, hq, hkv, d, rng, tile_q=None):
+    """A planned batch (decode, or causal prefill) for ``feature``: a
+    random custom mask ("mask"), ALiBi ("alibi", "alibi_cap": also the soft
+    cap) or pages of 12 tokens ("page12", repacked by the wrapper). Returns
+    the wrapper, the page count and page size of its caller's cache."""
+    from flashinfer_tpu_torch.ops.attention.variants import (
+        make_default_variant,
+    )
+
+    ps = 12 if feature == "page12" else 16
+    if mode == "decode":
+        kv = rng.integers(1, 300, 5)
+        qo = np.ones(5, np.int64)
+    else:
+        qo = rng.integers(20, 90, 3)
+        kv = qo + rng.integers(0, 60, 3)
+    npages = -(-kv // ps)
+    indptr = np.concatenate([[0], np.cumsum(npages)])
+    pages = int(indptr[-1]) + 3
+    indices = rng.permutation(pages)[: int(indptr[-1])]
+    cls = (attn_batch.BatchDecodeWithPagedKVCacheWrapper if mode == "decode"
+           else attn_batch.BatchPrefillWithPagedKVCacheWrapper)
+    variant = None
+    if feature.startswith("alibi"):
+        variant = make_default_variant(
+            use_alibi=True, logits_soft_cap=30.0 * (feature == "alibi_cap"))
+    w = cls(device="cuda", tile_q=tile_q, variant=variant)
+    args = (indptr, indices, ((kv - 1) % ps) + 1, hq, hkv, d, ps)
+    kw = dict(kv_chunk_size=64, causal=mode != "decode")
+    if mode != "decode":
+        args = (np.concatenate([[0], np.cumsum(qo)]),) + args
+    if feature == "mask":
+        kw["custom_mask"] = np.concatenate(
+            [rng.random(a * b) > 0.3 for a, b in zip(qo, kv)])
+    w.plan(*args, **kw)
+    return w, pages, ps
+
+
+@pytest.mark.parametrize("feature", ["mask", "alibi", "alibi_cap", "page12"])
+@pytest.mark.parametrize("qdt,kv", [(torch.bfloat16, "model"),
+                                    (torch.bfloat16, "e4m3"),
+                                    (torch.bfloat16, "int8"),
+                                    (torch.float32, "model"),
+                                    (torch.float32, "int8")])
+@pytest.mark.parametrize("mode,tile_q", [("decode", None), ("prefill", 16),
+                                         ("prefill", 64)])
+def test_paged_kernel_surface_matches_plain(dev, feature, qdt, kv, mode,
+                                            tile_q):
+    """Masked, ALiBi (group 3: a packed row's head is its index in the
+    request modulo the group, not in its tile) and page-12 plans: the swap-
+    AB decode tiles, the 64-row prefill tiles and the f32 route against the
+    plain version."""
+    rng = np.random.default_rng([len(feature), mode == "decode", tile_q or 0])
+    gen = torch.Generator(device=dev).manual_seed(len(feature))
+    hq, hkv, d = 6, 2, 64
+    w, pages, ps = _surface_plan(mode, feature, hq, hkv, d, rng, tile_q)
+    dp = w.device_plan
+    kc, vc = _paged_caches(dev, gen, "HND", kv, qdt, pages, ps, hkv, d, d)
+    layout = TensorLayout.HND
+    if feature == "page12":
+        assert dp.meta.page_size == 128
+        kc, vc, layout, _ = attn_batch.kernel_caches(dp, kc, vc, layout)
+    q = torch.randn(hkv, dp.meta.bucket_rows, d, device=dev,
+                    generator=gen).to(qdt)
+    extra = {}
+    if feature.startswith("alibi"):
+        extra = dict(variant=w._state.variant, variant_params={
+            "alibi_slopes": 0.5 ** torch.arange(1, hq + 1, device=dev)})
+    _paged_check(dev, dp, kc, vc, q, hq, hkv, d, kv_layout=layout,
+                 work_mask=dp.work_mask, **extra)
+
+
+def test_paged_kernel_refuses_hooks_and_non_softmax(dev):
+    """A variant with hooks of the caller's own runs only in the plain
+    version (variant JIT), and a non-softmax variant in neither."""
+    from flashinfer_tpu_torch.ops.attention.variants import (
+        AttentionVariant,
+        FlashSigmoid,
+    )
+
+    rng = np.random.default_rng(8)
+    dp, pages, _ = _plan("prefill", 16, 4, 2, 32, rng, 16)
+    kc, vc = (torch.randn(pages, 16, 2, 32, device=dev) for _ in "kv")
+    q = torch.randn(2, dp.meta.bucket_rows, 32, device=dev)
+    args = (q, kc, vc, dp.segment("kv_indices"), dp.segment("plan"))
+    kw = dict(tile_q=16, group=2, causal=True, sm_scale=0.2)
+    mine = AttentionVariant(
+        name="mine", logits_transform=lambda p, s, qp, kp, h: s * 2)
+    with pytest.raises(NotImplementedError, match="variant JIT"):
+        batch_paged_attention_run(*args, **kw, variant=mine)
+    paged_attention_plain(*(t.cpu() for t in args), **kw, variant=mine)
+    with pytest.raises(ValueError, match="non-softmax variants"):
+        batch_paged_attention_run(*args, **kw, variant=FlashSigmoid())
+
+
+@pytest.mark.parametrize("case", ["ragged", "sink", "bsr", "bsr12",
+                                  "variable"])
+def test_surface_wrappers_on_the_card(dev, case):
+    """The ragged, sink and block-sparse wrappers in bf16 on the card
+    against their reference backend (the f32 oracle over the same bf16
+    values): o to 2^-6 |ref| + 2^-8, as the flash kernel's bf16 check."""
+    from flashinfer_tpu_torch.ops.attention import sparse
+
+    rng = np.random.default_rng(len(case))
+    gen = torch.Generator(device=dev).manual_seed(len(case))
+    hq, hkv, d = 8, 2, 64
+
+    def rand(*shape):
+        return torch.randn(*shape, device=dev, generator=gen).bfloat16()
+
+    def both(make, plan, *run):
+        outs = []
+        for backend in ("auto", "reference"):
+            w = make(backend)
+            w.plan(*plan[0], **plan[1])
+            outs.append(w.run(*run))
+        return outs
+
+    if case == "ragged":
+        kv = np.asarray([300, 17, 129])
+        qo = np.asarray([40, 17, 5])
+        k, v = rand(int(kv.sum()), hkv, d), rand(int(kv.sum()), hkv, d)
+        got, want = both(
+            lambda b: attn_batch.BatchPrefillWithRaggedKVCacheWrapper(
+                backend=b, device="cuda"),
+            ((np.concatenate([[0], np.cumsum(qo)]),
+              np.concatenate([[0], np.cumsum(kv)]), hq, hkv, d),
+             dict(causal=True)), rand(int(qo.sum()), hq, d), k, v)
+    elif case == "sink":
+        kv = np.asarray([200, 31, 77, 5])
+        npages = -(-kv // 16)
+        indptr = np.concatenate([[0], np.cumsum(npages)])
+        cache = (rand(int(indptr[-1]), hkv, 16, d),
+                 rand(int(indptr[-1]), hkv, 16, d))
+        sink = torch.randn(hq, device=dev, generator=gen)
+        got, want = both(
+            lambda b: attn_batch.BatchAttentionWithAttentionSinkWrapper(
+                sink, backend=b, device="cuda"),
+            ((np.arange(5), indptr, np.arange(indptr[-1]),
+              (kv - 1) % 16 + 1, hq, hkv, d, 16), dict(window_left=31)),
+            rand(4, hq, d), cache)
+    elif case in ("bsr", "bsr12"):
+        R, C = 16, 64 if case == "bsr" else 12
+        mb, nb = 8, 8
+        mask = rng.random((mb, nb)) < 0.4
+        mask[:, 0] = True
+        indptr = np.concatenate([[0], np.cumsum(mask.sum(1))])
+        got, want = both(
+            lambda b: sparse.BlockSparseAttentionWrapper(
+                backend=b, device="cuda"),
+            ((indptr, np.nonzero(mask)[1], R * mb, C * nb, R, C, hq, hkv, d),
+             {}), rand(R * mb, hq, d), rand(C * nb, hkv, d),
+            rand(C * nb, hkv, d))
+    else:
+        rows, cols = np.asarray([30, 64, 9]), np.asarray([40, 7, 100, 33])
+        mask = np.asarray([[1, 0, 1, 0], [0, 1, 1, 1], [1, 1, 0, 1]], bool)
+        got, want = both(
+            lambda b: sparse.VariableBlockSparseAttentionWrapper(
+                backend=b, device="cuda"),
+            ((mask, rows, cols, hq, hkv, d), {}), rand(int(rows.sum()), hq, d),
+            rand(int(cols.sum()), hkv, d), rand(int(cols.sum()), hkv, d))
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= 2 ** -6 * want.float().abs() + 2 ** -8).all()), \
+        float(err.max())
+
+
 @pytest.mark.parametrize("case", ["k96_n200_bf16", "per_channel_e4m3"])
 def test_fused_moe_ragged_route_on_the_card(dev, case):
     """Calls the grouped-GEMM kernel cannot take (K 96 / N 200 in bf16;

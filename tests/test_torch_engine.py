@@ -208,3 +208,13 @@ def test_outside_the_slice_raises(params, change):
         EngineConfig(model=MC, device="cpu", **BASE), **change)
     with pytest.raises(ValueError, match="unknown weight_dtype"):
         LlamaServingEngine(cfg, params=params)
+
+
+@pytest.mark.parametrize("page_size", [4, 12])
+def test_page_size_not_a_multiple_of_8_raises(params, page_size):
+    """The decode step's CUDA graph takes the plan's blob alone, so the
+    engine takes no page the paged kernel reaches only through a repack."""
+    cfg = dataclasses.replace(
+        EngineConfig(model=MC, device="cpu", **BASE), page_size=page_size)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        LlamaServingEngine(cfg, params=params)

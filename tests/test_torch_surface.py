@@ -25,14 +25,8 @@ from flashinfer_tpu_torch import utils
 from flashinfer_tpu_torch.ops import activation, page, rope
 from flashinfer_tpu_torch.ops.attention import state
 
-# JAX's exports the port does not compute yet (ROADMAP Queue 1, items 4
-# and 8): the ragged-KV and sink wrappers, the block-sparse wrappers, and
-# the package version
-PENDING_EXPORTS = ("BatchPrefillWithRaggedKVCacheWrapper",
-                   "BatchAttentionWithAttentionSinkWrapper",
-                   "BlockSparseAttentionWrapper",
-                   "VariableBlockSparseAttentionWrapper",
-                   "__version__")
+# JAX's exports the port does not compute yet: none is left
+PENDING_EXPORTS = ()
 
 
 def _t(a):
@@ -261,9 +255,10 @@ def test_enums_match_jax():
 
 
 def test_exports_are_jax_exports_but_the_pending():
-    assert set(PENDING_EXPORTS) <= set(flashinfer_tpu.__all__)
+    assert PENDING_EXPORTS == ()
     assert sorted(flashinfer_tpu_torch.__all__) == sorted(
-        set(flashinfer_tpu.__all__) - set(PENDING_EXPORTS))
+        flashinfer_tpu.__all__)
+    assert flashinfer_tpu_torch.__version__ == flashinfer_tpu.__version__
     assert len(flashinfer_tpu_torch.__all__) == len(
         set(flashinfer_tpu_torch.__all__))
     for name in flashinfer_tpu_torch.__all__:
