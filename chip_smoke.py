@@ -11,7 +11,12 @@ Run from the root of a checkout. Phases, in order:
    wgmma (HGMMA), TMA load (UTMALDG) and mma.sync (HMMA) instructions of
    the flash, grouped-GEMM and paged-attention libraries, and the phase
    fails if one lacks wgmma or TMA, or the grouped GEMM holds an mma.sync;
-3. kernel checks: each kernel against its plain PyTorch version on the card
+3. native host runtime: the C++ planner and page pool (``csrc/host``,
+   built with the system C++ compiler) load with ABI 4; the engine's
+   decode, prefill and verify plans and every MLA plan of the DeepSeek
+   loop at V2-Lite widths are equal native and NumPy, field by field; both
+   planners' host us a call on the engine's decode and prefill batches;
+4. kernel checks: each kernel against its plain PyTorch version on the card
    with its time (CUDA events), its bound, the plain version's time and,
    where one PyTorch call computes the same function, that call's time:
    paged attention, the sampler and RMSNorm at the shapes the Llama-3-8B
@@ -28,24 +33,34 @@ Run from the root of a checkout. Phases, in order:
    cast + ``torch.matmul`` route and bf16 ``torch.matmul``; the flash kernel at Llama-3-8B prefill (8192 tokens
    causal), chunked prefill (2048 at the tail of 8192) and decode (32K
    keys), DeepSeek-V2-Lite's MHA prefill (d 192, dv 128), each variant at
-   Llama widths on 2048 tokens, and a small f32 case;
-4. single request: Llama-3-8B widths over 32 layers, an 8192-token prompt
+   Llama widths on 2048 tokens, and a small f32 case. Beside the sampler
+   check, four ``LogitsPipe``s on [8, 128256] logits (the pipe path): each
+   pipe's tokens bit-equal to the direct sampler calls with the same seed,
+   its sampler launches and ms. After the grouped-GEMM checks, fused_moe's
+   four API entry points (the moe_api path) at published layers:
+   ``cutlass_fused_moe`` and ``trtllm_fp8_per_tensor_scale_moe`` at a
+   Mixtral-8x7B layer, ``trtllm_fp8_block_scale_moe`` at a DeepSeek-V3
+   layer (256 experts, e4m3 with 128 x 128 block scales),
+   ``trtllm_fp4_block_scale_moe`` at a gpt-oss-120b layer (mxfp4), each at
+   8 and 1024 tokens against the plain ragged_dot route, with the
+   block-scale dequantization timed on its own;
+5. single request: Llama-3-8B widths over 32 layers, an 8192-token prompt
    through ``single_prefill_with_kv_cache`` and 32
    ``single_decode_with_kv_cache`` steps (the single path: its flash
    launches are read here), then a tiny f32 case card vs CPU;
-5. POD: 32 decodes of 512-4096 keys beside a 2048-token chunk of an
+6. POD: 32 decodes of 512-4096 keys beside a 2048-token chunk of an
    8192-token prompt, Llama-3-8B widths, page 16, HND, 32 layers, both modes
    (the pod path: its launches are read here); the modes must agree with
    their plain versions and each other; the two-launch mode is then traced
    (device time by kernel family, busy share);
-6. cascade: ``MultiLevelCascadeAttentionWrapper`` with 32 requests sharing
+7. cascade: ``MultiLevelCascadeAttentionWrapper`` with 32 requests sharing
    a 4096-token prefix (level 0) and their own suffixes of 64-512 tokens
    (level 1, causal), Llama-3-8B attention widths, page 16, decode (1 query
    token a request; NHD and HND) and append (16; NHD): against flat
    ``BatchAttention`` over the concatenated page tables and the f32
    oracle, each plan's paged-kernel launch against its plain version,
    cascade and flat timed (the cascade path: its launches are read here);
-7. paged surface: the paged-attention surface at full width, each case
+8. paged surface: the paged-attention surface at full width, each case
    through the wrapper a user calls (the surface path: its launches are
    read here): an EAGLE-style tree verify step (8 requests, contexts of
    512-4096 and a 64-token draft tree each, packed custom mask),
@@ -59,7 +74,7 @@ Run from the root of a checkout. Phases, in order:
    prefill batches: each against the f32 oracle and its kernel launch
    against the plain version, timed beside its bound, the plain version,
    SDPA and, where the wrapper gathers its keys, the gather;
-8. tiny references: the f32 tiny Llama engine, and the f32 tiny DeepSeek
+9. tiny references: the f32 tiny Llama engine, and the f32 tiny DeepSeek
    and Mixtral decode loops, on the card (every kernel on) emit the greedy
    tokens of the same model on the CPU (every plain version); the tiny
    engine with
@@ -67,7 +82,7 @@ Run from the root of a checkout. Phases, in order:
    card, on the CPU and without drafts, with drafts accepted; the tiny
    engine with e4m3 and int8 weights (decode, window 4, 3 drafts) emits
    the CPU's tokens;
-9. engine: ``LlamaServingEngine`` at Llama-3-8B widths and depth in bf16,
+10. engine: ``LlamaServingEngine`` at Llama-3-8B widths and depth in bf16,
    random weights from a seeded CUDA generator, 12 requests of 64-512
    prompt tokens and 32 new tokens on 8 slots, sampled and greedy, in three
    modes: the decode step eager (``cuda_graphs=False``), replayed from CUDA
@@ -86,8 +101,13 @@ Run from the root of a checkout. Phases, in order:
    sampled (the 8-bit weight path, whose launch counts are read; the
    grouped GEMM runs every matmul), graphed greedy and eager greedy
    (tokens identical), and int8 graphed greedy, each with its agreement
-   with the bf16 greedy tokens;
-10. DeepSeek: ``deepseek_decode_step`` at DeepSeek-V2-Lite widths and full
+   with the bf16 greedy tokens. Every mode runs on the C++ pool and
+   planner; the graphed greedy run is served again with
+   ``FLASHINFER_TPU_PLANNER=numpy`` (the same tokens, its own planner ms),
+   and one graphed sampled decode step is traced with
+   ``profiler.profile_trace``, whose ``summarize_trace`` must name the
+   paged, RMSNorm and sampler kernels;
+11. DeepSeek: ``deepseek_decode_step`` at DeepSeek-V2-Lite widths and full
    depth (27 layers) in bf16, random weights from a seeded CUDA generator,
    8 requests of 32-128 prompt tokens prefilled token by token and 32 new
    tokens each, one MLA plan per step: sampled (top-k 40, top-p 0.9: the
@@ -95,13 +115,16 @@ Run from the root of a checkout. Phases, in order:
    then a short greedy run on e4m3 caches and the e4m3 witness (one step
    on bf16, e4m3 and bf16-fed-e4m3-values caches: the last two must
    agree);
-11. Mixtral: ``mixtral_decode_step`` at Mixtral-8x7B's widths and 16 of its
+12. Mixtral: ``mixtral_decode_step`` at Mixtral-8x7B's widths and 16 of its
    32 layers (32 are ~93 GB in bf16) in bf16, random weights from a seeded
    CUDA generator, the DeepSeek phase's traffic (8 requests of 32-128
    prompt tokens fed token by token, 32 new tokens each, page 16), a fresh
    decode plan a step: sampled (the Mixtral path, whose launch counts are
    read from this run) and greedy;
-12. one ``{"kernels": [...]}`` line, then the result line.
+13. tooling: ``aot.warmup()``, ``python -m flashinfer_tpu_torch
+   show-config``, and the autotuner (``tune --quick`` in ``autotune()``,
+   its winners persisted to a temporary config path);
+14. one ``{"kernels": [...]}`` line, then the result line.
 
 The script exits non-zero, and prints no result line, when the machine has
 no CUDA device, when it is not run from a checkout, or when any phase fails.
@@ -2031,7 +2054,9 @@ def _engine_mode(torch, np, mc, params, prompts, n_new, card, label,
     full = [ms for ms, f in zip(dec, full_at) if f]
     weight_gb = sum(t.numel() * t.element_size()
                     for t in eng.params.values()) / 1e9
-    res = dict(
+    pool = f"{type(eng.pool).__module__}.{type(eng.pool).__name__}"
+    res = dict(pool=pool, planner=os.environ.get("FLASHINFER_TPU_PLANNER",
+                                                  "auto"),
         tokens_per_s=gen_tokens / wall, wall_s=wall,
         generated_tokens=gen_tokens, steps=steps,
         decode_steps=decode_steps, preemptions=eng.preemptions,
@@ -2068,7 +2093,8 @@ def _engine_mode(torch, np, mc, params, prompts, n_new, card, label,
         f"p{res['decode_step_tail_pct_batch8']} "
         f"{res['decode_step_ms_tail_batch8']}, n={len(full)}); device "
         f"{dev_ms} ms a step, busy share {res.get('busy_share')}; planner "
-        f"{plan_ms:.3f} ms a decode step; graphs {json.dumps(graphs)}; "
+        f"({res['planner']}, pool {pool}) {plan_ms:.3f} ms a decode step; "
+        f"graphs {json.dumps(graphs)}; "
         f"{len(pre)} prefill steps, mean {res['prefill_step_ms_mean']:.1f} "
         f"ms; preemptions {eng.preemptions}; weights {weight_gb:.2f} GB, "
         f"peak memory {res['peak_mem_gb']:.2f} GB; launches {counts} "
@@ -2150,11 +2176,96 @@ def phase_engine(torch, np, card):
         f"{match:.3f}")
     if not all(same.values()):
         raise AssertionError(f"the modes' tokens differ: {same}")
+    results["planner_numpy"] = _engine_numpy_planner(
+        torch, np, mc, params, prompts, n_new, card, results,
+        outs_by["graphed", "greedy"])
+    results["trace"] = _trace_llama_step(torch, mc, params, prompts, card)
     results["variants"] = _engine_variants(
         torch, np, mc, params, prompts[:8], outs_by["graphed", "greedy"])
     results["w8"] = _engine_w8(torch, np, mc, params, prompts, n_new, card,
                                outs_by["graphed", "greedy"])
     return results
+
+
+def _engine_numpy_planner(torch, np, mc, params, prompts, n_new, card,
+                          results, native_greedy):
+    """The graphed greedy run again with ``FLASHINFER_TPU_PLANNER=numpy``:
+    the same tokens as on the native planner, and its own planner ms."""
+    native = results["graphed"]["greedy"]
+    if not native["pool"].endswith("native.PagePool"):
+        raise AssertionError(f"the engine ran on {native['pool']}, not the "
+                             "C++ pool")
+    prev = os.environ.get("FLASHINFER_TPU_PLANNER")
+    os.environ["FLASHINFER_TPU_PLANNER"] = "numpy"
+    try:
+        res, outs, _ = _engine_mode(torch, np, mc, params, prompts, n_new,
+                                    card, "graphed greedy, NumPy planner",
+                                    LLAMA_PATH, greedy=True)
+    finally:
+        if prev is None:
+            del os.environ["FLASHINFER_TPU_PLANNER"]
+        else:
+            os.environ["FLASHINFER_TPU_PLANNER"] = prev
+    same = outs == native_greedy
+    log(f"engine planner ms a decode step: native "
+        f"{native['plan_ms_per_decode_step']:.3f}, NumPy "
+        f"{res['plan_ms_per_decode_step']:.3f}; greedy tokens identical: "
+        f"{same} [{card}]")
+    if not same:
+        raise AssertionError("the NumPy planner's engine emits other tokens")
+    return dict(plan_ms_per_decode_step=res["plan_ms_per_decode_step"],
+                native_plan_ms_per_decode_step=native[
+                    "plan_ms_per_decode_step"],
+                decode_step_ms_median_batch8=res[
+                    "decode_step_ms_median_batch8"], tokens_equal=same)
+
+
+# kernel name fragments of the Llama decode step's kernels in a trace
+TRACE_KERNELS = (("paged_attention", ("paged_dec_kernel", "paged_tc_kernel",
+                                      "paged_f32_kernel")),
+                 ("rmsnorm", ("rmsnorm",)),
+                 ("sampler_family", ("family_cluster_kernel",
+                                     "family_stream_kernel")))
+
+
+def _trace_llama_step(torch, mc, params, prompts, card):
+    """One graphed, sampled Llama-3-8B decode step at batch 8 traced with
+    ``profiler.profile_trace``; ``summarize_trace`` must find the paged,
+    RMSNorm and sampler kernels by name."""
+    import tempfile
+
+    from flashinfer_tpu_torch import EngineConfig, LlamaServingEngine
+    from flashinfer_tpu_torch import profiler
+
+    eng = LlamaServingEngine(EngineConfig(model=mc, max_batch=8,
+                                          device=DEVICE), params=params,
+                             seed=0)
+    for p in prompts[:8]:
+        eng.add_request(p, 8)
+    eng.step()  # admission, prefill and the first decode (its capture)
+    eng.step()
+    with tempfile.TemporaryDirectory() as d:
+        with profiler.profile_trace(d):
+            with profiler.annotate("llama_decode_step"):
+                eng.step()
+        top = profiler.summarize_trace(d, top=60)
+        trace_mb = os.path.getsize(profiler.latest_trace_path(d)) / 1e6
+    eng.run_to_completion()
+    found = {fam: sorted({n[:60] for n, _, _ in top
+                          if any(k in n for k in keys)})
+             for fam, keys in TRACE_KERNELS}
+    total = sum(ms for _, ms, _ in top)
+    log(f"traced decode step: {len(top)} kernel names, {total:.2f} ms of "
+        f"device time, trace {trace_mb:.1f} MB; found {found} [{card}]")
+    for name, ms, n in top[:8]:
+        log(f"  device {ms:8.3f} ms  x{n:<5d} {name[:90]}")
+    missing = [fam for fam, names in found.items() if not names]
+    if missing:
+        raise AssertionError(f"summarize_trace missed {missing}")
+    del eng
+    torch.cuda.empty_cache()
+    return dict(found=found, device_ms=total, kernels=len(top),
+                trace_mb=trace_mb)
 
 
 def _unfused(params, mc):
@@ -2303,7 +2414,7 @@ def _token_loop(torch, np, prompts, n_new, page_size, forward, *, device,
         softmax,
         top_k_top_p_sampling_from_probs,
     )
-    from flashinfer_tpu_torch.scheduler.page_pool import PagePool
+    from flashinfer_tpu_torch.scheduler.native import PagePool
 
     B = len(prompts)
     pool = PagePool(_pages_needed(prompts, n_new, page_size), page_size)
@@ -3419,6 +3530,504 @@ def phase_paged_surface(torch, np, card, lens_decode, lens_prefill):
 
 # --------------------------------------------------------------------- main
 
+# ---------------------------------------------------- native host runtime
+
+PLAN_ARRAYS = ("request_indices", "qo_tile_indices", "kv_tile_indices",
+               "qo_start_row", "qo_tile_len", "kv_start", "kv_end",
+               "kv_page_start", "num_kv_splits", "q_pos_base",
+               "merge_out_row")
+PLAN_SCALARS = ("tile_q", "kv_chunk_size", "num_work_items", "total_rows",
+                "batch_size", "page_size", "gqa_group", "num_valid_items")
+
+
+def _plans_differ(np, a, b):
+    """The fields where two AttentionPlans differ ([] where equal)."""
+    bad = [f for f in PLAN_SCALARS if int(getattr(a, f)) != int(getattr(b, f))]
+    return bad + [f for f in PLAN_ARRAYS
+                  if not np.array_equal(getattr(a, f), getattr(b, f))]
+
+
+@contextlib.contextmanager
+def _both_planners(np):
+    """While open, every plan the paged and MLA wrappers build is planned by
+    the native and the NumPy planner and the two held equal field by field;
+    the native plan is used. Yields the list of (args, kwargs, wrapper
+    module) of the calls."""
+    from flashinfer_tpu_torch.ops.attention import batch, mla
+
+    calls, orig = [], {}
+
+    def checked(mod):
+        real = orig[mod]
+
+        def fn(*a, **k):
+            got = real(*a, backend="native", **k)
+            bad = _plans_differ(np, got, real(*a, backend="numpy", **k))
+            if bad:
+                raise AssertionError(f"native and NumPy plans differ in {bad}")
+            calls.append((a, k, mod.__name__.rsplit(".", 1)[-1]))
+            return got
+        return fn
+
+    for mod in (batch, mla):
+        orig[mod] = mod.plan_attention
+        mod.plan_attention = checked(mod)
+    try:
+        yield calls
+    finally:
+        for mod, fn in orig.items():
+            mod.plan_attention = fn
+
+
+def _deepseek_loop_plans(np, prompts, n_new):
+    """The MLA plans ``deepseek_serve`` builds at V2-Lite widths for these
+    prompts, step by step (the token loop's pool and live set, no model)."""
+    from flashinfer_tpu_torch.ops.attention.mla import (
+        BatchMLAPagedAttentionWrapper,
+    )
+    from flashinfer_tpu_torch.scheduler.native import PagePool
+
+    c = V2_LITE
+    pool = PagePool(_pages_needed(prompts, n_new, MLA_PAGE), MLA_PAGE)
+    seqs = [pool.create() for _ in prompts]
+    done_at = [len(p) - 1 + n_new for p in prompts]
+    t = 0
+    while t < max(done_at):
+        live = [i for i in range(len(prompts)) if t < done_at[i]]
+        for i in live:
+            pool.extend(seqs[i], t + 1)
+        indptr, indices, _ = pool.batch_export([seqs[i] for i in live])
+        BatchMLAPagedAttentionWrapper(device=DEVICE).plan(
+            np.arange(len(live) + 1), indptr, indices,
+            np.full(len(live), t + 1), c["num_heads"], c["head_dim_ckv"],
+            c["head_dim_kpe"], MLA_PAGE, kv_chunk_size=64,
+            sm_scale=(c["head_dim_qk_nope"] + c["head_dim_kpe"]) ** -0.5)
+        t += 1
+    return t
+
+
+def _planner_us(np, args, kwargs, backend, n=300):
+    """Median host µs of ``plan_attention`` on one backend."""
+    from flashinfer_tpu_torch.scheduler.plan import plan_attention
+
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        plan_attention(*args, backend=backend, **kwargs)
+        times.append((time.perf_counter() - t0) * 1e6)
+    return float(np.median(times))
+
+
+def phase_native(torch, np, lens_decode, lens_prefill):
+    """The host runtime: the C++ planner and page pool build and load (ABI
+    4); the engine's decode, prefill and verify plans and every MLA plan of
+    the DeepSeek loop at V2-Lite widths are equal native and NumPy, field
+    by field; the two planners' host µs a call on the engine's decode and
+    prefill batches."""
+    from flashinfer_tpu_torch import jit
+    from flashinfer_tpu_torch.scheduler.native import native_plan_available
+
+    lib = jit.get_native_runtime()
+    if lib is None or not native_plan_available():
+        raise AssertionError("the host runtime did not load")
+    abi = int(lib.fi_native_abi_version())
+    if abi != 4:
+        raise AssertionError(f"host runtime ABI {abi} != 4")
+    stats = jit.jit_registry.get_stats()["fi_native"]
+    log(f"host runtime: ABI {abi}, {stats}")
+    with _both_planners(np) as calls:
+        _engine_like_plans(np, lens_decode, lens_prefill)
+        engine_calls = list(calls)
+        rng = np.random.default_rng(1)  # phase_deepseek's prompts
+        prompts = [rng.integers(0, V2_LITE["vocab_size"], int(n)).tolist()
+                   for n in rng.integers(32, 129, 8)]
+        steps = _deepseek_loop_plans(np, prompts, 32)
+    n_mla = sum(1 for c in calls if c[2] == "mla")
+    log(f"native == NumPy plans, field by field: {len(engine_calls)} engine "
+        f"plans (decode, prefill, verify), {n_mla} MLA plans over the "
+        f"DeepSeek loop's {steps} steps")
+    timing = {}
+    for name, (a, k, _) in zip(("decode", "prefill", "verify"),
+                               engine_calls):
+        timing[name] = {b: _planner_us(np, a, k, b)
+                        for b in ("native", "numpy")}
+        log(f"planner host us a call, Llama {name} batch: native "
+            f"{timing[name]['native']:.1f}, numpy "
+            f"{timing[name]['numpy']:.1f}")
+    return dict(abi=abi, build=stats, engine_plans=len(engine_calls),
+                mla_plans=n_mla, planner_us=timing)
+
+
+# ----------------------------------------------- fused_moe's entry points
+
+# (name, entry point, experts, hidden, intermediate, top_k, routing): the
+# published configs' MoE layers. Mixtral-8x7B (huggingface.co/mistralai/
+# Mixtral-8x7B-v0.1 config.json), DeepSeek-V3 (huggingface.co/deepseek-ai/
+# DeepSeek-V3 config.json: n_routed_experts 256, moe_intermediate_size 2048,
+# num_experts_per_tok 8, n_group 8, topk_group 4, routed_scaling_factor
+# 2.5), gpt-oss-120b (huggingface.co/openai/gpt-oss-120b config.json:
+# num_local_experts 128, intermediate_size 2880, experts_per_token 4)
+MOE_ENTRY_CASES = (
+    ("cutlass_fused_moe", "mixtral", 8, 4096, 14336, 2),
+    ("trtllm_fp8_per_tensor_scale_moe", "mixtral", 8, 4096, 14336, 2),
+    ("trtllm_fp8_block_scale_moe", "deepseek_v3", 256, 7168, 2048, 8),
+    ("trtllm_fp4_block_scale_moe", "gpt_oss_120b", 128, 2880, 2880, 4),
+)
+MOE_ENTRY_TOKENS = (8, 1024)  # a decode batch and a prefill chunk
+# against the plain ragged_dot route (backend="xla"): two bf16 steps of the
+# output (h1, the activation and the output are rounded to bf16 on both
+# sides from f32 sums taken in other orders), plus 2^-5 of the output's rms
+# (the plain route rounds e4m3 weights times their scale to bf16, where the
+# kernel scales the f32 sum)
+MOE_RTOL, MOE_ATOL_RMS = 2.0 ** -6, 2.0 ** -5
+
+
+def _moe_entry_inputs(torch, name, e, hidden, inter, gen):
+    """The entry point's weights on the card, made a few experts at a time
+    (their full-size f32 temporaries would not fit): returns (weight
+    arguments, the bf16 weights where the entry point takes them as they
+    are, else None, weight bytes an expert as the entry point reads
+    them)."""
+    dev = torch.device(DEVICE)
+
+    def chunked(shape, fn, dtype):
+        out = torch.empty(shape, dtype=dtype, device=dev)
+        for e0 in range(0, shape[0], 16):
+            out[e0:e0 + 16] = fn(min(16, shape[0] - e0))
+        return out
+
+    def randn(n, rows, cols, scale):
+        return torch.randn(n, rows, cols, device=dev, generator=gen,
+                           dtype=torch.bfloat16) * scale
+
+    s13, s2 = hidden ** -0.5, inter ** -0.5
+    if name == "cutlass_fused_moe":
+        w13 = chunked((e, 2 * inter, hidden), lambda n: randn(
+            n, 2 * inter, hidden, s13), torch.bfloat16)
+        w2 = chunked((e, hidden, inter), lambda n: randn(n, hidden, inter,
+                                                         s2), torch.bfloat16)
+        return (w13, w2), (w13, w2), 2 * 3 * inter * hidden
+    if name == "trtllm_fp8_per_tensor_scale_moe":
+        # e4m3 weights at 64x their values, one 1/64 scale a GEMM
+        w13 = chunked((e, 2 * inter, hidden), lambda n: (randn(
+            n, 2 * inter, hidden, s13) * 64).to(torch.float8_e4m3fn),
+            torch.float8_e4m3fn)
+        w2 = chunked((e, hidden, inter), lambda n: (randn(
+            n, hidden, inter, s2) * 64).to(torch.float8_e4m3fn),
+            torch.float8_e4m3fn)
+        sc = torch.tensor(1 / 64, device=dev)
+        return (w13, sc, w2, sc), None, 3 * inter * hidden
+    if name == "trtllm_fp8_block_scale_moe":
+        def blocks(n, rows, cols, scale):
+            s = (torch.rand(n, rows // 128, cols // 128, device=dev,
+                            generator=gen) + 0.5) * scale / 64
+            w = randn(n, rows, cols, scale) / s.repeat_interleave(
+                128, 1).repeat_interleave(128, 2)
+            return w.to(torch.float8_e4m3fn), s
+        w13 = torch.empty(e, 2 * inter, hidden, dtype=torch.float8_e4m3fn,
+                          device=dev)
+        w2 = torch.empty(e, hidden, inter, dtype=torch.float8_e4m3fn,
+                         device=dev)
+        sc13 = torch.empty(e, 2 * inter // 128, hidden // 128, device=dev)
+        sc2 = torch.empty(e, hidden // 128, inter // 128, device=dev)
+        for e0 in range(0, e, 16):
+            w13[e0:e0 + 16], sc13[e0:e0 + 16] = blocks(16, 2 * inter, hidden,
+                                                       s13)
+            w2[e0:e0 + 16], sc2[e0:e0 + 16] = blocks(16, hidden, inter, s2)
+        return ((w13, sc13, w2, sc2), None,
+                3 * inter * hidden + 4 * 3 * inter * hidden // 128 ** 2)
+    # mxfp4: random e2m1 codes, e8m0 scales of 2^-8 .. 2^-5
+    def fp4(n, rows, cols):
+        packed = torch.randint(0, 256, (n, rows, cols // 2), device=dev,
+                               generator=gen, dtype=torch.uint8)
+        sf = torch.randint(119, 123, (n, rows, cols // 32), device=dev,
+                           generator=gen, dtype=torch.uint8)
+        return packed, sf
+    p13, f13 = fp4(e, 2 * inter, hidden)
+    p2, f2 = fp4(e, hidden, inter)
+    return ((p13, f13, p2, f2), None,
+            3 * inter * hidden // 2 + 3 * inter * hidden // 32)
+
+
+def _moe_entry_call(moe, name, logits, bias, x, weights, e, inter, top_k,
+                    backend):
+    """One call of entry point ``name`` on these inputs (its own routing,
+    from ``logits``, for the trtllm entry points)."""
+    if name == "cutlass_fused_moe":
+        ids, sc = moe.route_tokens(logits, top_k,
+                                   moe.RoutingMethodType.Renormalize)
+        return moe.cutlass_fused_moe(x, ids, sc, *weights, x.dtype,
+                                     backend=backend)
+    if name == "trtllm_fp8_per_tensor_scale_moe":
+        w13, s13, w2, s2 = weights
+        return moe.trtllm_fp8_per_tensor_scale_moe(
+            logits, None, x, w13, s13, w2, s2, e, top_k, None, None, inter,
+            routing_method_type=moe.RoutingMethodType.Renormalize,
+            backend=backend)
+    if name == "trtllm_fp8_block_scale_moe":
+        xq, sx = x
+        w13, s13, w2, s2 = weights
+        return moe.trtllm_fp8_block_scale_moe(
+            logits, bias, xq, sx, w13, s13, w2, s2, e, top_k, 8, 4, inter,
+            routed_scaling_factor=2.5, backend=backend)
+    p13, f13, p2, f2 = weights
+    return moe.trtllm_fp4_block_scale_moe(
+        logits, None, x, None, p13, f13, p2, f2, num_experts=e, top_k=top_k,
+        intermediate_size=inter, backend=backend)
+
+
+def phase_moe_entries(torch, np, card):
+    """fused_moe's four API entry points at the published layers' widths,
+    each at a decode batch of 8 tokens and a 1024-token prefill chunk: the
+    kernel path (two grouped-GEMM launches a call) held to the plain
+    ragged_dot route on the same inputs and routing, timed (CUDA events,
+    eager) beside its bound, the plain route and, where the weights reach
+    the GEMMs in bf16, two ``torch._grouped_mm`` calls; the block-scale
+    entry points' dequantization timed on its own. Returns the rows and
+    the grouped-GEMM launches of the kernel calls (the moe_api path)."""
+    import importlib
+
+    moe = importlib.import_module("flashinfer_tpu_torch.ops.fused_moe")
+    from flashinfer_tpu_torch.ops.gemm_grouped import grouped_gemm_padded
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    rows, launches = [], 0
+    for name, model, e, hidden, inter, top_k in MOE_ENTRY_CASES:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        weights, bf16_w, w_bytes = _moe_entry_inputs(torch, name, e, hidden,
+                                                     inter, gen)
+        torch.cuda.synchronize()
+        gb = sum(t.numel() * t.element_size() for t in weights) / 1e9
+        log(f"{name} at {model}: {e} experts, hidden {hidden}, intermediate "
+            f"{inter}, top-{top_k}; weights {gb:.2f} GB made in "
+            f"{time.perf_counter() - t0:.1f} s")
+        deq = {"trtllm_fp8_block_scale_moe": moe._dequant_block_fp8,
+               "trtllm_fp4_block_scale_moe": moe._dequant_mxfp4}.get(name)
+        deq_ms = None
+        if deq is not None:  # every weight to bf16, as each call does
+            w13, s13, w2, s2 = weights
+            deq_ms = cuda_ms(torch, lambda: (deq(w13, s13), deq(w2, s2)), 3,
+                             warmup=1)
+            log(f"  {name} dequantization of every weight to bf16: "
+                f"{deq_ms:.3f} ms a call [{card}]")
+            bf16_w = (deq(w13, s13), deq(w2, s2))  # for the library's time
+        for m in MOE_ENTRY_TOKENS:
+            logits = torch.randn(m, e, device=dev, generator=gen)
+            bias = torch.randn(e, device=dev, generator=gen) * 0.1
+            xb = torch.randn(m, hidden, device=dev, generator=gen,
+                             dtype=torch.bfloat16)
+            if name == "trtllm_fp8_block_scale_moe":
+                sx = torch.rand(m, hidden // 128, device=dev,
+                                generator=gen) / 64 + 1 / 128
+                x = ((xb.float() / sx.repeat_interleave(128, 1)).to(
+                    torch.float8_e4m3fn), sx)
+            else:
+                x = xb
+
+            def call(backend):
+                return _moe_entry_call(moe, name, logits, bias, x, weights,
+                                       e, inter, top_k, backend)
+
+            before = grouped_gemm_padded.launches
+            got = call("auto")
+            torch.cuda.synchronize()
+            n_launch = grouped_gemm_padded.launches - before
+            launches += n_launch
+            want = call("xla")
+            diff = (got.float() - want.float()).abs()
+            rms = float(want.float().pow(2).mean().sqrt())
+            ratio = float((diff / (MOE_RTOL * want.float().abs()
+                                   + MOE_ATOL_RMS * rms)).max())
+            finite = bool(torch.isfinite(got.float()).all())
+            iters = 3 if e >= 128 else 10
+            ms = cuda_ms(torch, lambda: call("auto"), iters, warmup=1)
+            plain_ms = cuda_ms(torch, lambda: call("xla"), 2, warmup=0)
+            # routing as the entry point routes, for the bound's experts
+            if name == "trtllm_fp8_block_scale_moe":
+                ids, _ = moe.route_tokens(logits, top_k,
+                                          moe.RoutingMethodType.DeepSeekV3,
+                                          n_group=8, topk_group=4,
+                                          routed_scaling_factor=2.5,
+                                          routing_bias=bias)
+            else:
+                ids, _ = moe.route_tokens(logits, top_k,
+                                          moe.RoutingMethodType.Renormalize)
+            used = int(torch.unique(ids).numel())
+            x_bytes = (m * hidden + x[1].numel() * 4 if isinstance(x, tuple)
+                       else m * hidden * 2)
+            nbytes = used * w_bytes + x_bytes + m * hidden * 2 + m * e * 4
+            ops = 2 * m * top_k * 3 * inter * hidden
+            b_ms, b_by = bound_ms(nbytes, ops, "bf16")
+            lib_ms = None
+            if bf16_w is not None:
+                lib_ms = _moe_library_ms(torch, moe, xb, ids, *bf16_w)
+            ok = ratio <= 1.0 and finite and n_launch == 2
+            row = dict(entry=name, model=model, tokens=m, experts=e,
+                       hidden=hidden, inter=inter, top_k=top_k,
+                       experts_used=used, grouped_gemm_launches=n_launch,
+                       err=float(diff.max()), limit_ratio=ratio, ms=ms,
+                       plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                       bound_bytes=nbytes, bound_ops=ops, library_ms=lib_ms,
+                       dequant_ms=deq_ms, ok=ok,
+                       peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+            rows.append(row)
+            log(f"  {name} {m:5d} tokens: {used} experts used, grouped GEMM "
+                f"launches {n_launch}, err {row['err']:.3e} (limit ratio "
+                f"{ratio:.3f}), ms {ms:.4f}, plain ms {plain_ms:.3f}, bound "
+                f"ms {b_ms:.5f} ({b_by}), library ms {lib_ms}, peak "
+                f"{row['peak_mem_gb']:.1f} GB {'ok' if ok else 'MISMATCH'} "
+                f"[{card}]")
+            del got, want, diff
+        del weights, bf16_w
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"MoE entry points disagree with their plain "
+                             f"route: {bad}")
+    return dict(rows=rows, launches={"grouped_gemm": launches})
+
+
+def _moe_library_ms(torch, moe, x, ids, w13, w2):
+    """Two ``torch._grouped_mm`` calls (gate/up, then down on the
+    activation) over the rows sorted by expert: the same bf16 products,
+    without the gathers and the combine; None where this PyTorch lacks it
+    or refuses the call."""
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None:
+        return None
+    order, sizes = moe._permute_by_expert(ids, w13.shape[0])
+    xs = x[order // ids.shape[1]]
+    offs = torch.cumsum(sizes, 0).to(torch.int32)
+    w13t, w2t = w13.transpose(1, 2), w2.transpose(1, 2)
+    h = torch.zeros(xs.shape[0], w13.shape[1] // 2, dtype=x.dtype,
+                    device=x.device)
+
+    def run():
+        fn(h, w2t, offs=offs)
+        return fn(xs, w13t, offs=offs)
+    try:
+        run()
+        torch.cuda.synchronize()
+    except (RuntimeError, TypeError) as err:
+        log(f"  torch._grouped_mm refused: {err}"[:300])
+        return None
+    return cuda_ms(torch, run, 10)
+
+
+# ------------------------------------------------------- the logits pipe
+
+LOGITS_PIPES = (
+    (("Temperature", "Softmax", "TopK", "TopP", "Sample"),
+     dict(temperature=0.7, top_k=40, top_p=0.9)),
+    (("Softmax", "Sample"), {}),
+    (("Temperature", "Softmax", "MinP", "Sample"),
+     dict(temperature=0.7, min_p=0.05)),
+    (("TopK", "Softmax", "TopP", "Sample"), dict(top_k=40, top_p=0.9)),
+)
+
+
+def _pipe_direct(torch, S, names, logits, seed, p):
+    """The sampler surface called as the pipe compiles ``names``."""
+    if names[0] == "Temperature":
+        probs = torch.softmax((logits / p["temperature"]).float(), -1)
+        if "MinP" in names:
+            return S.min_p_sampling_from_probs(probs, p["min_p"], seed=seed)
+        return S.top_k_top_p_sampling_from_probs(probs, p["top_k"],
+                                                 p["top_p"], seed=seed)
+    if names[0] == "TopK":
+        probs = torch.softmax(S.top_k_mask_logits(logits, p["top_k"]).float(),
+                              -1)
+        return S.top_p_sampling_from_probs(probs, p["top_p"], seed=seed)
+    return S.sampling_from_logits(logits, seed=seed)
+
+
+def phase_logits_pipe(torch, card):
+    """Four ``LogitsPipe``s on [8, 128256] f32 logits (Llama-3-8B's
+    vocabulary): each pipe's compiled steps, its tokens bit-equal to the
+    direct sampler calls with the same seed, its sampler launches and its
+    ms (CUDA events, eager) beside the direct calls'."""
+    from flashinfer_tpu_torch import logits_processor as lp
+    from flashinfer_tpu_torch.ops import sampling as S
+    from flashinfer_tpu_torch.ops.sampling import family_call
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    logits = torch.randn(8, 128256, device=dev, generator=gen) * 3
+    rows, launches = [], 0
+    for names, params in LOGITS_PIPES:
+        pipe = lp.LogitsPipe([getattr(lp, n)() for n in names])
+        equal = True
+        for seed in (5, 2**31 - 7, 123456):
+            before = family_call.launches
+            got = pipe(logits, seed=seed, **params)
+            torch.cuda.synchronize()
+            n_launch = family_call.launches - before
+            launches += n_launch
+            want = _pipe_direct(torch, S, names, logits, seed, params)
+            equal &= bool(torch.equal(got, want))
+        ms = cuda_ms(torch, lambda: pipe(logits, seed=5, **params), 20)
+        direct_ms = cuda_ms(torch, lambda: _pipe_direct(
+            torch, S, names, logits, 5, params), 20)
+        row = dict(pipe=list(names), params=params,
+                   compiled_names=pipe.compiled_names,
+                   sampler_launches=n_launch, tokens_equal=equal, ms=ms,
+                   direct_ms=direct_ms)
+        rows.append(row)
+        log(f"pipe {list(names)} -> {pipe.compiled_names}: sampler launches "
+            f"{n_launch} a call, tokens equal to the direct calls: {equal}, "
+            f"ms {ms:.4f} (direct {direct_ms:.4f}) [{card}]")
+    if not all(r["tokens_equal"] and r["sampler_launches"] for r in rows):
+        raise AssertionError(f"a pipe differs from its direct calls: {rows}")
+    return dict(rows=rows, launches={"sampler_family": launches})
+
+
+# ---------------------------------------------------------------- tooling
+
+def phase_tooling(torch, np, card):
+    """``aot.warmup()`` over the default universe, ``python -m
+    flashinfer_tpu_torch show-config`` in its own process, and the
+    autotuner: ``tune --quick`` (the paged and MLA prefill tiles, timed
+    inside ``autotune()``) persisting its winners to a temporary config
+    path."""
+    import tempfile
+
+    from flashinfer_tpu_torch import aot, autotuner
+    from flashinfer_tpu_torch.__main__ import main as cli
+
+    t0 = time.perf_counter()
+    n = aot.warmup()
+    warm_s = time.perf_counter() - t0
+    log(f"aot.warmup(): {n} configs in {warm_s:.1f} s")
+    out = subprocess.run([sys.executable, "-m", "flashinfer_tpu_torch",
+                          "show-config"], capture_output=True, text=True,
+                         timeout=300, check=True).stdout
+    log("show-config:\n" + out.strip())
+    info = json.loads(out)
+    if not info["native_runtime_available"]:
+        raise AssertionError("show-config: no native runtime")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "autotuner_configs.json")
+        real = autotuner.get_config_path
+        autotuner.get_config_path = lambda: path
+        autotuner.AutoTuner._instance = None
+        try:
+            t0 = time.perf_counter()
+            cli(["tune", "--quick"])
+            with open(path) as f:
+                winners = json.load(f)
+            tune_s = time.perf_counter() - t0
+        finally:
+            autotuner.get_config_path = real
+            autotuner.AutoTuner._instance = None
+    log(f"autotuner: winners {winners} persisted in {tune_s:.1f} s")
+    if len(winners) != 2:
+        raise AssertionError(f"the tuner persisted {winners}")
+    return dict(aot_configs=n, aot_s=warm_s, show_config=info,
+                tuned=winners, tune_s=tune_s)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every measurement here (JSON)")
@@ -3452,14 +4061,19 @@ def main() -> int:
     # sequence crosses the 512-token chunk, so split-KV partials merge
     lens_prefill = [int(n) for n in lens[:8]]
     lens_decode = [int(n) + 16 for n in lens[:7]] + [540]
+    native = ph.run("native host runtime", phase_native, torch, np,
+                    lens_decode, lens_prefill)
     attn = ph.run("kernel check: paged attention", check_paged_attention,
                   torch, np, lens_decode, lens_prefill)
     samp = ph.run("kernel check: sampler", check_sampler, torch)
+    pipes = ph.run("logits pipe", phase_logits_pipe, torch, card)
     norm = ph.run("kernel check: rmsnorm", check_rmsnorm, torch)
     mla = ph.run("kernel check: MLA attention", check_mla, torch, np)
     gg = ph.run("kernel check: grouped GEMM", check_grouped_gemm, torch, np)
     w8 = ph.run("kernel check: grouped GEMM as w8_matmul", check_w8_matmul,
                 torch, np)
+    torch.cuda.empty_cache()
+    moe_api = ph.run("MoE entry points", phase_moe_entries, torch, np, card)
     torch.cuda.empty_cache()
     flash = ph.run("kernel check: flash attention", check_flash_attention,
                    torch, np)
@@ -3477,6 +4091,8 @@ def main() -> int:
     dsk = ph.run("DeepSeek", phase_deepseek, torch, np, card)
     torch.cuda.empty_cache()
     mix = ph.run("Mixtral", phase_mixtral, torch, np, card)
+    torch.cuda.empty_cache()
+    tools = ph.run("tooling", phase_tooling, torch, np, card)
 
     # each path's sampled run, its counts set to 0 just before it; a kernel
     # on both paths reports the launches of both runs
@@ -3491,7 +4107,9 @@ def main() -> int:
                "single": (single or {}).get("launches", {}),
                "pod": (pod or {}).get("launches", {}),
                "cascade": (casc or {}).get("launches", {}),
-               "surface": (surf or {}).get("launches", {})}
+               "surface": (surf or {}).get("launches", {}),
+               "moe_api": (moe_api or {}).get("launches", {}),
+               "pipe": (pipes or {}).get("launches", {})}
 
     def launches(name):
         return sum(counts.get(name, 0) for counts in by_path.values())
@@ -3581,7 +4199,9 @@ def main() -> int:
     log(f"total {time.perf_counter() - t_start:.1f} s [{card}]")
     if args.out:
         with open(args.out, "w") as f:
-            json.dump(dict(card=card, attention=attn, sampler=samp,
+            json.dump(dict(card=card, native=native, pipes=pipes,
+                           moe_api=moe_api, tooling=tools,
+                           attention=attn, sampler=samp,
                            rmsnorm=norm, mla=mla, grouped_gemm=gg,
                            w8_matmul=w8,
                            flash=flash, single=single, pod=pod,

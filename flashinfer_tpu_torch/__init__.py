@@ -6,9 +6,11 @@ kernel's plain PyTorch version instead. The CUDA kernels build with nvcc at
 first use (``flashinfer_tpu_torch.jit``).
 
 ``__all__`` holds the names of the JAX package's ``__all__``, all of which
-the port computes. The Llama serving engine, the model configurations and the op
-namespaces are attributes here too, as in the JAX package, outside
-``__all__``."""
+the port computes. The Llama serving engine, the model configurations, the
+op modules and the subsystem namespaces (``aot``, ``autotuner``, ``jit``,
+``logits_processor``, ``models``, ``profiler``, ``scheduler``, ``serving``,
+``testing``) are attributes here too, as in the JAX package, outside
+``__all__``; JAX's ``parallel`` is not ported yet."""
 
 __version__ = "0.1.0"  # the JAX package's version, which the port tracks
 
@@ -16,7 +18,18 @@ from flashinfer_tpu_torch.models.llama import (  # noqa: F401
     LlamaConfig,
     params_from_numpy,
 )
-from flashinfer_tpu_torch.ops import fp4, fp8, gemm  # noqa: F401
+import importlib as _importlib
+
+from flashinfer_tpu_torch.ops import (  # noqa: F401
+    activation,
+    fp4,
+    fp8,
+    gemm,
+    norm,
+    quantization,
+    rope,
+    sampling,
+)
 from flashinfer_tpu_torch.ops.activation import (
     gelu_and_mul,
     gelu_tanh_and_mul,
@@ -105,6 +118,22 @@ from flashinfer_tpu_torch.serving.engine import (  # noqa: F401
     propose_ngram,
 )
 from flashinfer_tpu_torch.utils import MaskMode, PosEncodingMode, TensorLayout
+
+# the module, as in the JAX package (``ops.fused_moe`` is the function)
+fused_moe = _importlib.import_module("flashinfer_tpu_torch.ops.fused_moe")
+del _importlib
+
+from flashinfer_tpu_torch import (  # noqa: F401, E402 (subsystem namespaces)
+    aot,
+    autotuner,
+    jit,
+    logits_processor,
+    models,
+    profiler,
+    scheduler,
+    serving,
+    testing,
+)
 
 __all__ = [
     "__version__",

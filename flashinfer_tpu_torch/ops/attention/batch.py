@@ -26,7 +26,12 @@ What a plan carries, as JAX's does:
   JAX's;
 - ``kv_chunk_size=None``: decode-like plans balance as JAX's planner does;
   prefill plans take ``prefill_kv_chunk``, an H100 rule in place of JAX's
-  VMEM model.
+  VMEM model;
+- the rows a work item (``tile_q``) of a prefill plan the caller did not
+  pin: the autotuner's persisted winner for the batch's shape where it has
+  one, else the derived size; inside ``autotune()`` the first ``run()``
+  times each of ``PREFILL_TILE_QS`` (the tensor-core route's tiles) and
+  persists the fastest (the counterpart of JAX's ``_select_tiles``).
 
 ``BatchPrefillWithRaggedKVCacheWrapper`` (contiguous KV planned as pages
 of one token, so repacked into 128-token pages as JAX's are) and
@@ -409,6 +414,13 @@ def run_device_plan(
     return out
 
 
+def _chained(q: torch.Tensor, out) -> torch.Tensor:
+    """q plus a vanishing multiple of the output: the next timed call then
+    waits for this one."""
+    o = out[0] if isinstance(out, tuple) else out
+    return q + (o.float().sum() * 1e-30).to(q.dtype)
+
+
 @dataclasses.dataclass
 class PlanState:
     plan: AttentionPlan
@@ -417,6 +429,29 @@ class PlanState:
     variant_params: Any
     # the caller's page table, lengths and masks, for the reference backend
     host: dict
+    # (op key, tactics, plan() arguments) of a derived tile_q the tuner
+    # has no winner for: timed at run() inside autotune()
+    tune: Optional[tuple] = None
+
+
+# a prefill plan's tile_q tactics: the paged kernel's tensor-core route
+# (128-row CTAs; 64 a half-filled one)
+PREFILL_TILE_QS = (64, 128, 256, 512)
+
+
+def _tuned_tile_q(op_key: str, derived: int, floor: int, choices):
+    """(tile_q, tactics or None): the tuner's persisted winner among
+    ``choices`` at or above ``floor`` and the derived size, else the
+    derived size and those tactics, the derived size first, to time."""
+    from flashinfer_tpu_torch.autotuner import AutoTuner
+
+    tactics = [{"tile_q": t} for t in sorted(
+        {derived} | {c for c in choices if c >= floor},
+        key=lambda t: t != derived)]
+    sel = AutoTuner.get().cached(op_key, tactics)
+    if sel is not None:
+        return sel["tile_q"], None
+    return derived, tactics
 
 
 class BatchAttention:
@@ -492,6 +527,10 @@ class BatchAttention:
         ``token_pos_in_items_len``; ``max_item_len_ptr`` is a hint, unread).
         ``defer_upload`` leaves the plan's blob on the host; workspace
         buffers and other keywords of the reference go to ``_ignored``."""
+        # the arguments, to plan again with another tile_q when tuning
+        call = {k: v for k, v in locals().items()
+                if k not in ("self", "_ignored")}
+        call.update(_ignored)
         qo_indptr = _host(qo_indptr, np.int64)
         kv_indptr = _host(kv_indptr, np.int64)
         kv_indices_np = _host(kv_indices, np.int64)
@@ -547,8 +586,21 @@ class BatchAttention:
         avg_packed = max(1, int((qo_lens * group).mean())) if batch else 1
         tile_q = self._tile_q or min(512, max(8, next_power_of_2(avg_packed)))
         tile_q = max(tile_q, next_power_of_2(group), 8)
-
         packed_lens = qo_lens * group
+        tune = None
+        if self._tile_q is None and tile_q >= PREFILL_TILE_QS[0]:
+            masked = (custom_mask is not None or packed_custom_mask is not None
+                      or prefix_len_ptr is not None)
+            key = (f"paged_prefill_tile_q::h{num_qo_heads}x{num_kv_heads}"
+                   f"::d{head_dim_qk}x{head_dim_vo}::ps{page_size}"
+                   f"::causal{int(causal)}::mask{int(masked)}::rows"
+                   f"{next_power_of_2(int(packed_lens.sum()))}")
+            floor = max(next_power_of_2(group), 8)
+            tile_q, tactics = _tuned_tile_q(key, tile_q, floor,
+                                            PREFILL_TILE_QS)
+            if tactics is not None:
+                tune = (key, tactics, call)
+
         padded_lens = np.maximum(round_up(packed_lens, tile_q), 0)
         padded_indptr = np.concatenate([[0], np.cumsum(padded_lens)])
         total_padded = int(padded_indptr[-1])
@@ -651,8 +703,16 @@ class BatchAttention:
         variant = self._variant or make_default_variant(
             logits_soft_cap=logits_soft_cap)
         self._state = PlanState(plan, device_plan, variant, variant_params,
-                                host)
+                                host, tune)
         return self
+
+    def _replan(self, call: dict, tactic: dict) -> None:
+        """Plan ``call`` again with ``tactic``'s tile_q pinned."""
+        pinned, self._tile_q = self._tile_q, tactic["tile_q"]
+        try:
+            BatchAttention.plan(self, **call)
+        finally:
+            self._tile_q = pinned
 
     @property
     def device_plan(self) -> Optional[DevicePlan]:
@@ -684,10 +744,24 @@ class BatchAttention:
             return self._run_reference(q, self._request_keys(kv_cache),
                                        return_lse, k_scale, v_scale)
         k, v = kv_cache
-        return run_device_plan(
-            st.device_plan, q, k, v, variant=st.variant,
-            variant_params=st.variant_params, kv_layout=self._layout,
-            k_scale=k_scale, v_scale=v_scale, return_lse=return_lse)
+
+        def launch(q_):
+            s_ = self._state
+            return run_device_plan(
+                s_.device_plan, q_, k, v, variant=s_.variant,
+                variant_params=s_.variant_params, kv_layout=self._layout,
+                k_scale=k_scale, v_scale=v_scale, return_lse=return_lse)
+
+        if st.tune is not None:
+            from flashinfer_tpu_torch.autotuner import AutoTuner, \
+                tune_replanned
+
+            if AutoTuner.get().enabled:
+                key, tactics, call = st.tune
+                tune_replanned(key, tactics,
+                               lambda t: self._replan(call, t),
+                               lambda c: _chained(c, launch(c)), q)
+        return launch(q)
 
     def _request_keys(self, kv_cache):
         """Request r's keys and values [kv_len, kvh, d] from the caller's

@@ -15,6 +15,11 @@ DeepSeek's widths, the CUDA cores otherwise (``mla_route`` says which);
 is read: the model dtype, ``torch.float8_e4m3fn`` (e4m3; the JAX package's int8 containers of e4m3
 bits are the same bytes, ``.view(torch.float8_e4m3fn)``), or int8 as the
 linear container (value = q * scale).
+
+The wrapper's rows a work item (``tile_q``), where the caller did not pin
+them and they reach the prefill route's 64-row tiles, come from the
+autotuner (``MLA_PREFILL_TILE_QS``), as ``BatchAttention``'s prefill tiles
+do: the counterpart of JAX's tuned MLA ``tile_k`` (mla.py:400-440).
 """
 
 from __future__ import annotations
@@ -27,7 +32,13 @@ import numpy as np
 import torch
 
 from flashinfer_tpu_torch import jit
-from flashinfer_tpu_torch.ops.attention.batch import DevicePlan, PlanMeta, _bucket
+from flashinfer_tpu_torch.ops.attention.batch import (
+    DevicePlan,
+    PlanMeta,
+    _bucket,
+    _chained,
+    _tuned_tile_q,
+)
 from flashinfer_tpu_torch.ops.attention.reference import attention_reference
 from flashinfer_tpu_torch.ops.attention.state import gather_merge_states
 from flashinfer_tpu_torch.scheduler.plan import build_merge_src, plan_attention
@@ -36,6 +47,11 @@ from flashinfer_tpu_torch.utils import (
     resolve_device,
     round_up,
 )
+
+# an MLA prefill plan's tile_q tactics: the prefill route's 64-row tiles
+# (tile_q 64 and 128 measured within 5% of each other at V2-Lite's causal
+# prefill on the H100: PERF.md)
+MLA_PREFILL_TILE_QS = (64, 128)
 
 __all__ = ["BatchMLAPagedAttentionWrapper", "mla_paged_run",
            "mla_paged_plain", "mla_route"]
@@ -261,6 +277,7 @@ class BatchMLAPagedAttentionWrapper:
         self._tile_q = tile_q
         self._device = resolve_device(device)
         self._state = None
+        self._tune = None
         self.device_plan: Optional[DevicePlan] = None
 
     def plan(
@@ -280,6 +297,10 @@ class BatchMLAPagedAttentionWrapper:
         **_ignored,
     ):
         """Host-side plan (NumPy), uploaded as one int32 blob."""
+        # the arguments, to plan again with another tile_q when tuning
+        call = {k: v for k, v in locals().items()
+                if k not in ("self", "_ignored")}
+        call.update(_ignored)
         qo_indptr = np.asarray(qo_indptr, np.int64)
         kv_indptr = np.asarray(kv_indptr, np.int64)
         kv_indices_np = np.asarray(kv_indices, np.int64)
@@ -294,8 +315,17 @@ class BatchMLAPagedAttentionWrapper:
         avg_packed = max(1, int((qo_lens * group).mean())) if batch else 1
         tile_q = self._tile_q or min(128, max(8, next_power_of_2(avg_packed)))
         tile_q = min(128, max(tile_q, 8))
-
         packed_lens = qo_lens * group
+        self._tune = None
+        if self._tile_q is None and tile_q >= MLA_PREFILL_TILE_QS[0]:
+            key = (f"mla_prefill_tile_q::h{num_heads}::ckv{head_dim_ckv}"
+                   f"xkpe{head_dim_kpe}::ps{page_size}::causal{int(causal)}"
+                   f"::rows{next_power_of_2(int(packed_lens.sum()))}")
+            tile_q, tactics = _tuned_tile_q(key, tile_q, 64,
+                                            MLA_PREFILL_TILE_QS)
+            if tactics is not None:
+                self._tune = (key, tactics, call)
+
         padded_lens = np.maximum(round_up(packed_lens, tile_q), 0)
         padded_indptr = np.concatenate([[0], np.cumsum(padded_lens)])
         total_padded = int(padded_indptr[-1])
@@ -357,6 +387,14 @@ class BatchMLAPagedAttentionWrapper:
                            kv_indices=kv_indices_np, kv_lens=kv_lens)
         return self
 
+    def _replan(self, call: dict, tactic: dict) -> None:
+        """Plan ``call`` again with ``tactic``'s tile_q pinned."""
+        pinned, self._tile_q = self._tile_q, tactic["tile_q"]
+        try:
+            BatchMLAPagedAttentionWrapper.plan(self, **call)
+        finally:
+            self._tile_q = pinned
+
     def run(
         self,
         q_nope: torch.Tensor,
@@ -376,6 +414,22 @@ class BatchMLAPagedAttentionWrapper:
         if self._backend == "reference":
             return self._run_reference(q_nope, q_pe, ckv_cache, kpe_cache,
                                        return_lse, ckv_scale, kpe_scale)
+        if self._tune is not None:
+            from flashinfer_tpu_torch.autotuner import AutoTuner, \
+                tune_replanned
+
+            if AutoTuner.get().enabled:
+                key, tactics, call = self._tune
+                tune_replanned(
+                    key, tactics, lambda t: self._replan(call, t),
+                    lambda c: _chained(c, self._launch(
+                        c, q_pe, ckv_cache, kpe_cache, return_lse,
+                        ckv_scale, kpe_scale)), q_nope)
+        return self._launch(q_nope, q_pe, ckv_cache, kpe_cache, return_lse,
+                            ckv_scale, kpe_scale)
+
+    def _launch(self, q_nope, q_pe, ckv_cache, kpe_cache, return_lse,
+                ckv_scale, kpe_scale):
         dp = self.device_plan
         m = dp.meta
         nnz, h, d_ckv = q_nope.shape

@@ -30,22 +30,45 @@ activation, the inverse gather and the combine. JAX computes that route
 outside any Pallas kernel, so it is plain PyTorch here too, on the card as
 on the CPU; it reads the group sizes back to the host (one sync), so it
 cannot be captured in a CUDA graph.
+
+The four API entry points of JAX's module (fused_moe.py:416-544) each end
+in ``fused_moe``, so on the card in the grouped-GEMM kernel:
+``cutlass_fused_moe`` (routing given), ``trtllm_fp8_per_tensor_scale_moe``
+(``route_tokens``, then e4m3 weights with scalar scales),
+``trtllm_fp8_block_scale_moe`` (e4m3 weights with a scale a 128 x 128 block
+and e4m3 rows with a scale a 128-wide block, dequantized to bf16 by JAX's
+bit decode first) and ``trtllm_fp4_block_scale_moe`` (mxfp4 weights
+dequantized to bf16 first). The block-scale dequantization is plain
+PyTorch on every call, as JAX computes it outside any Pallas kernel. Each
+takes ``backend`` and hands it to ``fused_moe``: "xla" runs the plain
+ragged_dot route, the plain version the card checks hold the kernel to.
 """
 
 from __future__ import annotations
 
 import enum
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from flashinfer_tpu_torch.ops.activation import gelu_and_mul, silu_and_mul
+from flashinfer_tpu_torch.ops.fp4 import fp4_dequantize
+from flashinfer_tpu_torch.ops.fp8 import fp8_to_bf16
 from flashinfer_tpu_torch.ops.gemm_grouped import (
     grouped_gemm_padded,
     make_group_layout,
 )
 
-__all__ = ["RoutingMethodType", "GatedActType", "route_tokens", "fused_moe"]
+__all__ = [
+    "RoutingMethodType",
+    "GatedActType",
+    "route_tokens",
+    "fused_moe",
+    "cutlass_fused_moe",
+    "trtllm_fp8_per_tensor_scale_moe",
+    "trtllm_fp8_block_scale_moe",
+    "trtllm_fp4_block_scale_moe",
+]
 
 
 class RoutingMethodType(enum.IntEnum):
@@ -266,3 +289,157 @@ def fused_moe(
     h2_tok = h2[layout.padded_pos[inv]].reshape(m, top_k, hidden)
     out = (h2_tok * expert_scales.float()[:, :, None]).sum(dim=1)
     return out.to(out_dtype)
+
+
+def cutlass_fused_moe(
+    input: torch.Tensor,
+    token_selected_experts: torch.Tensor,
+    token_final_scales: torch.Tensor,
+    fc1_expert_weights: torch.Tensor,
+    fc2_expert_weights: torch.Tensor,
+    output_dtype: Optional[torch.dtype] = None,
+    *,
+    quant_scales: Sequence[torch.Tensor] = (),
+    tp_size: int = 1,
+    tp_rank: int = 0,
+    ep_size: int = 1,
+    ep_rank: int = 0,
+    backend: str = "auto",
+    **_compat,
+) -> torch.Tensor:
+    """The reference's API entry point (flashinfer_tpu/ops/fused_moe.py:
+    416): ``fused_moe`` on routing the caller chose, ``quant_scales`` as
+    (w13 scale, w2 scale). The tp/ep arguments are accepted; a sharded
+    layer passes its local weights and expert ids, as in the JAX package."""
+    return fused_moe(
+        input, fc1_expert_weights, fc2_expert_weights,
+        token_selected_experts, token_final_scales,
+        w13_scale=quant_scales[0] if len(quant_scales) > 0 else None,
+        w2_scale=quant_scales[1] if len(quant_scales) > 1 else None,
+        out_dtype=output_dtype, backend=backend)
+
+
+def trtllm_fp8_per_tensor_scale_moe(
+    routing_logits: torch.Tensor,
+    routing_bias: Optional[torch.Tensor],
+    hidden_states: torch.Tensor,
+    gemm1_weights: torch.Tensor,
+    output1_scales_scalar,
+    gemm2_weights: torch.Tensor,
+    output2_scales_scalar,
+    num_experts: int,
+    top_k: int,
+    n_group: Optional[int],
+    topk_group: Optional[int],
+    intermediate_size: int,
+    local_expert_offset: int = 0,
+    local_num_experts: Optional[int] = None,
+    routed_scaling_factor: float = 1.0,
+    use_routing_scales_on_input: bool = False,
+    routing_method_type: RoutingMethodType = RoutingMethodType.Default,
+    *,
+    backend: str = "auto",
+    **_compat,
+) -> torch.Tensor:
+    """Routing, then the MoE on e4m3 weights with one scale a GEMM (JAX's
+    fused_moe.py:448). Returns bf16."""
+    ids, scales = route_tokens(
+        routing_logits, top_k, routing_method_type, n_group=n_group,
+        topk_group=topk_group, routed_scaling_factor=routed_scaling_factor,
+        routing_bias=routing_bias)
+    return fused_moe(hidden_states, gemm1_weights, gemm2_weights, ids, scales,
+                     w13_scale=output1_scales_scalar,
+                     w2_scale=output2_scales_scalar, out_dtype=torch.bfloat16,
+                     backend=backend)
+
+
+_BLOCK = 128  # the block-scale entry point's scale block (both dims)
+# experts dequantized at a time: bounds the f32 temporaries of a
+# DeepSeek-V3 layer's 256 [4096, 7168] weights to ~2 GB
+_DEQUANT_EXPERTS = 8
+
+
+def _dequant_block_fp8(w: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """JAX's ``deq_block`` (fused_moe.py:483): e4m3 w [e, n, k] times its
+    scale s [e, n / 128, k / 128] broadcast over each 128 x 128 block, by
+    the bit decode (denormals to zero), in f32, rounded once to bf16."""
+    e, n, k = w.shape
+    out = torch.empty(e, n, k, dtype=torch.bfloat16, device=w.device)
+    for e0 in range(0, e, _DEQUANT_EXPERTS):
+        e1 = min(e, e0 + _DEQUANT_EXPERTS)
+        sn = s[e0:e1].float().repeat_interleave(_BLOCK, 1).repeat_interleave(
+            _BLOCK, 2)[:, :n, :k]
+        out[e0:e1] = (fp8_to_bf16(w[e0:e1]).float() * sn).to(torch.bfloat16)
+    return out
+
+
+def _dequant_rows_fp8(hs: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """e4m3 rows [m, k] times a scale a 128-wide block [m, k / 128] (JAX's
+    fused_moe.py:500-507), in f32, rounded once to bf16."""
+    m, k = hs.shape
+    hsf = fp8_to_bf16(hs).float().reshape(m, k // _BLOCK, _BLOCK)
+    return (hsf * scale.float()[..., None]).reshape(m, k).to(torch.bfloat16)
+
+
+def trtllm_fp8_block_scale_moe(
+    routing_logits, routing_bias, hidden_states, hidden_states_scale,
+    gemm1_weights, gemm1_weights_scale, gemm2_weights, gemm2_weights_scale,
+    num_experts, top_k, n_group, topk_group, intermediate_size,
+    local_expert_offset: int = 0, local_num_experts: Optional[int] = None,
+    routed_scaling_factor: float = 1.0,
+    routing_method_type: RoutingMethodType = RoutingMethodType.DeepSeekV3,
+    *,
+    backend: str = "auto",
+    **_compat,
+) -> torch.Tensor:
+    """e4m3 weights with a scale a 128 x 128 block (w13 [e, 2 * inter,
+    hidden] with [e, 2 * inter / 128, hidden / 128], w2 likewise) and e4m3
+    rows with a scale a 128-wide block ([m, hidden / 128]; bf16 rows with
+    ``hidden_states_scale`` None): routing, every weight dequantized to
+    bf16, then the bf16 MoE (JAX's fused_moe.py:478). Returns bf16."""
+    ids, scales = route_tokens(
+        routing_logits, top_k, routing_method_type, n_group=n_group,
+        topk_group=topk_group, routed_scaling_factor=routed_scaling_factor,
+        routing_bias=routing_bias)
+    hs = hidden_states
+    if hidden_states_scale is not None:
+        hs = _dequant_rows_fp8(hs, hidden_states_scale)
+    return fused_moe(
+        hs, _dequant_block_fp8(gemm1_weights, gemm1_weights_scale),
+        _dequant_block_fp8(gemm2_weights, gemm2_weights_scale), ids, scales,
+        out_dtype=torch.bfloat16, backend=backend)
+
+
+def _dequant_mxfp4(w: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """mxfp4 weights (two e2m1 codes a byte, an e8m0 scale a 32-wide block)
+    as bf16: ``fp4_dequantize(sf_vec_size=32, sf_use_ue8m0=True)`` a few
+    experts at a time."""
+    e = w.shape[0]
+    parts = [fp4_dequantize(w[e0:e0 + _DEQUANT_EXPERTS],
+                            s[e0:e0 + _DEQUANT_EXPERTS], sf_vec_size=32,
+                            sf_use_ue8m0=True, dtype=torch.bfloat16)
+             for e0 in range(0, e, _DEQUANT_EXPERTS)]
+    return torch.cat(parts) if len(parts) > 1 else parts[0]
+
+
+def trtllm_fp4_block_scale_moe(
+    routing_logits, routing_bias, hidden_states, hidden_states_scale,
+    gemm1_weights, gemm1_weights_scale, gemm2_weights, gemm2_weights_scale,
+    *args, num_experts=None, top_k: int = 1, n_group=None, topk_group=None,
+    intermediate_size=None, routed_scaling_factor: float = 1.0,
+    routing_method_type: RoutingMethodType = RoutingMethodType.Renormalize,
+    backend: str = "auto",
+    **_compat,
+) -> torch.Tensor:
+    """mxfp4 weights (w13 uint8 [e, 2 * inter, hidden / 2] with e8m0 scales
+    [e, 2 * inter, hidden / 32], w2 likewise): routing, the weights
+    dequantized to bf16, then the bf16 MoE (JAX's fused_moe.py:521). The
+    rows are taken as given. Returns bf16."""
+    ids, scales = route_tokens(
+        routing_logits, top_k, routing_method_type, n_group=n_group,
+        topk_group=topk_group, routed_scaling_factor=routed_scaling_factor,
+        routing_bias=routing_bias)
+    return fused_moe(
+        hidden_states, _dequant_mxfp4(gemm1_weights, gemm1_weights_scale),
+        _dequant_mxfp4(gemm2_weights, gemm2_weights_scale), ids, scales,
+        out_dtype=torch.bfloat16, backend=backend)

@@ -1,4 +1,4 @@
-from flashinfer_tpu_torch.scheduler.page_pool import PagePool
+from flashinfer_tpu_torch.scheduler.native import PagePool
 from flashinfer_tpu_torch.scheduler.plan import (
     AttentionPlan,
     build_merge_src,

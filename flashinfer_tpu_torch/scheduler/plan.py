@@ -3,8 +3,10 @@
 A copy of the NumPy planner in ``flashinfer_tpu/scheduler/plan.py``
 (``_plan_attention_numpy``, which that module calls the spec), plus
 ``build_merge_src`` and ``kv_major_order``. It produces the same arrays bit
-for bit, so one plan can drive both packages. The C++ twin of the planner
-(``csrc/planner.cc``) is not loaded by the port.
+for bit, so one plan can drive both packages. ``plan_attention`` runs the
+C++ twin of the planner (``scheduler/native.py``) where the host runtime
+builds, as the JAX package's does (``FLASHINFER_TPU_PLANNER``); the NumPy
+planner stays the spec the two are held to.
 
 Work item = (request, qo_tile, kv_chunk). The arrays are padded to a
 power-of-two capacity, so the device side sees a static-shape work list.
@@ -105,6 +107,40 @@ def _cdiv_np(a, b):
 
 
 def plan_attention(
+    qo_indptr: np.ndarray,
+    kv_lens: np.ndarray,
+    *,
+    backend: Optional[str] = None,
+    **kwargs,
+) -> AttentionPlan:
+    """Plan a variable-length attention batch (arguments: see
+    ``_plan_attention_numpy``).
+
+    backend: "native" (the C++ planner), "numpy", or None to follow
+    ``FLASHINFER_TPU_PLANNER`` ("auto", the default: native where the host
+    runtime builds). The two give equal plans, field by field.
+    """
+    if backend is None:
+        from flashinfer_tpu_torch.jit.env import planner_backend
+
+        backend = planner_backend()
+    if backend not in ("native", "numpy", "auto"):
+        raise ValueError(f"unknown planner backend {backend!r}")
+    if backend in ("native", "auto"):
+        from flashinfer_tpu_torch.scheduler.native import (
+            native_plan_attention,
+            native_plan_available,
+        )
+
+        if native_plan_available():
+            return native_plan_attention(qo_indptr, kv_lens, **kwargs)
+        if backend == "native":
+            raise RuntimeError("the native planner was asked for, but the "
+                               "host runtime did not build")
+    return _plan_attention_numpy(qo_indptr, kv_lens, **kwargs)
+
+
+def _plan_attention_numpy(
     qo_indptr: np.ndarray,
     kv_lens: np.ndarray,
     *,

@@ -79,7 +79,7 @@ from flashinfer_tpu_torch.ops.sampling import (
     top_k_top_p_sampling_from_probs,
     top_p_renorm_probs,
 )
-from flashinfer_tpu_torch.scheduler.page_pool import PagePool
+from flashinfer_tpu_torch.scheduler.native import PagePool
 from flashinfer_tpu_torch.serving.graphs import StepGraphs
 from flashinfer_tpu_torch.utils import (
     TensorLayout,

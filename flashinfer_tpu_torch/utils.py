@@ -1,8 +1,10 @@
 """Small shared helpers: KV layout enum, integer rounding, device checks.
 
-Counterpart of ``flashinfer_tpu/utils/__init__.py`` for the PyTorch port
-(only what the ported paths need, and the three enums the package
-exports).
+Counterpart of ``flashinfer_tpu/utils/__init__.py``: its enums and its
+device-neutral helpers. Its TPU mechanics (``on_tpu``,
+``default_interpret``, ``sublane_multiple``, ``LAST_DIM_LANES``) have no
+counterpart: the port runs on the card or, for CPU tensors, the plain
+versions.
 """
 
 from __future__ import annotations
@@ -19,8 +21,15 @@ __all__ = [
     "apply_logits_soft_cap",
     "cdiv",
     "round_up",
+    "round_down",
     "next_power_of_2",
+    "canonicalize_dtype",
+    "is_float8",
+    "get_compute_dtype",
     "check_kv_layout",
+    "expand_gqa",
+    "pad_to",
+    "get_sliding_window_mask",
     "resolve_device",
     "tensor_from_numpy",
 ]
@@ -66,10 +75,80 @@ def round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
+def round_down(x: int, m: int) -> int:
+    return (x // m) * m
+
+
 def next_power_of_2(x: int) -> int:
     if x <= 1:
         return 1
     return 1 << (int(x) - 1).bit_length()
+
+
+def canonicalize_dtype(dtype) -> torch.dtype:
+    """A torch dtype from a torch dtype, a name ("bfloat16") or a numpy
+    dtype (ml_dtypes' bfloat16 and float8 names included)."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    name = dtype if isinstance(dtype, str) else np.dtype(dtype).name
+    t = getattr(torch, name, None)
+    if not isinstance(t, torch.dtype):
+        raise TypeError(f"no torch dtype for {dtype!r}")
+    return t
+
+
+_F8_DTYPES = (torch.float8_e4m3fn, torch.float8_e5m2)
+
+
+def is_float8(dtype) -> bool:
+    return canonicalize_dtype(dtype) in _F8_DTYPES
+
+
+def get_compute_dtype(dtype) -> torch.dtype:
+    """The dtype attention math runs in: bf16 for bf16 and fp8 inputs
+    (8-bit tiles are converted to bf16 on their way into the tensor cores),
+    f32 otherwise."""
+    dtype = canonicalize_dtype(dtype)
+    if is_float8(dtype) or dtype == torch.bfloat16:
+        return torch.bfloat16
+    return torch.float32
+
+
+def expand_gqa(kv: torch.Tensor, num_qo_heads: int,
+               head_axis: int = -2) -> torch.Tensor:
+    """KV heads repeated to the query heads (each kv head's copies
+    adjacent)."""
+    num_kv_heads = kv.shape[head_axis]
+    if num_kv_heads == num_qo_heads:
+        return kv
+    if num_qo_heads % num_kv_heads:
+        raise ValueError(f"{num_qo_heads} q heads are not a multiple of "
+                         f"{num_kv_heads} kv heads")
+    return kv.repeat_interleave(num_qo_heads // num_kv_heads, dim=head_axis)
+
+
+def pad_to(x: torch.Tensor, size: int, axis: int, value=0) -> torch.Tensor:
+    """``x`` padded with ``value`` at the end of ``axis`` to ``size``."""
+    cur = x.shape[axis]
+    if cur == size:
+        return x
+    if cur > size:
+        raise ValueError(f"axis {axis} has {cur} > {size} entries")
+    shape = list(x.shape)
+    shape[axis] = size - cur
+    return torch.cat([x, x.new_full(shape, value)], dim=axis)
+
+
+def get_sliding_window_mask(qo_len: int, kv_len: int, window_left: int,
+                            device=None) -> torch.Tensor:
+    """Boolean [qo_len, kv_len] left-window mask (True = keep): query i, at
+    position kv_len - qo_len + i, sees key j iff j > pos - window_left - 1;
+    every key for ``window_left`` < 0."""
+    if window_left < 0:
+        return torch.ones(qo_len, kv_len, dtype=torch.bool, device=device)
+    q_pos = torch.arange(qo_len, device=device)[:, None] + (kv_len - qo_len)
+    kv_pos = torch.arange(kv_len, device=device)[None, :]
+    return kv_pos > q_pos - window_left - 1
 
 
 def check_kv_layout(layout: str | TensorLayout) -> TensorLayout:

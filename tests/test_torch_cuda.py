@@ -2136,3 +2136,130 @@ def test_cascade_on_the_card_matches_cpu(dev, dtype, layout, qo):
                                    want[0].float(), atol=tol, rtol=tol)
         torch.testing.assert_close(out["cuda"][1].cpu(), want[1], atol=1e-3,
                                    rtol=1e-4)
+
+
+# ------------------------------------------- fused_moe's API entry points
+
+def _moe_entry_case(name, gen):
+    """(entry point, positional args, keyword args) at small widths the
+    grouped-GEMM kernel takes, built on the CPU."""
+    import importlib
+
+    from flashinfer_tpu_torch.ops.fp4 import mxfp4_quantize
+
+    moe = importlib.import_module("flashinfer_tpu_torch.ops.fused_moe")
+
+    m, e, hidden, inter = 24, 8, 256, 128
+    x = torch.randn(m, hidden, generator=gen) * 0.5
+    w13 = torch.randn(e, 2 * inter, hidden, generator=gen) * 0.1
+    w2 = torch.randn(e, hidden, inter, generator=gen) * 0.1
+    logits = torch.randn(m, e, generator=gen)
+    if name == "cutlass":
+        ids, sc = moe.route_tokens(logits, 2)
+        return moe.cutlass_fused_moe, (
+            x.bfloat16(), ids, sc, w13.bfloat16(), w2.bfloat16(),
+            torch.bfloat16), dict(quant_scales=[torch.tensor(0.5),
+                                                torch.tensor(2.0)])
+    if name == "fp8_per_tensor":
+        return moe.trtllm_fp8_per_tensor_scale_moe, (
+            logits, None, x.bfloat16(), (w13 / 0.05).to(torch.float8_e4m3fn),
+            torch.tensor(0.05), (w2 / 0.05).to(torch.float8_e4m3fn),
+            torch.tensor(0.05), e, 2, None, None, inter), dict(
+                routing_method_type=moe.RoutingMethodType.Renormalize)
+    if name == "fp8_block_scale":
+        s13 = torch.rand(e, 2 * inter // 128, hidden // 128,
+                         generator=gen) * 0.02 + 0.01
+        s2 = torch.rand(e, hidden // 128, inter // 128, generator=gen) * 0.02 \
+            + 0.01
+        sx = torch.rand(m, hidden // 128, generator=gen) * 0.01 + 0.005
+
+        def up(s):
+            return s.repeat_interleave(128, 1).repeat_interleave(128, 2)
+        return moe.trtllm_fp8_block_scale_moe, (
+            logits, torch.randn(e, generator=gen) * 0.1,
+            (x / sx.repeat_interleave(128, 1)).to(torch.float8_e4m3fn), sx,
+            (w13 / up(s13)).to(torch.float8_e4m3fn), s13,
+            (w2 / up(s2)).to(torch.float8_e4m3fn), s2, e, 4, 4, 2, inter), \
+            dict(routed_scaling_factor=2.5)
+    p13, sf13 = mxfp4_quantize(w13)
+    p2, sf2 = mxfp4_quantize(w2)
+    return moe.trtllm_fp4_block_scale_moe, (
+        logits, None, x.bfloat16(), None, p13, sf13, p2, sf2), dict(
+            num_experts=e, top_k=2, intermediate_size=inter)
+
+
+@pytest.mark.parametrize("name", ["cutlass", "fp8_per_tensor",
+                                  "fp8_block_scale", "fp4_block_scale"])
+def test_moe_entry_points_on_the_card(dev, name):
+    """Each entry point launches the grouped-GEMM kernel twice on the card
+    and agrees with the CPU's plain pipeline and the card's plain ragged
+    route (backend="xla") to 2e-2 of its largest output."""
+    from flashinfer_tpu_torch.ops.gemm_grouped import grouped_gemm_padded
+
+    gen = torch.Generator().manual_seed(31)
+    fn, args, kw = _moe_entry_case(name, gen)
+    want = fn(*args, **kw)
+    on_card = [a.to(dev) if isinstance(a, torch.Tensor) else a for a in args]
+    before = grouped_gemm_padded.launches
+    got = fn(*on_card, **kw)
+    torch.cuda.synchronize()
+    assert grouped_gemm_padded.launches == before + 2
+    ragged = fn(*on_card, backend="xla", **kw)
+    assert grouped_gemm_padded.launches == before + 2
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    for ref in (want, ragged.cpu()):
+        torch.testing.assert_close(got.float().cpu(), ref.float(), rtol=2e-2,
+                                   atol=2e-2 * float(ref.abs().max()))
+
+
+# ------------------------------------------------------- the logits pipe
+
+PIPES_ON_CARD = {
+    "temp_softmax_topk_topp_sample": (
+        ("Temperature", "Softmax", "TopK", "TopP", "Sample"),
+        dict(temperature=0.7, top_k=40, top_p=0.9), 1),
+    "softmax_sample": (("Softmax", "Sample"), {}, 1),
+    "temp_softmax_minp_sample": (
+        ("Temperature", "Softmax", "MinP", "Sample"),
+        dict(temperature=0.7, min_p=0.05), 1),
+    "topk_softmax_topp_sample": (("TopK", "Softmax", "TopP", "Sample"),
+                                 dict(top_k=40, top_p=0.9), 2),
+}
+
+
+def _direct(name, logits, seed, params):
+    """The sampler surface called directly, as each pipe compiles."""
+    S = sampling_mod
+    if name == "temp_softmax_topk_topp_sample":
+        probs = torch.softmax((logits / params["temperature"]).float(), -1)
+        return S.top_k_top_p_sampling_from_probs(
+            probs, params["top_k"], params["top_p"], seed=seed)
+    if name == "softmax_sample":
+        return S.sampling_from_logits(logits, seed=seed)
+    if name == "temp_softmax_minp_sample":
+        probs = torch.softmax((logits / params["temperature"]).float(), -1)
+        return S.min_p_sampling_from_probs(probs, params["min_p"], seed=seed)
+    masked = S.top_k_mask_logits(logits, params["top_k"])
+    return S.top_p_sampling_from_probs(torch.softmax(masked.float(), -1),
+                                       params["top_p"], seed=seed)
+
+
+@pytest.mark.parametrize("name", list(PIPES_ON_CARD))
+def test_logits_pipes_on_the_card(dev, name):
+    """Each pipe's tokens equal the direct sampler calls' on the card and
+    the CPU pipe's (the kernel and its plain version draw the same tokens
+    for a seed), with the sampler launches the compiled steps make."""
+    from flashinfer_tpu_torch import logits_processor as lp
+
+    names, params, launches = PIPES_ON_CARD[name]
+    gen = torch.Generator().manual_seed(37)
+    logits = torch.randn(8, 32000, generator=gen) * 3
+    pipe = lp.LogitsPipe([getattr(lp, n)() for n in names])
+    for seed in (3, 2**31 - 5):
+        before = family_call.launches
+        got = pipe(logits.to(dev), seed=seed, **params)
+        torch.cuda.synchronize()
+        assert family_call.launches == before + launches
+        want = _direct(name, logits.to(dev), seed, params)
+        assert torch.equal(got, want)
+        assert torch.equal(got.cpu(), pipe(logits, seed=seed, **params))

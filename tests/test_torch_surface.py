@@ -27,6 +27,8 @@ from flashinfer_tpu_torch.ops.attention import state
 
 # JAX's exports the port does not compute yet: none is left
 PENDING_EXPORTS = ()
+# JAX's subsystem namespaces the port does not have yet
+PENDING_NAMESPACES = ("parallel",)
 
 
 def _t(a):
@@ -263,3 +265,23 @@ def test_exports_are_jax_exports_but_the_pending():
         set(flashinfer_tpu_torch.__all__))
     for name in flashinfer_tpu_torch.__all__:
         assert getattr(flashinfer_tpu_torch, name) is not None, name
+
+
+def test_namespaces_are_jaxs_but_the_pending():
+    """Every module JAX's package exposes (the op modules and the subsystem
+    namespaces: aot, autotuner, jit, logits_processor, models, profiler,
+    scheduler, serving, testing) is a module of the port of the same name,
+    but the pending ones."""
+    import types
+
+    def modules(pkg):
+        return {n for n in dir(pkg) if not n.startswith("_")
+                and isinstance(getattr(pkg, n), types.ModuleType)}
+
+    jax_mods, ours = modules(flashinfer_tpu), modules(flashinfer_tpu_torch)
+    assert PENDING_NAMESPACES == ("parallel",)
+    assert jax_mods - ours == set(PENDING_NAMESPACES)
+    for name in jax_mods - set(PENDING_NAMESPACES):
+        mod = getattr(flashinfer_tpu_torch, name)
+        assert mod.__name__.startswith("flashinfer_tpu_torch."), name
+        assert mod.__name__.rsplit(".", 1)[-1] == name
