@@ -107,7 +107,28 @@ Run from the root of a checkout. Phases, in order:
    and one graphed sampled decode step is traced with
    ``profiler.profile_trace``, whose ``summarize_trace`` must name the
    paged, RMSNorm and sampler kernels;
-11. DeepSeek: ``deepseek_decode_step`` at DeepSeek-V2-Lite widths and full
+11. distributed: ``torch.distributed`` at world size 1 through NCCL (a
+   FileStore; the group is destroyed at the phase's end): the mesh views
+   of ``parallel.make_mesh``, every collective and ``MoeAlltoAll`` against
+   their local math, ring (causal and not) and Ulysses attention at cp 1
+   on the single-request phase's shapes (the same o and lse as one direct
+   flash call; their flash launches are the parallel_attention path),
+   ``fused_moe_ep`` / ``fused_moe_tp`` at size 1 on a Mixtral-8x7B layer
+   (8 tokens, bf16 and e4m3) against ``fused_moe`` (the parallel_moe
+   path), ``llama_forward_pipelined`` at pp 1 over two Llama-3-8B layers
+   against the dense forward (the pipeline path), the tiny f32
+   ``DistributedServingEngine`` against ``LlamaServingEngine`` (model,
+   e4m3, int8 KV: tokens equal) and ``make_tp_decode_step`` at tp 1
+   against the dense logits (the tp_step path); then the engine phase's
+   Llama-3-8B weights through ``DistributedServingEngine`` (dp = tp = 1,
+   8 requests, 16 new tokens, 512 rows a step, eager): greedy (profiled)
+   and sampled (the distributed path, whose launch counts are read from
+   it), beside ``LlamaServingEngine``'s graphed greedy run on the same
+   traffic, with the greedy token agreement reported; then both engines
+   again with the weights in f32, whose agreement must reach
+   ``DIST_MIN_AGREEMENT``. A probe of NCCL send/recv to the own rank runs
+   beside it in a process of its own (recorded, not required);
+12. DeepSeek: ``deepseek_decode_step`` at DeepSeek-V2-Lite widths and full
    depth (27 layers) in bf16, random weights from a seeded CUDA generator,
    8 requests of 32-128 prompt tokens prefilled token by token and 32 new
    tokens each, one MLA plan per step: sampled (top-k 40, top-p 0.9: the
@@ -115,16 +136,16 @@ Run from the root of a checkout. Phases, in order:
    then a short greedy run on e4m3 caches and the e4m3 witness (one step
    on bf16, e4m3 and bf16-fed-e4m3-values caches: the last two must
    agree);
-12. Mixtral: ``mixtral_decode_step`` at Mixtral-8x7B's widths and 16 of its
+13. Mixtral: ``mixtral_decode_step`` at Mixtral-8x7B's widths and 16 of its
    32 layers (32 are ~93 GB in bf16) in bf16, random weights from a seeded
    CUDA generator, the DeepSeek phase's traffic (8 requests of 32-128
    prompt tokens fed token by token, 32 new tokens each, page 16), a fresh
    decode plan a step: sampled (the Mixtral path, whose launch counts are
    read from this run) and greedy;
-13. tooling: ``aot.warmup()``, ``python -m flashinfer_tpu_torch
+14. tooling: ``aot.warmup()``, ``python -m flashinfer_tpu_torch
    show-config``, and the autotuner (``tune --quick`` in ``autotune()``,
    its winners persisted to a temporary config path);
-14. one ``{"kernels": [...]}`` line, then the result line.
+15. one ``{"kernels": [...]}`` line, then the result line.
 
 The script exits non-zero, and prints no result line, when the machine has
 no CUDA device, when it is not run from a checkout, or when any phase fails.
@@ -140,6 +161,7 @@ import itertools
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -2124,7 +2146,7 @@ def _engine_mode(torch, np, mc, params, prompts, n_new, card, label,
     return res, outs, params
 
 
-def phase_engine(torch, np, card):
+def phase_engine(torch, np, card, shared):
     from flashinfer_tpu_torch import LlamaConfig
     from flashinfer_tpu_torch.models.llama import llama_init_weights
 
@@ -2184,6 +2206,8 @@ def phase_engine(torch, np, card):
         torch, np, mc, params, prompts[:8], outs_by["graphed", "greedy"])
     results["w8"] = _engine_w8(torch, np, mc, params, prompts, n_new, card,
                                outs_by["graphed", "greedy"])
+    # the distributed phase serves these weights next
+    shared["llama"] = (mc, params, prompts)
     return results
 
 
@@ -4028,6 +4052,645 @@ def phase_tooling(torch, np, card):
                 tuned=winners, tune_s=tune_s)
 
 
+# ----------------------------------------------------------- distributed
+
+DIST_REQUESTS = 8  # of the engine phase's prompts (64-512 tokens)
+DIST_NEW = 16
+DIST_ROWS = 512  # max_tokens_per_step: the longest prompt fits one step
+# the share of greedy tokens equal to LlamaServingEngine's on the same
+# traffic, held with the weights in f32. In bf16 it is reported: the two
+# engines round differently (512-row against 8-row GEMMs, attention tiles
+# of 8 rows against 256), and on random weights their greedy paths part a
+# few tokens in (0.672 on the H100 in bf16, 1.000 in f32: PERF.md)
+DIST_MIN_AGREEMENT = 0.9
+DIST_PATH = ("paged_attention", "sampler_family", "rmsnorm")
+RING_TOKENS = 8192  # the single-request phase's prompt
+DIST_MOE_TOKENS = 8
+DIST_MOE_LAYER = (8, 4096, 14336)  # Mixtral-8x7B: experts, hidden, inter
+DIST_BACKEND = "nccl"
+# the pipelined forward (bf16, two layers) against the dense one: four
+# bf16 roundings of the largest logit
+PIPE_TOL = 2.0 ** -6
+# a probe of NCCL send/recv to the own rank, in a process of its own (a
+# hang there cannot stall this one); the port never depends on it
+SELF_P2P_PROBE = """
+import sys, torch, torch.distributed as dist
+torch.cuda.set_device(0)
+dist.init_process_group("nccl", init_method="file://" + sys.argv[1],
+                        rank=0, world_size=1)
+x = torch.arange(1024, device="cuda", dtype=torch.float32)
+y = torch.empty_like(x)
+for req in dist.batch_isend_irecv([dist.P2POp(dist.isend, x, 0),
+                                   dist.P2POp(dist.irecv, y, 0)]):
+    req.wait()
+torch.cuda.synchronize()
+print("SELF_P2P", bool(torch.equal(x, y)))
+dist.destroy_process_group()
+"""
+
+
+def _dist_collectives(torch, np, mesh, moe_mesh):
+    """Every collective at world 1 against its local math (the same
+    kernels, or the plain versions within NORM_TOL), and ``MoeAlltoAll``
+    round trips, one with copies past the capacity."""
+    from flashinfer_tpu_torch.ops.fp8 import fp8_quantize_rowwise
+    from flashinfer_tpu_torch.ops.norm import (
+        fused_add_rmsnorm,
+        fused_add_rmsnorm_plain,
+    )
+    from flashinfer_tpu_torch.parallel import (
+        MoeAlltoAll,
+        all_reduce,
+        allreduce_rmsnorm,
+        allreduce_rmsnorm_quant_fp8,
+        gemm_allreduce,
+        moe_allreduce_fusion,
+    )
+
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, device=DEVICE, generator=gen).to(dtype)
+
+    x, res, w = randn(8, 4096), randn(8, 4096), randn(4096)
+    checks = {}
+    checks["all_reduce"] = bool(torch.equal(all_reduce(x, mesh=mesh), x))
+    got = allreduce_rmsnorm(x, res, w, 1e-5, mesh=mesh)
+    want = fused_add_rmsnorm(x, res, w, 1e-5)
+    plain = fused_add_rmsnorm_plain(x, res, w, 1e-5)
+    err = float((got[0].float() - plain[0].float()).abs().max()
+                / plain[0].float().abs().max())
+    checks["allreduce_rmsnorm"] = (torch.equal(got[0], want[0])
+                                   and torch.equal(got[1], want[1])
+                                   and err <= NORM_TOL)
+    # an f32 partial into a bf16 residual, as the serving steps call it: the
+    # sum rounded once, the same values as the fused launch on bf16 x
+    got = allreduce_rmsnorm(x.float(), res, w, 1e-5, mesh=mesh)
+    checks["allreduce_rmsnorm_f32_partial"] = bool(
+        torch.equal(got[1], want[1]) and torch.equal(got[0], want[0]))
+    q, s, r = allreduce_rmsnorm_quant_fp8(x, res, w, 1e-5, mesh=mesh)
+    q_want, s_want = fp8_quantize_rowwise(want[0])
+    checks["allreduce_rmsnorm_quant_fp8"] = bool(
+        torch.equal(q.view(torch.int8), q_want.view(torch.int8))
+        and torch.equal(s, s_want) and torch.equal(r, want[1]))
+    wg = randn(4096, 4096)
+    checks["gemm_allreduce"] = bool(torch.equal(
+        gemm_allreduce(x, wg, mesh=mesh), (x.float() @ wg.float()).to(
+            x.dtype)))
+    shared = randn(8, 4096)
+    got = moe_allreduce_fusion(x, 0.5, shared, res, w, 1e-5, mesh=mesh)
+    new_res = (x.float() * 0.5 + shared.float() + res.float()).to(x.dtype)
+    checks["moe_allreduce_fusion"] = bool(
+        torch.equal(got[1], new_res)
+        and torch.equal(got[0], fused_add_rmsnorm(
+            torch.zeros_like(new_res), new_res, w, 1e-5)[0]))
+    # MoeAlltoAll at ep 1: y = x (expert + 1), each token's copies summed
+    ids = torch.randint(0, 8, (64, 2), device=DEVICE, generator=gen,
+                        dtype=torch.int32)
+    scales = torch.rand(64, 2, device=DEVICE, generator=gen)
+    xs = randn(64, 256, dtype=torch.float32)
+    for cap in (128, 100):  # 128 copies: all kept, then 28 dropped
+        a2a = MoeAlltoAll(8, cap, mesh=moe_mesh)
+        recv_x, recv_e, slot = a2a.dispatch(xs, ids)
+        y = recv_x * torch.where(recv_e >= 0, recv_e + 1, 0)[:, None]
+        got = a2a.combine(y, slot, ids, scales)
+        kept = (slot >= 0).float()
+        want = (xs[:, None, :] * ((ids + 1) * scales * kept)[..., None]).sum(1)
+        checks[f"moe_alltoall_cap{cap}"] = (
+            float((got - want).abs().max()) <= 1e-4
+            and int((slot < 0).sum()) == 128 - cap)
+    log(f"collectives at world 1: {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"collectives disagree with their local math: "
+                             f"{checks}")
+    return checks
+
+
+def _dist_attention(torch, np, mesh, counters):
+    """Ring (causal and not) and Ulysses attention at cp 1 on the single
+    request phase's Llama-3-8B attention shapes: the same o and lse as one
+    direct flash call, bit for bit. Returns the rows and the flash launches
+    of the ring / Ulysses calls."""
+    from flashinfer_tpu_torch.ops.attention.kernels.flash import (
+        flash_attention_dense,
+    )
+    from flashinfer_tpu_torch.parallel import ring_attention, \
+        ulysses_attention
+
+    hq, hkv, d = LLAMA_HEADS
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
+    q, k, v = (torch.randn(RING_TOKENS, h, d, device=DEVICE, generator=gen,
+                           dtype=torch.bfloat16) for h in (hq, hkv, hkv))
+    rows, launches = [], 0
+    for causal in (False, True):
+        direct = flash_attention_dense(q, k, v, causal=causal)
+        n0 = counters["flash_attention"].launches
+        ring = ring_attention(q, k, v, mesh, causal=causal, return_lse=True)
+        uly = ulysses_attention(q, k, v, mesh, causal=causal)
+        launches += counters["flash_attention"].launches - n0
+        same = dict(ring_o=bool(torch.equal(ring[0], direct[0])),
+                    ring_lse=bool(torch.equal(ring[1], direct[1])),
+                    ulysses_o=bool(torch.equal(uly, direct[0])))
+        ms = cuda_ms(torch, lambda: ring_attention(q, k, v, mesh,
+                                                   causal=causal), 5)
+        direct_ms = cuda_ms(torch, lambda: flash_attention_dense(
+            q, k, v, causal=causal), 5)
+        rows.append(dict(causal=causal, same=same, ring_ms=ms,
+                         direct_ms=direct_ms))
+        log(f"ring / Ulysses attention at cp 1, {RING_TOKENS} tokens, "
+            f"causal={causal}: {same}; ring {ms:.3f} ms, direct "
+            f"{direct_ms:.3f} ms")
+        if not all(same.values()):
+            raise AssertionError(f"cp-1 attention differs from the direct "
+                                 f"flash call: {same}")
+    return rows, launches
+
+
+def _dist_moe(torch, np, moe_mesh, counters):
+    """``fused_moe_ep`` and ``fused_moe_tp`` at size 1 on a Mixtral-8x7B
+    layer (8 tokens, top-2 of 8), bf16 and e4m3 per-tensor, against
+    ``fused_moe`` on the same routing: within 2e-2 of its largest output
+    (the EP combine rounds each expert's output to bf16 first, as JAX's).
+    Returns the rows and the grouped-GEMM launches of the sharded calls."""
+    import importlib
+
+    from flashinfer_tpu_torch.parallel import fused_moe_ep, fused_moe_tp
+
+    moe = importlib.import_module("flashinfer_tpu_torch.ops.fused_moe")
+
+    e, hidden, inter = DIST_MOE_LAYER
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    x = torch.randn(DIST_MOE_TOKENS, hidden, device=DEVICE, generator=gen,
+                    dtype=torch.bfloat16)
+    logits = torch.randn(DIST_MOE_TOKENS, e, device=DEVICE, generator=gen)
+    rows, launches = [], 0
+    for name in ("cutlass_fused_moe", "trtllm_fp8_per_tensor_scale_moe"):
+        weights, _, _ = _moe_entry_inputs(torch, name, e, hidden, inter,
+                                          gen)
+        if len(weights) == 2:
+            (w13, w2), sc = weights, None
+        else:
+            w13, sc, w2, _ = weights
+        ids, scales = moe.route_tokens(logits, 2)
+        want = moe.fused_moe(x, w13, w2, ids, scales, w13_scale=sc,
+                             w2_scale=sc).float()
+        n0 = counters["grouped_gemm"].launches
+        got = dict(
+            ep=fused_moe_ep(x, logits, w13, w2, moe_mesh, top_k=2,
+                            w13_scale=sc, w2_scale=sc),
+            tp=fused_moe_tp(x, logits, w13, w2, moe_mesh, top_k=2,
+                            w13_scale=sc, w2_scale=sc))
+        launches += counters["grouped_gemm"].launches - n0
+        mag = float(want.abs().max())
+        errs = {k: float((g.float() - want).abs().max()) / mag
+                for k, g in got.items()}
+        rows.append(dict(weights="bf16" if sc is None else "e4m3",
+                         rel_err=errs))
+        log(f"MoE at size 1, Mixtral-8x7B layer, {rows[-1]['weights']}: "
+            f"error / largest output {errs}")
+        del weights, w13, w2
+        if max(errs.values()) > 2e-2:
+            raise AssertionError(f"sharded MoE disagrees with fused_moe: "
+                                 f"{errs}")
+    return rows, launches
+
+
+def _dist_pipeline(torch, np, mesh, mc, params, counters):
+    """``llama_forward_pipelined`` at pp 1 over two layers at Llama-3-8B
+    width (the engine's weights), batch 2 x 128 tokens in 2 microbatches,
+    against ``llama_forward_dense``: within PIPE_TOL of the largest
+    logit."""
+    import dataclasses
+
+    from flashinfer_tpu_torch.models.llama import (
+        PER_LAYER,
+        llama_forward_dense,
+    )
+    from flashinfer_tpu_torch.parallel import llama_forward_pipelined
+
+    cfg = dataclasses.replace(mc, num_layers=2)
+    two = {k: (v[:2] if k in PER_LAYER else v) for k, v in params.items()}
+    gen = torch.Generator(device=DEVICE).manual_seed(8)
+    tokens = torch.randint(0, mc.vocab_size, (2, 128), device=DEVICE,
+                           generator=gen)
+    want = llama_forward_dense(two, tokens, cfg)
+    n0 = counters["rmsnorm"].launches
+    got = llama_forward_pipelined(two, tokens, cfg, mesh,
+                                  num_microbatches=2)
+    launches = counters["rmsnorm"].launches - n0
+    rel = float((got - want).abs().max() / want.abs().max())
+    argmax = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    log(f"pipelined Llama forward at pp 1 (2 layers, 2 x 128 tokens): "
+        f"error / largest logit {rel:.2e}, argmax agreement {argmax:.3f}")
+    if rel > PIPE_TOL:
+        raise AssertionError(f"pipelined forward off the dense one: {rel}")
+    return dict(rel_err=rel, argmax_agreement=argmax), launches
+
+
+def _dist_tiny(torch, np, mesh, counters):
+    """The tiny f32 model on the card: ``DistributedServingEngine`` at dp =
+    tp = 1 emits ``LlamaServingEngine``'s greedy tokens exactly on model,
+    e4m3 and int8 KV; ``make_tp_decode_step`` at tp 1 gives
+    ``llama_forward_dense``'s last-token logits within 2e-4 (JAX's
+    tests/test_tp_serving.py). Returns the TP step's launches."""
+    from flashinfer_tpu_torch import EngineConfig, LlamaConfig, \
+        LlamaServingEngine
+    from flashinfer_tpu_torch.models.llama import (
+        llama_forward_dense,
+        llama_init_weights,
+    )
+    from flashinfer_tpu_torch.ops.attention.batch import (
+        BatchDecodeWithPagedKVCacheWrapper,
+    )
+    from flashinfer_tpu_torch.parallel import (
+        make_tp_decode_step,
+        shard_llama_params_tp,
+    )
+    from flashinfer_tpu_torch.scheduler.native import PagePool
+    from flashinfer_tpu_torch.serving.distributed import (
+        DistributedServingEngine,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mc = LlamaConfig.tiny()
+    params = llama_init_weights(torch.Generator(device=DEVICE).manual_seed(0),
+                                mc, DEVICE)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, mc.vocab_size, n).tolist()
+               for n in (9, 30, 4, 17)]
+    same = {}
+    for kv in ("model", "fp8_e4m3", "int8"):
+        cfg = EngineConfig(model=mc, max_batch=2, num_pages=64, page_size=8,
+                           max_seq_len=64, greedy=True, kv_dtype=kv,
+                           kv_scale=0.3, device=DEVICE)
+        outs = []
+        for eng in (LlamaServingEngine(cfg, params=params),
+                    DistributedServingEngine(cfg, mesh, params=params,
+                                             max_tokens_per_step=32)):
+            reqs = [eng.add_request(p, 8) for p in prompts]
+            eng.run_to_completion(max_steps=200)
+            outs.append([r.output for r in reqs])
+        same[kv] = outs[0] == outs[1]
+    log(f"tiny f32 DistributedServingEngine (dp = tp = 1) == "
+        f"LlamaServingEngine: {same}")
+    # the TP step, token by token over 4-token prompts
+    B, S, PS, PAGES = 2, 4, 4, 16
+    tokens = torch.from_numpy(rng.integers(0, mc.vocab_size, (B, S))).to(
+        DEVICE)
+    want = llama_forward_dense(params, tokens, mc)[:, -1]
+    params_tp = shard_llama_params_tp(params, mesh, mc)
+    step = make_tp_decode_step(mesh, mc)
+    pool = PagePool(num_pages=PAGES, page_size=PS)
+    seqs = [pool.create() for _ in range(B)]
+    kc = torch.zeros(mc.num_layers, PAGES, PS, mc.num_kv_heads, mc.head_dim,
+                     device=DEVICE)
+    vc = torch.zeros_like(kc)
+    n0 = {k: counters[k].launches for k in ("paged_attention", "rmsnorm")}
+    for pos in range(S):
+        for s in seqs:
+            pool.extend(s, pos + 1)
+        indptr, indices, last = pool.batch_export(seqs)
+        w = BatchDecodeWithPagedKVCacheWrapper(kv_layout="NHD",
+                                               device=DEVICE)
+        w.plan(indptr, indices, last, mc.num_qo_heads, mc.num_kv_heads,
+               mc.head_dim, PS)
+
+        def dev(a):
+            return torch.from_numpy(np.asarray(a, np.int32)).to(DEVICE)
+
+        logits, kc, vc = step(
+            params_tp, kc, vc, tokens[:, pos],
+            torch.full((B,), pos, device=DEVICE),
+            torch.ones(B, dtype=torch.bool, device=DEVICE), dev(indices),
+            dev(indptr), dev(last), w.device_plan)
+    launches = {k: counters[k].launches - n for k, n in n0.items()}
+    err = float((logits - want).abs().max())
+    ok_step = bool(torch.allclose(logits, want, rtol=2e-4, atol=2e-4))
+    log(f"make_tp_decode_step at tp 1 vs llama_forward_dense: max |err| "
+        f"{err:.2e} ({'within' if ok_step else 'OUTSIDE'} 2e-4); launches "
+        f"{launches}")
+    if not (all(same.values()) and ok_step):
+        raise AssertionError(f"tiny distributed paths disagree: {same}, "
+                             f"TP step err {err}")
+    return dict(engine_tokens_equal=same, tp_step_err=err), launches
+
+
+def _dist_serve(torch, eng, prompts, n_new, profile_steps=0):
+    """Serve the prompts on a distributed engine. Returns (outputs, the
+    tokens/s of the steps not profiled, the wall ms of each step that
+    admitted nothing, of each that could admit, the profile of
+    ``profile_steps`` steps of the first kind or None)."""
+    reqs = [eng.add_request(p, n_new) for p in prompts]
+    decode_ms, admit_ms = [], []
+    prof, profiled, prof_s, prof_tokens = None, not profile_steps, 0.0, 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while eng.has_work():
+        pending = sum(len(r.pending) for r in eng._reps)
+        if (not profiled and not pending
+                and eng.num_running == len(prompts)
+                and min(r.max_new_tokens - len(r.output)
+                        for r in reqs) > profile_steps + 1):
+            tp, n0 = time.perf_counter(), eng.generated_tokens
+            prof, profiled = _profile_steps(torch, eng.step,
+                                            profile_steps), True
+            prof_s += time.perf_counter() - tp
+            prof_tokens += eng.generated_tokens - n0
+            continue
+        ts = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        # a step with requests pending may admit some
+        (admit_ms if pending else decode_ms).append(
+            (time.perf_counter() - ts) * 1e3)
+    wall = time.perf_counter() - t0 - prof_s
+    tokens_per_s = (eng.generated_tokens - prof_tokens) / wall
+    return [r.output for r in reqs], tokens_per_s, decode_ms, admit_ms, prof
+
+
+def _first_divergence(a, b):
+    """For each request, the index of its first token that differs (its
+    length where none does)."""
+    return [next((i for i, (x, y) in enumerate(zip(p, q)) if x != y),
+                 len(p)) for p, q in zip(a, b)]
+
+
+def _greedy_pair(torch, np, mesh, mc, params, prompts):
+    """Greedy tokens of ``LlamaServingEngine`` (graphed) and of
+    ``DistributedServingEngine`` at dp = tp = 1 on the same weights and
+    traffic, and the share of equal tokens."""
+    from flashinfer_tpu_torch import EngineConfig, LlamaServingEngine
+    from flashinfer_tpu_torch.serving.distributed import (
+        DistributedServingEngine,
+    )
+
+    cfg = EngineConfig(model=mc, max_batch=DIST_REQUESTS, page_size=16,
+                       greedy=True, device=DEVICE)
+    outs = []
+    for eng in (LlamaServingEngine(cfg, params=params),
+                DistributedServingEngine(cfg, mesh, params=params,
+                                         max_tokens_per_step=DIST_ROWS)):
+        reqs = [eng.add_request(p, DIST_NEW) for p in prompts]
+        eng.run_to_completion()
+        outs.append([r.output for r in reqs])
+        del eng
+        torch.cuda.empty_cache()
+    return outs, float(np.mean(np.asarray(outs[0]) == np.asarray(outs[1])))
+
+
+def _dist_kernel_gate(torch, np, mesh, mc, params, prompts, card):
+    """The paged kernel on the distributed engine's own bf16 plans, held to
+    its plain version: a greedy Llama-3-8B run at dp = tp = 1 whose steps
+    are checked until one with prefill and decode rows together and one of
+    decode rows alone have been (layers 0, L / 2 and L - 1 of each: the
+    kernel's partial o and lse at every row, against ``paged_attention_
+    plain`` on the same q, caches and plan, to the ATTN limits). Runs
+    before the counted runs; the check launches nothing."""
+    from flashinfer_tpu_torch import EngineConfig
+    from flashinfer_tpu_torch.ops.attention import batch as batch_mod
+    from flashinfer_tpu_torch.serving.distributed import (
+        DistributedServingEngine,
+    )
+
+    cfg = EngineConfig(model=mc, max_batch=DIST_REQUESTS, page_size=16,
+                       greedy=True, device=DEVICE)
+    eng = DistributedServingEngine(cfg, mesh, params=params,
+                                   max_tokens_per_step=DIST_ROWS)
+    B = cfg.max_batch
+    layers = {0, mc.num_layers // 2, mc.num_layers - 1}
+    kind = [None]
+    checks = []
+    run_inputs = eng._replica_inputs
+
+    def record_kind(rep):
+        out = run_inputs(rep)
+        qo = np.diff(out[1][0])[:B]
+        kind[0] = ("mixed" if (qo > 1).any() and (qo == 1).any()
+                   else "prefill" if (qo > 1).any() else "decode")
+        return out
+
+    kernel = batch_mod.batch_paged_attention_run
+    done = set()
+
+    def checked(q, kc, vc, kv_idx, plan, **kw):
+        got = kernel(q, kc, vc, kv_idx, plan, **kw)
+        layer = kw["kv_indices_offset"] // cfg.num_pages
+        if kind[0] in ("mixed", "decode") and kind[0] not in done \
+                and layer in layers:
+            want = _paged_plain(torch, q, kc, vc, kv_idx, plan, items=64,
+                                **kw)
+            r = _attn_check(torch, got, want)
+            r.update(step=eng.steps, kind=kind[0], layer=layer,
+                     items=plan.numel() // 12, tile_q=kw["tile_q"],
+                     rows=q.shape[1])
+            checks.append(r)
+            if layer == max(layers):
+                done.add(kind[0])
+        return got
+
+    eng._replica_inputs = record_kind
+    batch_mod.batch_paged_attention_run = checked
+    try:
+        for p in prompts:
+            eng.add_request(p, DIST_NEW)
+        while eng.has_work() and done != {"mixed", "decode"}:
+            eng.step()
+    finally:
+        batch_mod.batch_paged_attention_run = kernel
+    del eng
+    torch.cuda.empty_cache()
+    for r in checks:
+        log(f"paged kernel on the distributed engine's plan, step "
+            f"{r['step']} ({r['kind']}), layer {r['layer']}: {r['items']} "
+            f"items of tile_q {r['tile_q']}, {r['rows']} packed rows; "
+            f"err_o {r['err_o']:.3g} ({r['o_ratio']:.3f} of the limit), "
+            f"err_lse {r['err_lse']:.3g}, -inf rows equal {r['same_inf']} "
+            f"[{card}]")
+    bad = [r for r in checks if not r["ok"]]
+    if done != {"mixed", "decode"} or bad:
+        raise AssertionError(f"paged kernel on the distributed engine's "
+                             f"bf16 plans: kinds checked {sorted(done)}, "
+                             f"failing {bad}")
+    return checks
+
+
+def _dist_llama(torch, np, mesh, mc, params, prompts, card, counters):
+    """The main path: Llama-3-8B at full width through
+    ``DistributedServingEngine`` at dp = tp = 1 (the engine phase's
+    weights, shared), greedy then sampled, beside ``LlamaServingEngine``'s
+    graphed greedy run on the same traffic; greedy token agreement at
+    least DIST_MIN_AGREEMENT."""
+    from flashinfer_tpu_torch import EngineConfig, LlamaServingEngine
+    from flashinfer_tpu_torch.serving.distributed import (
+        DistributedServingEngine,
+    )
+
+    res = {"kernel_gate": _dist_kernel_gate(torch, np, mesh, mc, params,
+                                            prompts, card)}
+    outs = {}
+    for sampling in ("greedy", "sampled"):
+        cfg = EngineConfig(model=mc, max_batch=DIST_REQUESTS, page_size=16,
+                           greedy=sampling == "greedy", device=DEVICE)
+        eng = DistributedServingEngine(cfg, mesh, params=params,
+                                       max_tokens_per_step=DIST_ROWS)
+        for k in DIST_PATH:
+            counters[k].launches = 0
+        # the greedy run is profiled (3 steps, left out of its tokens/s)
+        out, tokens_per_s, decode_ms, admit_ms, prof = _dist_serve(
+            torch, eng, prompts, DIST_NEW,
+            profile_steps=3 if sampling == "greedy" else 0)
+        counts = {k: counters[k].launches for k in DIST_PATH}
+        outs[sampling] = out
+        res[sampling] = dict(
+            tokens_per_s=tokens_per_s, steps=eng.steps,
+            step_ms_median=float(np.median(decode_ms)),
+            step_ms_p90=float(np.percentile(decode_ms, 90)),
+            decode_steps_timed=len(decode_ms), admit_step_ms=admit_ms,
+            device_ms_per_step=(prof or {}).get("device_ms_per_step"),
+            device_ops_per_step=(prof or {}).get("device_ops_per_step"),
+            ms_per_step=(prof or {}).get("ms_per_step"),
+            top_kernels=(prof or {}).get("top_kernels"),
+            planner_ms_per_step=eng.plan_seconds * 1e3 / eng.steps,
+            launches=counts, peak_mem_gb=torch.cuda.max_memory_allocated()
+            / 1e9)
+        log(f"DistributedServingEngine dp=tp=1 Llama-3-8B {sampling}: "
+            f"{res[sampling]['tokens_per_s']:.1f} tokens/s, {eng.steps} "
+            f"steps of {DIST_ROWS} rows, decode step median "
+            f"{res[sampling]['step_ms_median']:.2f} ms (n "
+            f"{len(decode_ms)}), device "
+            f"{res[sampling]['device_ms_per_step']} ms a step "
+            f"{res[sampling]['ms_per_step']} (top kernels "
+            f"{(res[sampling]['top_kernels'] or [])[:6]}), steps that could "
+            f"admit "
+            f"{[round(x, 1) for x in admit_ms]} ms, planner "
+            f"{res[sampling]['planner_ms_per_step']:.3f} ms; launches "
+            f"{counts} [{card}]")
+        del eng
+        torch.cuda.empty_cache()
+    # LlamaServingEngine, graphed greedy, on the same weights and traffic
+    cfg = EngineConfig(model=mc, max_batch=DIST_REQUESTS, page_size=16,
+                       greedy=True, device=DEVICE)
+    eng = LlamaServingEngine(cfg, params=params)
+    reqs, wall, decode_ms, _, _ = _serve(torch, eng, prompts, DIST_NEW)
+    replay_ms = None
+    if eng.graphs.enabled:
+        replay_ms = cuda_ms(torch, lambda: eng.graphs.replay(
+            eng.graphs.last_key), 10)
+    single = [r.output for r in reqs]
+    res["llama_engine_graphed_greedy"] = dict(
+        tokens_per_s=sum(len(o) for o in single) / wall,
+        step_ms_median=float(np.median(decode_ms)),
+        replay_device_ms=replay_ms)
+    del eng
+    torch.cuda.empty_cache()
+    agree = float(np.mean(np.asarray(outs["greedy"]) == np.asarray(single)))
+    res["greedy_agreement"] = agree
+    res["first_divergence"] = _first_divergence(outs["greedy"], single)
+    res["requests_equal"] = sum(a == b for a, b in zip(outs["greedy"],
+                                                       single))
+    g, s = res["greedy"], res["llama_engine_graphed_greedy"]
+    log(f"Llama-3-8B greedy step: DistributedServingEngine "
+        f"{g['step_ms_median']:.2f} ms wall / {g['device_ms_per_step']} ms "
+        f"device (eager, {DIST_ROWS} rows) vs LlamaServingEngine graphed "
+        f"{s['step_ms_median']:.2f} ms wall / {replay_ms} ms device "
+        f"(a replay, 8 rows); token agreement {agree:.3f} "
+        f"({res['requests_equal']} of {len(single)} requests identical; "
+        f"first differing token of each: {res['first_divergence']}) "
+        f"[{card}]")
+    # the same traffic with the weights in f32 (TF32 off), both engines:
+    # what the bf16 roundings leave of the agreement
+    import dataclasses
+
+    f32 = {k: v.float() for k, v in params.items()}
+    outs32, agree32 = _greedy_pair(
+        torch, np, mesh, dataclasses.replace(mc, dtype=torch.float32), f32,
+        prompts)
+    del f32
+    torch.cuda.empty_cache()
+    res["f32_greedy_agreement"] = agree32
+    res["f32_first_divergence"] = _first_divergence(*outs32)
+    log(f"Llama-3-8B in f32: token agreement {agree32:.3f}, first differing "
+        f"token of each request {res['f32_first_divergence']} [{card}]")
+    missing = [k for k, n in res["sampled"]["launches"].items() if n == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the distributed "
+                             f"path: {missing}")
+    if agree32 < DIST_MIN_AGREEMENT:
+        raise AssertionError(f"f32 greedy token agreement {agree32:.3f} "
+                             f"below {DIST_MIN_AGREEMENT}")
+    return res
+
+
+def phase_distributed(torch, np, card, shared):
+    """World size 1 through NCCL: the process group (a FileStore), the
+    mesh views of ``Mapping(world_size=1)``, every collective and
+    ``MoeAlltoAll``, ring / Ulysses attention, the sharded MoE layers, the
+    pipelined forward, the tiny f32 engine and TP step, then Llama-3-8B
+    through ``DistributedServingEngine``; a probe of NCCL send/recv to
+    the own rank runs beside it in a process of its own. The group is
+    destroyed at the end, whatever happened."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from flashinfer_tpu_torch.parallel import Mapping, make_mesh
+
+    counters = _reset_counts()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    probe = subprocess.Popen(
+        [sys.executable, "-c", SELF_P2P_PROBE, os.path.join(tmp, "probe")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if DEVICE == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group(DIST_BACKEND, init_method="file://" + os.path.join(
+        tmp, "store"), rank=0, world_size=1)
+    res = {}
+    try:
+        ctx = make_mesh(Mapping(world_size=1), DEVICE)
+        if "llama" in shared:
+            mc, params, prompts = shared.pop("llama")
+        else:  # the engine phase failed: draw its weights again
+            from flashinfer_tpu_torch import LlamaConfig
+            from flashinfer_tpu_torch.models.llama import llama_init_weights
+
+            mc = LlamaConfig.llama3_8b()
+            params = llama_init_weights(
+                torch.Generator(device=DEVICE).manual_seed(0), mc, DEVICE)
+            rng = np.random.default_rng(0)
+            prompts = [rng.integers(0, mc.vocab_size, int(n)).tolist()
+                       for n in rng.integers(64, 513, 12)]
+        res["collectives"] = _dist_collectives(torch, np, ctx.mesh,
+                                               ctx.moe_mesh)
+        res["attention"], attn_n = _dist_attention(torch, np, ctx.mesh,
+                                                   counters)
+        res["moe"], moe_n = _dist_moe(torch, np, ctx.moe_mesh, counters)
+        res["pipeline"], pipe_n = _dist_pipeline(torch, np, ctx.mesh, mc,
+                                                 params, counters)
+        res["tiny"], tp_n = _dist_tiny(torch, np, ctx.mesh, counters)
+        res["llama"] = _dist_llama(torch, np, ctx.mesh, mc, params,
+                                   prompts[:DIST_REQUESTS], card, counters)
+        del params
+        res["launches"] = dict(
+            distributed=res["llama"]["sampled"]["launches"],
+            parallel_attention={"flash_attention": attn_n},
+            parallel_moe={"grouped_gemm": moe_n},
+            pipeline={"rmsnorm": pipe_n}, tp_step=tp_n)
+    finally:
+        dist.destroy_process_group()
+        try:
+            out = probe.communicate(timeout=120)[0]
+        except subprocess.TimeoutExpired:
+            probe.kill()
+            out = probe.communicate()[0] + "\n(probe timed out, killed)"
+        shutil.rmtree(tmp, ignore_errors=True)
+    works = "SELF_P2P True" in out
+    res["self_send_recv"] = works
+    log(f"NCCL batch_isend_irecv to the own rank at world 1: "
+        f"{'works' if works else 'does not work'} (rc {probe.returncode}; "
+        f"{out.strip().splitlines()[-1] if out.strip() else 'no output'})")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every measurement here (JSON)")
@@ -4086,7 +4749,11 @@ def main() -> int:
     ph.run("tiny reference", phase_tiny_reference, torch, np)
     ph.run("tiny DeepSeek reference", phase_tiny_deepseek, torch, np)
     ph.run("tiny Mixtral reference", phase_tiny_mixtral, torch, np)
-    eng = ph.run("engine", phase_engine, torch, np, card)
+    shared = {}
+    eng = ph.run("engine", phase_engine, torch, np, card, shared)
+    dist_res = ph.run("distributed", phase_distributed, torch, np, card,
+                      shared)
+    shared.clear()
     torch.cuda.empty_cache()
     dsk = ph.run("DeepSeek", phase_deepseek, torch, np, card)
     torch.cuda.empty_cache()
@@ -4110,6 +4777,9 @@ def main() -> int:
                "surface": (surf or {}).get("launches", {}),
                "moe_api": (moe_api or {}).get("launches", {}),
                "pipe": (pipes or {}).get("launches", {})}
+    # the distributed phase's paths: the engine's sampled run, then the
+    # ring / Ulysses, sharded MoE, pipelined and TP-step calls
+    by_path.update((dist_res or {}).get("launches", {}))
 
     def launches(name):
         return sum(counts.get(name, 0) for counts in by_path.values())
@@ -4206,7 +4876,7 @@ def main() -> int:
                            w8_matmul=w8,
                            flash=flash, single=single, pod=pod,
                            cascade=casc, surface=surf, engine=eng,
-                           deepseek=dsk,
+                           deepseek=dsk, distributed=dist_res,
                            mixtral=mix, kernels=kernels,
                            launches_by_path=by_path, failed=ph.failed), f,
                       indent=1)

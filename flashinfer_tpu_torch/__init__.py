@@ -9,8 +9,8 @@ first use (``flashinfer_tpu_torch.jit``).
 the port computes. The Llama serving engine, the model configurations, the
 op modules and the subsystem namespaces (``aot``, ``autotuner``, ``jit``,
 ``logits_processor``, ``models``, ``profiler``, ``scheduler``, ``serving``,
-``testing``) are attributes here too, as in the JAX package, outside
-``__all__``; JAX's ``parallel`` is not ported yet."""
+``testing``, ``parallel``) are attributes here too, as in the JAX package,
+outside ``__all__``."""
 
 __version__ = "0.1.0"  # the JAX package's version, which the port tracks
 
@@ -129,6 +129,7 @@ from flashinfer_tpu_torch import (  # noqa: F401, E402 (subsystem namespaces)
     jit,
     logits_processor,
     models,
+    parallel,
     profiler,
     scheduler,
     serving,

@@ -35,6 +35,7 @@ from flashinfer_tpu_torch.jit.env import (
     CACHE_DIR,
     CSRC_DIR,
     HOST_CSRC_DIR,
+    NATIVE_BUILD_DIR,
     cxx,
     cxxflags,
     logger,
@@ -217,12 +218,12 @@ class JitSpec:
 
     @property
     def lib_path(self) -> Path:
-        return CACHE_DIR / f"{self.name}-{self.content_hash()}.so"
+        return NATIVE_BUILD_DIR / f"{self.name}-{self.content_hash()}.so"
 
 
 def _locked_build(spec: JitSpec, lib: Path) -> None:
     lock = lib.with_suffix(".lock")
-    CACHE_DIR.mkdir(parents=True, exist_ok=True)
+    NATIVE_BUILD_DIR.mkdir(parents=True, exist_ok=True)
     while not _take_lock(lock):  # another process builds: wait for its .so
         if lib.exists():
             return

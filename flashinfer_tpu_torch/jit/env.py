@@ -22,6 +22,7 @@ import pathlib
 
 __all__ = [
     "CACHE_DIR",
+    "NATIVE_BUILD_DIR",
     "CSRC_DIR",
     "HOST_CSRC_DIR",
     "cxx",
@@ -33,6 +34,9 @@ __all__ = [
 _PACKAGE_DIR = pathlib.Path(__file__).resolve().parent.parent
 CACHE_DIR = pathlib.Path(
     os.environ.get("FLASHINFER_TPU_CACHE_DIR", str(_PACKAGE_DIR / "_build")))
+# the host runtime's library lands beside the kernels' (JAX keeps it in a
+# subdirectory of its cache, flashinfer_tpu/jit/env.py:40)
+NATIVE_BUILD_DIR = CACHE_DIR
 CSRC_DIR = _PACKAGE_DIR / "csrc"  # the CUDA kernels (*.cu, *.cuh)
 HOST_CSRC_DIR = CSRC_DIR / "host"  # the host runtime (*.cc, *.h)
 

@@ -109,10 +109,12 @@ class Temperature(LogitsProcessor):
     param_names = ("temperature",)
 
     def apply(self, x, runtime):
+        """The f32 quotient, as JAX's (bf16 logits promote to f32); rows at
+        temperature <= 0 are divided by 1. A scalar stays a host number."""
         t = _per_row(self._get("temperature", runtime), x)
-        if isinstance(t, float):  # rows at temperature <= 0 stay as they are
-            return x / t if t > 0 else x
-        return x / torch.where(t > 0, t, 1.0)
+        if isinstance(t, float):
+            return x.float() / (t if t > 0 else 1.0)
+        return x.float() / torch.where(t > 0, t, 1.0)
 
 
 class Softmax(LogitsProcessor):

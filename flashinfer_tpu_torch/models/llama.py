@@ -38,6 +38,7 @@ __all__ = [
     "llama_init_weights_int8",
     "quantize_llama_weights_fp8",
     "quantize_llama_weights_int8",
+    "llama_dense_layer",
     "llama_forward_dense",
     "llama_decode_step",
     "params_from_numpy",
@@ -280,39 +281,56 @@ def e4m3_views(params: Mapping[str, torch.Tensor]
                    else t) for name, t in params.items()}
 
 
+def llama_dense_layer(lp: Mapping[str, torch.Tensor], x: torch.Tensor,
+                      pos: torch.Tensor, cfg: LlamaConfig, *,
+                      norm: Callable[..., torch.Tensor] = rmsnorm
+                      ) -> torch.Tensor:
+    """One dense causal layer (attention, then the SwiGLU MLP) over x
+    [batch, seq, hidden] at positions ``pos`` [seq]; ``lp`` holds ONE
+    layer's weights (no leading layer axis), wq/wk/wv or a fused wqkv.
+    Counterpart of JAX's ``llama_dense_layer`` (models/llama.py:121),
+    shared by the dense and the pipelined forwards. Attention is the f32
+    oracle (``attention_reference``), as JAX's; the norms are ``norm``,
+    by default ``rmsnorm`` (the kernel on the card, its plain version on
+    the CPU)."""
+    check_dense_params(lp)
+    B, S, _ = x.shape
+    d, hq, hkv = cfg.head_dim, cfg.num_qo_heads, cfg.num_kv_heads
+    xn = norm(x, lp["attn_norm"], cfg.rms_eps)
+    if "wqkv" in lp:
+        qkv = xn @ lp["wqkv"]
+        q = qkv[..., : hq * d]
+        k = qkv[..., hq * d: (hq + hkv) * d]
+        v = qkv[..., (hq + hkv) * d:]
+    else:
+        q, k, v = xn @ lp["wq"], xn @ lp["wk"], xn @ lp["wv"]
+    q = q.reshape(B, S, hq, d)
+    k = k.reshape(B, S, hkv, d)
+    v = v.reshape(B, S, hkv, d)
+    attn = []
+    for b in range(B):
+        qb, kb = apply_rope_pos_ids(q[b], k[b], pos, rope_theta=cfg.rope_theta)
+        attn.append(attention_reference(qb, kb, v[b], causal=True)[0])
+    attn = torch.stack(attn)  # [B, S, hq, d]
+    x = x + (attn.reshape(B, S, hq * d) @ lp["wo"]).to(x.dtype)
+    xn = norm(x, lp["mlp_norm"], cfg.rms_eps)
+    return x + (silu_and_mul(xn @ lp["w_gate_up"]) @ lp["w_down"]).to(x.dtype)
+
+
 def llama_forward_dense(params: Mapping[str, torch.Tensor],
                         token_ids: torch.Tensor,
                         cfg: LlamaConfig) -> torch.Tensor:
     """Dense causal forward, token_ids [batch, seq] -> logits [batch, seq,
-    vocab] f32. The oracle for the serving engine: plain PyTorch
-    throughout (the norm runs its plain version)."""
+    vocab] f32: ``llama_dense_layer`` a layer. The oracle for the serving
+    engine: plain PyTorch throughout, on the card too (the norm runs its
+    plain version)."""
     check_dense_params(params)
-    B, S = token_ids.shape
-    d, hq, hkv = cfg.head_dim, cfg.num_qo_heads, cfg.num_kv_heads
+    S = token_ids.shape[1]
     pos = torch.arange(S, device=token_ids.device)
     x = params["embedding"][token_ids]  # [B, S, h]
     for layer in range(cfg.num_layers):
         lp = {k: params[k][layer] for k in PER_LAYER if k in params}
-        xn = rmsnorm_plain(x, lp["attn_norm"], cfg.rms_eps)
-        if "wqkv" in lp:
-            qkv = xn @ lp["wqkv"]
-            q = qkv[..., : hq * d]
-            k = qkv[..., hq * d: (hq + hkv) * d]
-            v = qkv[..., (hq + hkv) * d:]
-        else:
-            q, k, v = xn @ lp["wq"], xn @ lp["wk"], xn @ lp["wv"]
-        q = q.reshape(B, S, hq, d)
-        k = k.reshape(B, S, hkv, d)
-        v = v.reshape(B, S, hkv, d)
-        attn = []
-        for b in range(B):
-            qb, kb = apply_rope_pos_ids(q[b], k[b], pos,
-                                        rope_theta=cfg.rope_theta)
-            attn.append(attention_reference(qb, kb, v[b], causal=True)[0])
-        attn = torch.stack(attn)  # [B, S, hq, d]
-        x = x + (attn.reshape(B, S, hq * d) @ lp["wo"]).to(x.dtype)
-        xn = rmsnorm_plain(x, lp["mlp_norm"], cfg.rms_eps)
-        x = x + (silu_and_mul(xn @ lp["w_gate_up"]) @ lp["w_down"]).to(x.dtype)
+        x = llama_dense_layer(lp, x, pos, cfg, norm=rmsnorm_plain)
     x = rmsnorm_plain(x, params["final_norm"], cfg.rms_eps)
     return (x @ params["lm_head"]).float()
 

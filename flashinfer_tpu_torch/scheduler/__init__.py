@@ -4,6 +4,8 @@ from flashinfer_tpu_torch.scheduler.plan import (
     build_merge_src,
     kv_major_order,
     plan_attention,
+    plan_decode,
+    plan_prefill,
 )
 
 __all__ = [
@@ -12,4 +14,6 @@ __all__ = [
     "build_merge_src",
     "kv_major_order",
     "plan_attention",
+    "plan_decode",
+    "plan_prefill",
 ]

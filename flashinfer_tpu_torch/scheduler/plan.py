@@ -140,6 +140,34 @@ def plan_attention(
     return _plan_attention_numpy(qo_indptr, kv_lens, **kwargs)
 
 
+def plan_prefill(*args, **kwargs) -> AttentionPlan:
+    """``plan_attention`` with the prefill default ``tile_q`` 128
+    (flashinfer_tpu/scheduler/plan.py:443)."""
+    kwargs.setdefault("tile_q", 128)
+    return plan_attention(*args, **kwargs)
+
+
+def plan_decode(
+    kv_lens: np.ndarray,
+    *,
+    kv_indptr: Optional[np.ndarray] = None,
+    page_size: int = 1,
+    gqa_group: int = 1,
+    tile_q: Optional[int] = None,
+    **kwargs,
+) -> AttentionPlan:
+    """Decode plan: one query token a request, its ``gqa_group`` packed
+    rows padded to one tile of ``max(8, next_pow2(gqa_group))`` rows
+    (flashinfer_tpu/scheduler/plan.py:449)."""
+    batch = len(kv_lens)
+    if tile_q is None:
+        tile_q = max(8, next_power_of_2(gqa_group))
+    return plan_attention(
+        np.arange(batch + 1) * tile_q, kv_lens,
+        qo_token_lens=np.ones(batch, np.int64), gqa_group=gqa_group,
+        kv_indptr=kv_indptr, page_size=page_size, tile_q=tile_q, **kwargs)
+
+
 def _plan_attention_numpy(
     qo_indptr: np.ndarray,
     kv_lens: np.ndarray,

@@ -181,7 +181,82 @@ def _norm_kv_scale(s) -> Tuple[float, float]:
     return float(s), float(s)
 
 
-class LlamaServingEngine:
+class _LayerStack:
+    """The layer loop of both engines: this module's, and the distributed
+    engine's on its tp shard. It reads ``cfg``, ``params``,
+    ``_layer_keys``, ``_hq`` / ``_hkv`` (the heads this process computes),
+    ``_kv_quant``, ``_kv_scale``, ``_k_rows`` / ``_v_rows`` and ``k_cache``
+    / ``v_cache``. The two hooks are where tensor parallelism reduces the
+    row-parallel partials; on one card they round into the residual's
+    dtype."""
+
+    def _attn_out_norm(self, part: torch.Tensor, x: torch.Tensor,
+                       weight: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(normed, new residual) of the attention's output projection
+        ``part`` added to the residual x."""
+        return fused_add_rmsnorm(part.to(x.dtype), x, weight,
+                                 self.cfg.model.rms_eps)
+
+    def _mlp_out(self, part: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """The MLP's output in the residual's dtype."""
+        return part.to(x.dtype)
+
+    def _run_layers(self, x, positions, page_rows, entries, dplan):
+        """The layers over the residual stream x. Returns (x, the last MLP
+        output): each norm adds the output before it in its own launch
+        (``fused_add_rmsnorm``), so the final norm adds the last one."""
+        mc = self.cfg.model
+        d, hq, hkv = mc.head_dim, self._hq, self._hkv
+        n = x.shape[0]
+        num_pages = self.cfg.num_pages
+        k_scale, v_scale = self._kv_scale
+        hnd = self.cfg.kv_layout == "HND"
+        # the plan may pad the query rows past n (prefill's dummy request)
+        q_pad = dplan.meta.nnz - n
+        # 8-bit caches take their bytes through an int8 view
+        kc, vc = self._k_rows, self._v_rows
+        if self._kv_quant:
+            kc, vc = kc.view(torch.int8), vc.view(torch.int8)
+        mlp = None
+        for layer in range(mc.num_layers):
+            lp = {k: self.params[k][layer] for k in self._layer_keys}
+            xn, x = add_rmsnorm(mlp, x, lp["attn_norm"], mc.rms_eps)
+            qkv = _wmm(xn, lp, "wqkv")
+            q = qkv[:, : hq * d].reshape(n, hq, d)
+            k = qkv[:, hq * d: (hq + hkv) * d].reshape(n, hkv, d)
+            v = qkv[:, (hq + hkv) * d:].reshape(n, hkv, d)
+            q, k = apply_rope_pos_ids(q, k, positions, rope_theta=mc.rope_theta)
+            k = _quantize_kv(k, self._kv_quant, k_scale, self.k_cache.dtype)
+            v = _quantize_kv(v, self._kv_quant, v_scale, self.v_cache.dtype)
+            if self._kv_quant:
+                k, v = k.view(torch.int8), v.view(torch.int8)
+            # in-place page scatter into the layer-stacked cache (the JAX
+            # engine donates its cache buffers to the jitted step instead)
+            pid = page_rows[layer]
+            if hnd:
+                kc[pid, :, entries] = k
+                vc[pid, :, entries] = v
+            else:
+                kc[pid, entries] = k
+                vc[pid, entries] = v
+            if q_pad:
+                q = torch.cat([q, q.new_zeros(q_pad, hq, d)])
+            attn = run_device_plan(
+                dplan, q, self.k_cache, self.v_cache,
+                kv_layout=TensorLayout.HND if hnd else TensorLayout.NHD,
+                k_scale=k_scale, v_scale=v_scale,
+                kv_indices_offset=layer * num_pages,
+            )[:n]
+            xn, x = self._attn_out_norm(
+                _wmm(attn.reshape(n, hq * d), lp, "wo"), x, lp["mlp_norm"])
+            mlp = self._mlp_out(
+                _wmm(silu_and_mul(_wmm(xn, lp, "w_gate_up")), lp, "w_down"),
+                x)
+        return x, mlp
+
+
+class LlamaServingEngine(_LayerStack):
     """Single-card continuous-batching engine for the Llama family."""
 
     def __init__(self, config: EngineConfig,
@@ -223,6 +298,7 @@ class LlamaServingEngine:
             params = quantize_llama_weights_int8(params)
         self.params = fuse_qkv_weights(params)
         self._layer_keys = _layer_keys(self.params)
+        self._hq, self._hkv = mc.num_qo_heads, mc.num_kv_heads
         self.pool = PagePool(config.num_pages, config.page_size)
         # sampling seeds are drawn on the host, one int32 per step
         self.generator = torch.Generator().manual_seed(seed + 1)
@@ -793,66 +869,6 @@ class LlamaServingEngine:
         x = fused_add_rmsnorm(mlp, x, p["final_norm"], mc.rms_eps)[0]
         return _wmm(x, p, "lm_head").float()
 
-    def _run_layers(self, x, positions, page_rows, entries, dplan):
-        """The layers over the residual stream x. Returns (x, the last MLP
-        output): each norm adds the output before it in its own launch
-        (``fused_add_rmsnorm``), so the final norm adds the last one."""
-        mc = self.cfg.model
-        d, hq, hkv = mc.head_dim, mc.num_qo_heads, mc.num_kv_heads
-        n = x.shape[0]
-        num_pages = self.cfg.num_pages
-        k_scale, v_scale = self._kv_scale
-        hnd = self.cfg.kv_layout == "HND"
-        # the plan may pad the query rows past n (prefill's dummy request)
-        q_pad = dplan.meta.nnz - n
-        # 8-bit caches take their bytes through an int8 view
-        kc, vc = self._k_rows, self._v_rows
-        if self._kv_quant:
-            kc, vc = kc.view(torch.int8), vc.view(torch.int8)
-        mlp = None
-        for layer in range(mc.num_layers):
-            lp = {k: self.params[k][layer] for k in self._layer_keys}
-            xn, x = add_rmsnorm(mlp, x, lp["attn_norm"], mc.rms_eps)
-            qkv = _wmm(xn, lp, "wqkv")
-            q = qkv[:, : hq * d].reshape(n, hq, d)
-            k = qkv[:, hq * d: (hq + hkv) * d].reshape(n, hkv, d)
-            v = qkv[:, (hq + hkv) * d:].reshape(n, hkv, d)
-            q, k = apply_rope_pos_ids(q, k, positions, rope_theta=mc.rope_theta)
-            k, v = self._quantize_kv(k, k_scale), self._quantize_kv(v, v_scale)
-            if self._kv_quant:
-                k, v = k.view(torch.int8), v.view(torch.int8)
-            # in-place page scatter into the layer-stacked cache (the JAX
-            # engine donates its cache buffers to the jitted step instead)
-            pid = page_rows[layer]
-            if hnd:
-                kc[pid, :, entries] = k
-                vc[pid, :, entries] = v
-            else:
-                kc[pid, entries] = k
-                vc[pid, entries] = v
-            if q_pad:
-                q = torch.cat([q, q.new_zeros(q_pad, hq, d)])
-            attn = run_device_plan(
-                dplan, q, self.k_cache, self.v_cache,
-                kv_layout=TensorLayout.HND if hnd else TensorLayout.NHD,
-                k_scale=k_scale, v_scale=v_scale,
-                kv_indices_offset=layer * num_pages,
-            )[:n]
-            xn, x = fused_add_rmsnorm(
-                _wmm(attn.reshape(n, hq * d), lp, "wo").to(x.dtype), x,
-                lp["mlp_norm"], mc.rms_eps)
-            mlp = _wmm(silu_and_mul(_wmm(xn, lp, "w_gate_up")), lp,
-                       "w_down").to(x.dtype)
-        return x, mlp
-
-    def _quantize_kv(self, t: torch.Tensor, scale: float) -> torch.Tensor:
-        if self._kv_quant == "int8":
-            return torch.clamp(torch.round(t.float() / scale), -127,
-                               127).to(torch.int8)
-        if self._kv_quant == "e4m3":
-            return (t.float() / scale).to(torch.float8_e4m3fn)
-        return t.to(self.k_cache.dtype)
-
     def _sample_tokens(self, logits: torch.Tensor, seed) -> torch.Tensor:
         """Greedy argmax, or top-k/top-p sampling with ``seed`` (an int, or
         a one-element int32 tensor the sampler kernel reads on the card)."""
@@ -871,6 +887,19 @@ class LlamaServingEngine:
             req.done = True
             self.pool.release(req._seq)
             self._slots[req._slot] = None
+
+
+def _quantize_kv(t: torch.Tensor, quant: Optional[str], scale: float,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """K or V as the cache stores it: linear int8 (round(t / scale),
+    clipped to +-127) for ``quant`` "int8", t / scale in e4m3 for "e4m3",
+    else t in the cache's ``dtype``."""
+    if quant == "int8":
+        return torch.clamp(torch.round(t.float() / scale), -127,
+                           127).to(torch.int8)
+    if quant == "e4m3":
+        return (t.float() / scale).to(torch.float8_e4m3fn)
+    return t.to(dtype)
 
 
 def _upload(buf: torch.Tensor, row: np.ndarray) -> None:

@@ -213,3 +213,76 @@ def test_slice_limits_raise():
                                   custom_mask=torch.from_numpy(mask))
     torch.testing.assert_close(p.run(q3, (kp, vp)), want, atol=2e-5,
                                rtol=2e-5)
+
+
+class _CudaMarked(torch.Tensor):
+    """A CPU tensor that says it lies on a CUDA device: the kernels'
+    wrappers take their CUDA branch on it (dispatch only)."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+@pytest.mark.parametrize("hook", ["query_transform", "logits_mask",
+                                  "output_transform", "logits_transform"])
+def test_hooked_variant_on_a_cuda_call_raises(hook, monkeypatch):
+    """A variant with a hook of the caller's own cannot enter a kernel
+    built by nvcc: given CUDA tensors, the flash and paged wrappers raise
+    ``NotImplementedError`` before any kernel is built or launched (JAX's
+    paged kernel applies no output transform, so paged takes the other
+    three), and never give way to the plain version. On the CPU the plain
+    versions compute it."""
+    from flashinfer_tpu_torch import jit
+    from flashinfer_tpu_torch.ops.attention.kernels import flash, paged
+    from flashinfer_tpu_torch.ops.attention.variants import (
+        AttentionVariant,
+        DefaultAttention,
+    )
+
+    def no_kernel(name):
+        raise AssertionError(f"kernel {name} built on a hooked call")
+
+    monkeypatch.setattr(jit, "load", no_kernel)
+    hooks = dict(
+        query_transform=lambda p, x: x * 0.5,
+        logits_mask=lambda p, qp, kp, h: (kp + h) % 3 != 0,
+        output_transform=lambda p, o: o + 1.0,
+        logits_transform=lambda p, s, qp, kp, h: s * 2.0)
+    kernel = None if hook == "logits_transform" else DefaultAttention.kernel
+    variant = AttentionVariant(name=hook, kernel=kernel,
+                               **{hook: hooks[hook]})
+    rng = np.random.default_rng(9)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               for s in ((12, HQ, D), (20, HKV, D), (20, HKV, D)))
+    marked = [t.as_subclass(_CudaMarked) for t in (q, k, v)]
+    launches = flash.flash_attention_dense.launches
+    with pytest.raises(NotImplementedError, match="variant JIT"):
+        flash.flash_attention_dense(*marked, causal=True, variant=variant)
+    assert flash.flash_attention_dense.launches == launches
+    o, lse = flash.flash_attention_dense(q, k, v, causal=True,
+                                         variant=variant)
+    plain_o, _ = flash.flash_attention_plain(q, k, v, causal=True)
+    assert torch.isfinite(o).all() and not torch.equal(o, plain_o)
+    if hook == "output_transform":
+        return
+    qo, kv, indptr, indices, last, pages = _batch(rng, "prefill")
+    (_, kt), (_, vt) = _caches(rng, "NHD", "model", pages)
+    w = torch_batch.BatchPrefillWithPagedKVCacheWrapper(
+        kv_layout="NHD", device="cpu")
+    w.plan(np.concatenate([[0], np.cumsum(qo)]), indptr, indices, last,
+           HQ, HKV, D, PS, causal=True, kv_chunk_size=16)
+    dp = w.device_plan
+    qp = torch.from_numpy(rng.standard_normal(
+        (HKV, dp.meta.bucket_rows, D)).astype(np.float32))
+    args = (qp, kt, vt, dp.segment("kv_indices"), dp.segment("plan"))
+    kw = dict(tile_q=dp.meta.tile_q, group=HQ // HKV, causal=True,
+              sm_scale=D ** -0.5, variant=variant)
+    launches = paged.batch_paged_attention_run.launches
+    with pytest.raises(NotImplementedError, match="variant JIT"):
+        paged.batch_paged_attention_run(
+            *(t.as_subclass(_CudaMarked) for t in args), **kw)
+    assert paged.batch_paged_attention_run.launches == launches
+    o, _ = paged.batch_paged_attention_run(*args, **kw)
+    plain_o, _ = paged.paged_attention_plain(*args, **{**kw, "variant": None})
+    assert torch.isfinite(o).all() and not torch.equal(o, plain_o)

@@ -114,6 +114,27 @@ def test_dense_forward_matches_jax(np_params, params):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
 
 
+@pytest.mark.parametrize("fused_qkv", [False, True])
+def test_dense_layer_matches_jax(np_params, params, fused_qkv):
+    """One layer (layer 1's weights) on the embedded tokens, wq / wk / wv
+    or a fused wqkv, against JAX's ``llama_dense_layer`` (f32, 1e-4)."""
+    from flashinfer_tpu_torch.models.llama import PER_LAYER, llama_dense_layer
+    from flashinfer_tpu_torch.serving.engine import fuse_qkv_weights
+
+    toks = np.asarray(_prompts(10, (7, 7)), np.int32)
+    jlp = {k: jnp.asarray(np_params[k][1]) for k in PER_LAYER
+           if k in np_params}
+    x = np.asarray(np_params["embedding"])[toks]
+    want = jax_llama.llama_dense_layer(jlp, jnp.asarray(x),
+                                       jnp.arange(7, dtype=jnp.int32), MC_JAX)
+    lp = {k: params[k][1] for k in PER_LAYER if k in params}
+    if fused_qkv:
+        lp = fuse_qkv_weights(lp)
+        assert "wqkv" in lp
+    got = llama_dense_layer(lp, torch.from_numpy(x), torch.arange(7), MC)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
+
+
 def test_engine_matches_dense_oracle(params):
     eng = LlamaServingEngine(EngineConfig(model=MC, device="cpu", **BASE),
                              params=params)

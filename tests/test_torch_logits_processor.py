@@ -218,3 +218,37 @@ def test_unfused_steps_match_jax(names, params):
     w = np.asarray(want(jnp.asarray(logits), **params))
     g = got(torch.from_numpy(logits), **params).numpy()
     np.testing.assert_allclose(g, w, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("temperature", [0.7, 0.0, "rows"])
+def test_temperature_promotes_bf16_logits_as_jax(temperature):
+    """``Temperature`` on bf16 logits returns JAX's f32 quotient: the dtype
+    and, since both divide the same f32 values by the same f32
+    temperature, the values exactly. A row at temperature <= 0 stays as it
+    is (divided by 1)."""
+    rng = np.random.default_rng(21)
+    logits = (rng.standard_normal((2, 1000)) * 4).astype(np.float32)
+    t = (np.array([0.7, -1.0], np.float32) if temperature == "rows"
+         else temperature)
+    want = jlp.Temperature().apply(jnp.asarray(logits, jnp.bfloat16),
+                                   {"temperature": t})
+    got = lp.Temperature().apply(torch.from_numpy(logits).bfloat16(),
+                                 {"temperature": t})
+    assert want.dtype == jnp.float32 and got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_temperature_pipe_on_bf16_logits_draws_the_f32_quotient():
+    """[Temperature, Softmax, Sample] on bf16 logits draws the tokens of a
+    direct ``sampling_from_logits`` call on the f32 quotient, seed for
+    seed."""
+    from flashinfer_tpu_torch.ops.sampling import sampling_from_logits
+
+    rng = np.random.default_rng(22)
+    x = torch.from_numpy(
+        (rng.standard_normal((8, 512)) * 3).astype(np.float32)).bfloat16()
+    pipe = lp.LogitsPipe([lp.Temperature(), lp.Softmax(), lp.Sample()])
+    for seed in range(4):
+        got = pipe(x, temperature=0.7, seed=seed)
+        want = sampling_from_logits(x.float() / 0.7, seed=seed)
+        assert torch.equal(got, want), seed

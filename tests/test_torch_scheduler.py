@@ -152,3 +152,24 @@ def test_page_pool_matches_jax(seed):
             want = ref.batch_export([b for _, b in live])
             for x, y in zip(got, want):
                 np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("group", [1, 4, 16])
+def test_plan_decode_and_prefill_match_jax(group):
+    """``plan_decode`` pads each request to one tile of max(8,
+    next_pow2(group)) rows; ``plan_prefill`` defaults tile_q to 128: both
+    give JAX's plans, field by field."""
+    rng = np.random.default_rng(group)
+    _, kv, indptr, _, _ = _random_batch(rng, 5, 8, decode=True)
+    kw = dict(kv_indptr=indptr, page_size=8, gqa_group=group,
+              kv_chunk_size=32)
+    got = torch_plan.plan_decode(kv, backend="numpy", **kw)
+    assert got.tile_q == max(8, 1 << (group - 1).bit_length())
+    _assert_plans_equal(got, jax_plan.plan_decode(kv, **kw))
+    qo, kv, indptr, _, _ = _random_batch(rng, 3, 8, decode=False)
+    rows = np.concatenate([[0], np.cumsum(-(-qo * group // 128) * 128)])
+    kw = dict(qo_token_lens=qo, gqa_group=group, kv_indptr=indptr,
+              page_size=8, causal=True)
+    got = torch_plan.plan_prefill(rows, kv, backend="numpy", **kw)
+    assert got.tile_q == 128
+    _assert_plans_equal(got, jax_plan.plan_prefill(rows, kv, **kw))

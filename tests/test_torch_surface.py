@@ -9,6 +9,8 @@ cancels, so the libraries' f32 tanh, each within an ulp of -1, differ by
 ~1e-7 there, times gate and up values of up to ~10), in bf16 to one bf16
 step (2^-8 relative); page offsets and views exactly."""
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -27,8 +29,12 @@ from flashinfer_tpu_torch.ops.attention import state
 
 # JAX's exports the port does not compute yet: none is left
 PENDING_EXPORTS = ()
-# JAX's subsystem namespaces the port does not have yet
-PENDING_NAMESPACES = ("parallel",)
+# JAX's subsystem namespaces the port does not have yet: none is left
+PENDING_NAMESPACES = ()
+# names of JAX's modules that are TPU mechanics, with no counterpart
+TPU_ONLY_NAMES = ("on_tpu", "default_interpret", "sublane_multiple",
+                  "LAST_DIM_LANES", "rmsnorm_pallas", "fp8_k_permutation",
+                  "bench_tpu_time", "bench_tpu_time_differential")
 
 
 def _t(a):
@@ -279,9 +285,57 @@ def test_namespaces_are_jaxs_but_the_pending():
                 and isinstance(getattr(pkg, n), types.ModuleType)}
 
     jax_mods, ours = modules(flashinfer_tpu), modules(flashinfer_tpu_torch)
-    assert PENDING_NAMESPACES == ("parallel",)
+    assert PENDING_NAMESPACES == ()
     assert jax_mods - ours == set(PENDING_NAMESPACES)
     for name in jax_mods - set(PENDING_NAMESPACES):
         mod = getattr(flashinfer_tpu_torch, name)
         assert mod.__name__.startswith("flashinfer_tpu_torch."), name
         assert mod.__name__.rsplit(".", 1)[-1] == name
+
+
+def _jax_modules_with_all():
+    import importlib
+    import pkgutil
+
+    for info in pkgutil.walk_packages(flashinfer_tpu.__path__,
+                                      "flashinfer_tpu."):
+        mod = importlib.import_module(info.name)
+        if hasattr(mod, "__all__"):
+            yield info.name, mod
+
+
+def test_every_jax_module_all_is_in_the_port():
+    """Each module of JAX's package that declares ``__all__`` has a
+    counterpart of the same path in the port holding every name of it,
+    but the TPU-only ones."""
+    import importlib
+
+    missing, tpu_only = {}, set()
+    for name, mod in _jax_modules_with_all():
+        ours = importlib.import_module(
+            "flashinfer_tpu_torch." + name[len("flashinfer_tpu."):])
+        lack = [n for n in mod.__all__ if not hasattr(ours, n)]
+        tpu_only.update(n for n in lack if n in TPU_ONLY_NAMES)
+        lack = [n for n in lack if n not in TPU_ONLY_NAMES]
+        if lack:
+            missing[name] = lack
+    assert missing == {}
+    assert tpu_only == set(TPU_ONLY_NAMES)  # the list holds no stale name
+
+
+def test_distributed_modules_import_no_jax():
+    """The parallel layer and the distributed engine import torch alone:
+    no ``jax`` or ``flashinfer_tpu`` module is loaded (a fresh
+    interpreter)."""
+    import subprocess
+    import sys
+
+    code = ("import sys, flashinfer_tpu_torch.parallel, "
+            "flashinfer_tpu_torch.serving.distributed; "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flashinfer_tpu')))")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, check=True,
+                         env=dict(os.environ, PYTHONPATH=repo))
+    assert out.stdout.strip() == "[]"
