@@ -74,7 +74,21 @@ Run from the root of a checkout. Phases, in order:
    prefill batches: each against the f32 oracle and its kernel launch
    against the plain version, timed beside its bound, the plain version,
    SDPA and, where the wrapper gathers its keys, the gather;
-9. tiny references: the f32 tiny Llama engine, and the f32 tiny DeepSeek
+9. variants: callers' attention variants written as plain torch hooks
+   through the variant JIT (``flashinfer_tpu_torch/jit/variant.py``):
+   their flash and paged libraries built at once (nvcc with the generated
+   header) into ``flashinfer_tpu_torch/_build/``; then the variants path
+   (its launches are read here): (a) ALiBi from its slopes at MPT-7B's
+   heads, (b) a document mask (8 documents of 1024), (c) a q scale and an
+   output affine, (d) the sigmoid, each through
+   ``single_prefill_with_kv_cache`` (8192 tokens, causal), and (a)-(c)
+   through the batch prefill (the engine's 8 prompts) and decode (8
+   requests) wrappers on bf16 and e4m3 caches; second calls build
+   nothing; each launch against its plain version, (a) and (d) against
+   the built-in variant too, timed beside the built-in variant (or the
+   default), the bound, the plain version and SDPA where one call
+   computes it;
+10. tiny references: the f32 tiny Llama engine, and the f32 tiny DeepSeek
    and Mixtral decode loops, on the card (every kernel on) emit the greedy
    tokens of the same model on the CPU (every plain version); the tiny
    engine with
@@ -82,7 +96,7 @@ Run from the root of a checkout. Phases, in order:
    card, on the CPU and without drafts, with drafts accepted; the tiny
    engine with e4m3 and int8 weights (decode, window 4, 3 drafts) emits
    the CPU's tokens;
-10. engine: ``LlamaServingEngine`` at Llama-3-8B widths and depth in bf16,
+11. engine: ``LlamaServingEngine`` at Llama-3-8B widths and depth in bf16,
    random weights from a seeded CUDA generator, 12 requests of 64-512
    prompt tokens and 32 new tokens on 8 slots, sampled and greedy, in three
    modes: the decode step eager (``cuda_graphs=False``), replayed from CUDA
@@ -107,7 +121,7 @@ Run from the root of a checkout. Phases, in order:
    and one graphed sampled decode step is traced with
    ``profiler.profile_trace``, whose ``summarize_trace`` must name the
    paged, RMSNorm and sampler kernels;
-11. distributed: ``torch.distributed`` at world size 1 through NCCL (a
+12. distributed: ``torch.distributed`` at world size 1 through NCCL (a
    FileStore; the group is destroyed at the phase's end): the mesh views
    of ``parallel.make_mesh``, every collective and ``MoeAlltoAll`` against
    their local math, ring (causal and not) and Ulysses attention at cp 1
@@ -128,7 +142,7 @@ Run from the root of a checkout. Phases, in order:
    again with the weights in f32, whose agreement must reach
    ``DIST_MIN_AGREEMENT``. A probe of NCCL send/recv to the own rank runs
    beside it in a process of its own (recorded, not required);
-12. DeepSeek: ``deepseek_decode_step`` at DeepSeek-V2-Lite widths and full
+13. DeepSeek: ``deepseek_decode_step`` at DeepSeek-V2-Lite widths and full
    depth (27 layers) in bf16, random weights from a seeded CUDA generator,
    8 requests of 32-128 prompt tokens prefilled token by token and 32 new
    tokens each, one MLA plan per step: sampled (top-k 40, top-p 0.9: the
@@ -136,16 +150,16 @@ Run from the root of a checkout. Phases, in order:
    then a short greedy run on e4m3 caches and the e4m3 witness (one step
    on bf16, e4m3 and bf16-fed-e4m3-values caches: the last two must
    agree);
-13. Mixtral: ``mixtral_decode_step`` at Mixtral-8x7B's widths and 16 of its
+14. Mixtral: ``mixtral_decode_step`` at Mixtral-8x7B's widths and 16 of its
    32 layers (32 are ~93 GB in bf16) in bf16, random weights from a seeded
    CUDA generator, the DeepSeek phase's traffic (8 requests of 32-128
    prompt tokens fed token by token, 32 new tokens each, page 16), a fresh
    decode plan a step: sampled (the Mixtral path, whose launch counts are
    read from this run) and greedy;
-14. tooling: ``aot.warmup()``, ``python -m flashinfer_tpu_torch
+15. tooling: ``aot.warmup()``, ``python -m flashinfer_tpu_torch
    show-config``, and the autotuner (``tune --quick`` in ``autotune()``,
    its winners persisted to a temporary config path);
-15. one ``{"kernels": [...]}`` line, then the result line.
+16. one ``{"kernels": [...]}`` line, then the result line.
 
 The script exits non-zero, and prints no result line, when the machine has
 no CUDA device, when it is not run from a checkout, or when any phase fails.
@@ -3556,6 +3570,391 @@ def phase_paged_surface(torch, np, card, lens_decode, lens_prefill):
 
 # ---------------------------------------------------- native host runtime
 
+# ------------------------------------------------------ caller variants
+
+VARIANT_TOKENS = 8192  # the single-request prompt (causal)
+VARIANT_DOC = 1024  # tokens a document of the flash doc-mask case
+VARIANT_BATCH_DOC = 64  # tokens a document of the batch doc-mask case
+VARIANT_NAMES = ("alibi", "doc_mask", "q_out", "sigmoid")
+VARIANT_PAGED = ("alibi", "doc_mask", "q_out")  # softmax: the paged kernel
+VARIANT_KV = (("bf16", (1.0, 1.0)), ("e4m3", (0.25, 0.25)))
+VARIANT_PATH = ("flash_attention", "paged_attention")
+
+
+def _caller_variant(torch, name, hq, n_tokens, doc_len, dev):
+    """(variant, variant_params, built-in variant of the same function or
+    None) of one caller variant, its hooks plain torch: (a) ALiBi from its
+    slopes, (b) a document mask over a table of document ids (covering a
+    tile past the keys), (c) a q scale and an output affine, (d) the
+    sigmoid with bias -log(n) (a row's weights sum to ~1)."""
+    from flashinfer_tpu_torch.ops.attention.single import (
+        default_alibi_slopes,
+    )
+    from flashinfer_tpu_torch.ops.attention.variants import (
+        AttentionVariant,
+        FlashSigmoid,
+        make_default_variant,
+    )
+
+    if name == "alibi":
+        return (AttentionVariant(
+            name="caller_alibi",
+            logits_transform=lambda p, s, qp, kp, h: (
+                s + p["alibi_slopes"][h] * (kp - qp).float())),
+            {"alibi_slopes": default_alibi_slopes(hq, dev)},
+            make_default_variant(use_alibi=True))
+    if name == "doc_mask":
+        doc = (torch.arange(n_tokens + 256, device=dev) // doc_len).int()
+        return (AttentionVariant(
+            name="doc_mask",
+            logits_mask=lambda p, qp, kp, h: p["doc"][qp] == p["doc"][kp]),
+            {"doc": doc}, None)
+    if name == "q_out":
+        return (AttentionVariant(
+            name="q_out", query_transform=lambda p, x: x * p["q_scale"],
+            output_transform=lambda p, o: o * 1.5 + p["o_bias"]),
+            {"q_scale": torch.tensor(0.75, device=dev), "o_bias": 0.25},
+            None)
+    bias = -math.log(n_tokens)
+    return (AttentionVariant(
+        name="caller_sigmoid", use_softmax=False,
+        logits_transform=lambda p, s, qp, kp, h: torch.reciprocal(
+            1.0 + torch.exp(-(s + bias)))),
+        None, FlashSigmoid(1.0, bias))
+
+
+def _doc_pairs(np, kv_lens, qo_lens, doc_len):
+    """(query, key) pairs a causal document mask keeps: query i of a
+    request sits at kv - qo + i and sees its document's keys up to it."""
+    total = 0
+    for kv, qo in zip(kv_lens, qo_lens):
+        pos = np.arange(int(kv) - int(qo), int(kv))
+        total += int((pos % doc_len + 1).sum())
+    return total
+
+
+def _variant_flash_case(torch, np, name, gen):
+    """The single-request call of one caller variant at 8192 tokens,
+    causal, bf16 (MPT-7B's heads for ALiBi, Llama-3-8B's else): a dict of
+    the kernel, built-in, plain and SDPA calls (each returning (o, lse),
+    SDPA o), the bound's bytes and operations."""
+    import torch.nn.functional as F
+
+    from flashinfer_tpu_torch.ops.attention.kernels.flash import (
+        flash_attention_plain,
+    )
+    from flashinfer_tpu_torch.ops.attention.single import (
+        single_prefill_with_kv_cache,
+    )
+    from flashinfer_tpu_torch.ops.quantization import packbits
+
+    hq, hkv, d = MPT_7B_HEADS if name == "alibi" else LLAMA_HEADS
+    n = VARIANT_TOKENS
+    dev = torch.device(DEVICE)
+    q, k, v = (torch.randn(n, h, d, device=dev, generator=gen,
+                           dtype=torch.bfloat16) for h in (hq, hkv, hkv))
+    variant, params, builtin = _caller_variant(torch, name, hq, n,
+                                               VARIANT_DOC, dev)
+    kw = dict(causal=True, sm_scale=d ** -0.5)
+    vkw = dict(kw, variant=variant, variant_params=params)
+
+    def kernel():
+        return single_prefill_with_kv_cache(q, k, v, return_lse=True, **vkw)
+
+    def plain():
+        return flash_attention_plain(q, k, v, **vkw)
+
+    q_pos = torch.arange(n, device=dev)[:, None]
+    kv_pos = torch.arange(n, device=dev)[None, :]
+    keep = kv_pos <= q_pos
+    builtin_call = lib = None
+    extra = 0
+    pairs = n * (n + 1) // 2
+    if builtin is not None:  # ALiBi's slopes, the sigmoid's numbers
+        bkw = dict(kw, variant=builtin, variant_params=params)
+
+        def builtin_call():
+            return single_prefill_with_kv_cache(q, k, v, return_lse=True,
+                                                **bkw)
+    if name == "alibi":
+        extra = hq * 4
+        slopes = params["alibi_slopes"]
+        bias = torch.where(keep, slopes[:, None, None]
+                           * (kv_pos - q_pos).float(),
+                           float("-inf")).to(q.dtype)[None]
+
+        def lib():
+            return F.scaled_dot_product_attention(
+                q.transpose(0, 1)[None], k.transpose(0, 1)[None],
+                v.transpose(0, 1)[None], attn_mask=bias,
+                scale=kw["sm_scale"])
+    elif name == "doc_mask":  # the same mask as packed bits, and for SDPA
+        doc = params["doc"][:n]
+        keep = keep & (doc[:, None] == doc[None, :])
+        extra = params["doc"].numel() * 4
+        pairs = _doc_pairs(np, [n], [n], VARIANT_DOC)
+        packed = packbits(keep.reshape(-1))
+
+        def builtin_call():
+            return single_prefill_with_kv_cache(
+                q, k, v, return_lse=True, packed_custom_mask=packed, **kw)
+
+        group = hq // hkv
+        kt, vt = (x.transpose(0, 1)[None].repeat_interleave(group, dim=1)
+                  for x in (k, v))
+
+        def lib():
+            return F.scaled_dot_product_attention(
+                q.transpose(0, 1)[None], kt, vt, attn_mask=keep,
+                scale=kw["sm_scale"])
+    else:
+        del keep
+    nbytes = (n * hq * d * 2) * 2 + 2 * n * hkv * d * 2 + n * hq * 4 + extra
+    ops = 4 * d * pairs * hq
+    return dict(kernel=kernel, builtin=builtin_call, plain=plain, lib=lib,
+                nbytes=nbytes, ops=ops, heads=(hq, hkv, d), pairs=pairs)
+
+
+def _variant_batch_cases(torch, np, lens_decode, lens_prefill, gen):
+    """The batch wrappers with the caller variants (a)-(c) at Llama-3-8B
+    widths (MPT-7B's for ALiBi), page 16, NHD, chunk 512: the engine's
+    8-prompt prefill and an 8-request decode, bf16 and e4m3 caches. Yields
+    (label, wrapper, q, (k, v), scales, variant, params, kv_lens, qo_lens,
+    pages)."""
+    from flashinfer_tpu_torch.ops.attention.batch import (
+        BatchDecodeWithPagedKVCacheWrapper,
+        BatchPrefillWithPagedKVCacheWrapper,
+    )
+
+    ps = 16
+    dev = torch.device(DEVICE)
+    for name in VARIANT_PAGED:
+        hq, hkv, d = MPT_7B_HEADS if name == "alibi" else LLAMA_HEADS
+        for mode, lens in (("prefill", lens_prefill),
+                           ("decode", lens_decode)):
+            kv_lens = np.asarray(lens, np.int64)
+            qo_lens = kv_lens if mode == "prefill" else np.ones_like(kv_lens)
+            npages = -(-kv_lens // ps)
+            indptr = np.concatenate([[0], np.cumsum(npages)])
+            pages = int(indptr[-1])
+            indices = np.random.default_rng(3).permutation(pages)
+            last = kv_lens - (npages - 1) * ps
+            variant, params, _ = _caller_variant(
+                torch, name, hq, int(kv_lens.max()), VARIANT_BATCH_DOC, dev)
+            if mode == "prefill":
+                w = BatchPrefillWithPagedKVCacheWrapper(
+                    kv_layout="NHD", device=DEVICE, variant=variant)
+                w.plan(np.concatenate([[0], np.cumsum(qo_lens)]), indptr,
+                       indices, last, hq, hkv, d, ps, causal=True,
+                       kv_chunk_size=512, variant_params=params)
+            else:
+                w = BatchDecodeWithPagedKVCacheWrapper(
+                    kv_layout="NHD", device=DEVICE, variant=variant)
+                w.plan(indptr, indices, last, hq, hkv, d, ps,
+                       kv_chunk_size=512, variant_params=params)
+            q = torch.randn(int(qo_lens.sum()), hq, d, device=dev,
+                            generator=gen, dtype=torch.bfloat16)
+            for kv_name, scales in VARIANT_KV:
+                caches = []
+                for _ in range(2):
+                    x = torch.randn(pages, ps, hkv, d, device=dev,
+                                    generator=gen, dtype=torch.bfloat16)
+                    caches.append(x if kv_name == "bf16"
+                                  else (x * 4).to(torch.float8_e4m3fn))
+                yield (f"{name}/{mode}/{kv_name}", w, q, tuple(caches),
+                       scales, variant, params, kv_lens, qo_lens, pages)
+
+
+def _variant_targets(torch, np, lens_decode, lens_prefill):
+    """Every (kernel, header) the phase launches, traced first: the JIT's
+    libraries, to be built at once."""
+    from flashinfer_tpu_torch.jit.variant import compile_variant
+
+    dev = torch.device(DEVICE)
+    targets = []
+    for name in VARIANT_NAMES:
+        hq = (MPT_7B_HEADS if name == "alibi" else LLAMA_HEADS)[0]
+        variant, params, _ = _caller_variant(torch, name, hq, VARIANT_TOKENS,
+                                             VARIANT_DOC, dev)
+        c = compile_variant(variant, params, "flash", hq)
+        targets.append(("flash_attention", c.header_path()))
+        if name in VARIANT_PAGED:
+            kv_max = max(max(lens_decode), max(lens_prefill))
+            variant, params, _ = _caller_variant(
+                torch, name, hq, kv_max, VARIANT_BATCH_DOC, dev)
+            c = compile_variant(variant, params, "paged", hq)
+            targets.append(("paged_attention", c.header_path()))
+    return list(dict.fromkeys(targets))
+
+
+def phase_variants(torch, np, card, lens_decode, lens_prefill):
+    """Callers' attention variants (plain torch hooks) through the variant
+    JIT on the card: their flash and paged libraries built at once from the
+    checkout's sources; then the variants path (launch counts set to 0
+    before it, read after): each of (a) ALiBi, (b) a document mask, (c) a q
+    scale and output affine, (d) the sigmoid through
+    ``single_prefill_with_kv_cache`` (8192 tokens, causal; 8 documents of
+    1024 for (b)), and (a)-(c) through ``BatchPrefillWithPagedKVCacheWrapper``
+    (the engine's 8 prompts) and ``BatchDecodeWithPagedKVCacheWrapper`` (8
+    requests) on bf16 and e4m3 caches; a second call of each runs no
+    build. Then each kernel launch against its plain version (ATTN limits),
+    (a) and (d) against the built-in variant's library too, each timed
+    beside the built-in variant's ms (or the default's), its bound, the
+    plain version's ms and SDPA's where one call computes it (ALiBi as a
+    bias, the document mask as a boolean mask)."""
+    from flashinfer_tpu_torch import jit
+    from flashinfer_tpu_torch.jit import core
+    from flashinfer_tpu_torch.ops.attention.batch import pack_queries
+    from flashinfer_tpu_torch.ops.attention.kernels.paged import (
+        batch_paged_attention_run,
+    )
+
+    t0 = time.perf_counter()
+    targets = _variant_targets(torch, np, lens_decode, lens_prefill)
+    built = jit.build_all(targets)
+    build_s = time.perf_counter() - t0
+    for t in targets:
+        label = core._label(t)
+        log(f"variant library {label}: "
+            + (f"built in {built[label]:.1f} s" if label in built
+               else "cached"))
+        for ln in jit.build_log(t).splitlines():  # spills; C75xx but C7519
+            if "spill" in ln and " 0 bytes spill" not in ln or (
+                    "C75" in ln and "C7519" not in ln):
+                log("  ptxas:", ln.strip())
+    log(f"variant libraries: {len(targets)} in {build_s:.1f} s")
+
+    gen = torch.Generator(device=DEVICE).manual_seed(23)
+    flash_cases = {name: _variant_flash_case(torch, np, name, gen)
+                   for name in VARIANT_NAMES}
+    batch_cases = list(_variant_batch_cases(torch, np, lens_decode,
+                                            lens_prefill, gen))
+    # the variants path: each call once through its entry point
+    torch.cuda.synchronize()
+    counters = _reset_counts()
+    outs = {}
+    for name, c in flash_cases.items():
+        outs[name] = c["kernel"]()
+    for label, w, q, kv, scales, *_ in batch_cases:
+        outs[label] = w.run(q, kv, k_scale=scales[0], v_scale=scales[1])
+    torch.cuda.synchronize()
+    counts = {k: counters[k].launches for k in VARIANT_PATH}
+    log(f"variants path: launches {counts}")
+    missing = [k for k in VARIANT_PATH if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"variants path launched no {missing}")
+    for key, o in outs.items():
+        o = o[0] if isinstance(o, tuple) else o
+        assert bool(torch.isfinite(o).all()), key
+    del outs
+    # a second call of each: no nvcc, no library load
+    builds = []
+    real_build = core.build_all
+    core.build_all = lambda *a, **k: builds.append(a) or real_build(*a, **k)
+    try:
+        for c in flash_cases.values():
+            c["kernel"]()
+        for label, w, q, kv, scales, *_ in batch_cases:
+            w.run(q, kv, k_scale=scales[0], v_scale=scales[1])
+        torch.cuda.synchronize()
+    finally:
+        core.build_all = real_build
+    if builds:
+        raise AssertionError(f"second calls built {builds}")
+    log("variants: second calls ran 0 builds")
+
+    rows = []
+    for name, c in flash_cases.items():
+        got = c["kernel"]()
+        want = c["plain"]()
+        torch.cuda.synchronize()
+        chk = _attn_check(torch, got, want)
+        row = dict(case=f"flash/{name}", heads=c["heads"], **chk,
+                   build_s=build_s, builds_second_call=0)
+        if c["builtin"] is not None and name in ("alibi", "sigmoid"):
+            bchk = _attn_check(torch, got, c["builtin"]())
+            row["vs_builtin"] = bchk
+            row["ok"] = row["ok"] and bchk["ok"]
+        del got
+        lib_ms = lib_ratio = None
+        if c["lib"] is not None:
+            lib_ms, lib_ratio = _time_library(torch, c["lib"], want, True)
+        del want
+        row["ms"] = cuda_ms(torch, c["kernel"], 5, warmup=1, graph=True)
+        row["builtin_ms"] = (cuda_ms(torch, c["builtin"], 5, warmup=1,
+                                     graph=True)
+                             if c["builtin"] is not None else None)
+        row["plain_ms"] = cuda_ms(torch, c["plain"], 2, warmup=1)
+        row["library_ms"], row["library_o_ratio"] = lib_ms, lib_ratio
+        row["bound_ms"], row["bound_by"] = bound_ms(c["nbytes"], c["ops"])
+        row.update(bound_bytes=c["nbytes"], bound_ops=c["ops"],
+                   pairs=c["pairs"])
+        rows.append(row)
+        log(f"variant flash/{name:8s} heads={c['heads']} err_o="
+            f"{chk['err_o']:.2e} (limit ratio {chk['o_ratio']:.3f}) "
+            f"err_lse={chk['err_lse']:.2e}"
+            + (f" vs built-in ratio {row['vs_builtin']['o_ratio']:.3f}"
+               if "vs_builtin" in row else "")
+            + f" ms={row['ms']:.4f} builtin_ms={row['builtin_ms']} "
+            f"plain_ms={row['plain_ms']:.3f} library_ms={lib_ms} "
+            f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}) "
+            f"{'ok' if row['ok'] else 'MISMATCH'}")
+        torch.cuda.empty_cache()
+    del flash_cases
+
+    for (label, w, q, kv, scales, variant, params, kv_lens, qo_lens,
+         pages) in batch_cases:
+        dp = w.device_plan
+        m = dp.meta
+        qp = pack_queries(dp, q)
+        args = (qp, kv[0], kv[1], dp.segment("kv_indices"),
+                dp.segment("plan"))
+        kw = dict(tile_q=m.tile_q, group=m.gqa_group, causal=m.causal,
+                  sm_scale=m.sm_scale, k_scale=scales[0], v_scale=scales[1],
+                  row_valid=dp.segment("row_valid"))
+        vkw = dict(kw, variant=variant, variant_params=params)
+        got = batch_paged_attention_run(*args, **vkw)
+        want = _paged_plain(torch, *args, **vkw)
+        torch.cuda.synchronize()
+        chk = _attn_check(torch, got, want)
+        del got, want
+        ms = cuda_ms(torch, lambda: batch_paged_attention_run(*args, **vkw),
+                     20, graph=True)
+        default_ms = cuda_ms(
+            torch, lambda: batch_paged_attention_run(*args, **kw), 20,
+            graph=True)
+        plain_ms = cuda_ms(torch, lambda: _paged_plain(torch, *args, **vkw),
+                           3, warmup=1)
+        hq, hkv, d = qp.shape[0] * m.gqa_group, qp.shape[0], qp.shape[2]
+        name = label.split("/")[0]
+        pairs = (_doc_pairs(np, kv_lens, qo_lens, VARIANT_BATCH_DOC)
+                 if name == "doc_mask"
+                 else _attention_work(kv_lens, qo_lens, 1))
+        nbytes = _attention_bytes(dp.segment("plan"), pages, kv_lens,
+                                  m.tile_q, hkv, d, kv[0].element_size())
+        b_ms, b_by = bound_ms(nbytes, 4 * d * pairs * hq)
+        row = dict(case=f"paged/{label}", heads=(hq, hkv, d),
+                   tile_q=m.tile_q, T=m.num_work_items, **chk, ms=ms,
+                   default_ms=default_ms, plain_ms=plain_ms,
+                   library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                   bound_bytes=nbytes, pairs=pairs)
+        rows.append(row)
+        log(f"variant paged/{label:24s} tile_q={m.tile_q} T="
+            f"{m.num_work_items} err_o={chk['err_o']:.2e} (limit ratio "
+            f"{chk['o_ratio']:.3f}) err_lse={chk['err_lse']:.2e} ms={ms:.4f} "
+            f"default_ms={default_ms:.4f} plain_ms={plain_ms:.3f} "
+            f"bound_ms={b_ms:.5f} ({b_by}) "
+            f"{'ok' if chk['ok'] else 'MISMATCH'}")
+    del batch_cases
+    torch.cuda.empty_cache()
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"a caller variant's kernel disagrees: {bad}")
+    return dict(rows=rows, launches=counts, build_s=build_s,
+                built={k: v for k, v in built.items()},
+                libraries=[core._label(t) for t in targets])
+
+
 PLAN_ARRAYS = ("request_indices", "qo_tile_indices", "kv_tile_indices",
                "qo_start_row", "qo_tile_len", "kv_start", "kv_end",
                "kv_page_start", "num_kv_splits", "q_pos_base",
@@ -4746,6 +5145,9 @@ def main() -> int:
     surf = ph.run("paged surface", phase_paged_surface, torch, np, card,
                   lens_decode, lens_prefill)
     torch.cuda.empty_cache()
+    var = ph.run("variants", phase_variants, torch, np, card, lens_decode,
+                 lens_prefill)
+    torch.cuda.empty_cache()
     ph.run("tiny reference", phase_tiny_reference, torch, np)
     ph.run("tiny DeepSeek reference", phase_tiny_deepseek, torch, np)
     ph.run("tiny Mixtral reference", phase_tiny_mixtral, torch, np)
@@ -4775,6 +5177,7 @@ def main() -> int:
                "pod": (pod or {}).get("launches", {}),
                "cascade": (casc or {}).get("launches", {}),
                "surface": (surf or {}).get("launches", {}),
+               "variants": (var or {}).get("launches", {}),
                "moe_api": (moe_api or {}).get("launches", {}),
                "pipe": (pipes or {}).get("launches", {})}
     # the distributed phase's paths: the engine's sampled run, then the
@@ -4875,7 +5278,8 @@ def main() -> int:
                            rmsnorm=norm, mla=mla, grouped_gemm=gg,
                            w8_matmul=w8,
                            flash=flash, single=single, pod=pod,
-                           cascade=casc, surface=surf, engine=eng,
+                           cascade=casc, surface=surf, variants=var,
+                           engine=eng,
                            deepseek=dsk, distributed=dist_res,
                            mixtral=mix, kernels=kernels,
                            launches_by_path=by_path, failed=ph.failed), f,

@@ -60,6 +60,18 @@
 //   no allocation of its own.
 // f32 runs on the CUDA cores in f32 (16 rows a CTA), so f32 keeps f32
 // accuracy.
+//
+// A caller's variant (flashinfer_tpu_torch/jit/variant.py) arrives as a
+// generated header, passed by -include with -DFI_USER_VARIANT: its hooks
+// user_logits, user_mask, user_q and user_out (scalar functions), their
+// flags FI_USER_HAS_* and FI_USER_SOFTMAX, and the UserParams its leaves
+// travel in. Such a build runs the elementwise path with the hooks in
+// place of the built-in transform: the logits hook on s * sm_scale (then
+// log2(e) under softmax; without softmax its value is the weight), the
+// mask ANDed into keep() (so every tile tests each key), the q hook on
+// each q element in f32 (rounded to q's dtype before the product), the
+// output hook on f32 o before the store (in the split merge's store when
+// the keys are split). Without the macro nothing here changes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -100,6 +112,9 @@ struct Params {
   int causal, window_left, splits, sigmoid;
   float sm_scale, scale_log2, soft_cap, sig_scale, sig_bias;
   int heads_inner;  // the K/V tensor maps order (d, head, token)
+#ifdef FI_USER_VARIANT
+  UserParams user;
+#endif
 };
 
 // One packed query row: its token (-1 past the end), q head, absolute
@@ -127,6 +142,9 @@ __device__ __forceinline__ bool keep(const Params& p, const Row& r, int kv) {
     const long long bit = (long long)r.tok * p.kv_len + kv;
     if (!((p.mask[bit >> 3] >> (7 - int(bit & 7))) & 1)) return false;
   }
+#if defined(FI_USER_VARIANT) && FI_USER_HAS_MASK
+  if (!user_mask(r.q_pos, kv, r.head, p.user)) return false;
+#endif
   return true;
 }
 
@@ -146,6 +164,44 @@ __device__ __forceinline__ float transform_k(const Params& p, float alibi,
   if (K == kCapped) x = p.soft_cap * tanhf(x / p.soft_cap);
   return x * kLog2e;
 }
+
+#ifdef FI_USER_VARIANT
+// The caller's variant on a logit of row r at key kv: its hook on s *
+// sm_scale (keys past the end take the last key's position: their values
+// are masked), then log2(e) under softmax.
+__device__ __forceinline__ float user_transform(const Params& p, const Row& r,
+                                                int kv, float s) {
+  float x = __fmul_rn(s, p.sm_scale);
+#if FI_USER_HAS_LOGITS
+  x = user_logits(x, r.q_pos, min(kv, p.kv_len - 1), r.head, p.user);
+#endif
+  return FI_USER_SOFTMAX ? __fmul_rn(x, kLog2e) : x;
+}
+
+// user_transform over a tile of S accumulators (laid out as
+// transform_tile's).
+template <int N>
+__device__ __forceinline__ void user_transform_tile(const Params& p, float* s,
+                                                    const Row& ra,
+                                                    const Row& rb, int key0) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    s[i] = user_transform(p, (i & 2) ? rb : ra, key0 + (i >> 2) * 8 + (i & 1),
+                          s[i]);
+}
+
+// The q hook on eight bf16 q values of `head`, in f32, rounded back.
+__device__ __forceinline__ uint4 user_q_bf16x8(uint4 x, int head,
+                                               const UserParams& u) {
+  __nv_bfloat162* v = reinterpret_cast<__nv_bfloat162*>(&x);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 f = __bfloat1622float2(v[j]);
+    v[j] = __floats2bfloat162_rn(user_q(f.x, head, u), user_q(f.y, head, u));
+  }
+  return x;
+}
+#endif
 
 template <bool kGeneral>
 __device__ __forceinline__ float transform(const Params& p, float alibi,
@@ -202,6 +258,9 @@ __device__ __forceinline__ void transform_tile(const Params& p, float* s,
 template <int kTile>
 __device__ __forceinline__ bool tile_full(const Params& p, int kt, int tok_lo,
                                           int tok_hi) {
+#if defined(FI_USER_VARIANT) && FI_USER_HAS_MASK
+  return false;  // the caller's mask: every tile tests each key
+#endif
   const int k_lo = kt * kTile, k_hi = k_lo + kTile - 1;
   const int off = p.kv_len - p.qo_len;
   return !p.mask && k_hi < p.kv_len && !(p.causal && k_hi > off + tok_lo) &&
@@ -356,6 +415,9 @@ __global__ void __launch_bounds__(kTcThreads, 1)
         const int tok = pr / p.group, h = kvh * p.group + pr % p.group;
         x = *reinterpret_cast<const uint4*>(q + tok * p.q_st + h * p.q_sh +
                                             col);
+#if defined(FI_USER_VARIANT) && FI_USER_HAS_Q
+        x = user_q_bf16x8(x, h, p.user);
+#endif
       }
       *reinterpret_cast<uint4*>(sQw + cb * kWgRows * 128 + sw128(r, c)) = x;
     }
@@ -396,12 +458,16 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       // The variant's transform, its branch taken once a tile. The default
       // leaves the logits raw: its scale (> 0) joins the exponent below.
       if (kGeneral) {
+#ifdef FI_USER_VARIANT
+        user_transform_tile<kS>(p, s, ra, rb, key0);
+#else
         if (p.sigmoid)
           transform_tile<kSigmoid, kS>(p, s, ra, rb, key0);
         else if (p.soft_cap > 0.f)
           transform_tile<kCapped, kS>(p, s, ra, rb, key0);
         else
           transform_tile<kBias, kS>(p, s, ra, rb, key0);
+#endif
       }
       if (!tile_full<TK>(p, it, tok_lo, tok_hi)) {  // an edge: test each key
 #pragma unroll
@@ -482,9 +548,16 @@ __global__ void __launch_bounds__(kTcThreads, 1)
         bf16* out = static_cast<bf16*>(p.o) + orow * DV + 2 * t;
 #pragma unroll
         for (int j = 0; j < DV / 8; ++j)
+#if defined(FI_USER_VARIANT) && FI_USER_HAS_OUT
+          *reinterpret_cast<__nv_bfloat162*>(out + j * 8) =
+              __floats2bfloat162_rn(
+                  user_out(o[4 * j + 2 * half] * f, r.head, p.user),
+                  user_out(o[4 * j + 2 * half + 1] * f, r.head, p.user));
+#else
           *reinterpret_cast<__nv_bfloat162*>(out + j * 8) =
               __floats2bfloat162_rn(o[4 * j + 2 * half] * f,
                                     o[4 * j + 2 * half + 1] * f);
+#endif
       } else {
         float* out = static_cast<float*>(p.o) + orow * DV + 2 * t;
 #pragma unroll
@@ -547,6 +620,9 @@ __global__ void __launch_bounds__(kThreads) flash_f32_kernel(const Params p) {
     if (pr < total) {
       const int tok = pr / p.group, h = kvh * p.group + pr % p.group;
       x = q[tok * p.q_st + h * p.q_sh + c];
+#if defined(FI_USER_VARIANT) && FI_USER_HAS_Q
+      x = user_q(x, h, p.user);
+#endif
     }
     q_s[i] = x;
   }
@@ -604,8 +680,12 @@ __global__ void __launch_bounds__(kThreads) flash_f32_kernel(const Params p) {
     for (int r = 0; r < RPT; ++r)
       p_s[(rg * RPT + r) * kTileK + jq] =
           keep(p, rq[r], kv)
+#ifdef FI_USER_VARIANT
+              ? user_transform(p, rq[r], kv, s[r])
+#else
               ? transform<kGeneral>(
                     p, rq[r].slope * float(kv - rq[r].q_pos), s[r])
+#endif
               : (sigmoid ? 0.f : -CUDART_INF_F);
     __syncthreads();
 
@@ -672,7 +752,14 @@ __global__ void __launch_bounds__(kThreads) flash_f32_kernel(const Params p) {
 #pragma unroll
     for (int ci = 0; ci < 2; ++ci) {
       const int col = tid + ci * kThreads;
+#if defined(FI_USER_VARIANT) && FI_USER_HAS_OUT
+      if (col < dv)
+        o[orow * dv + col] = p.splits == 1
+                                 ? user_out(acc[ci][r] * f, row.head, p.user)
+                                 : acc[ci][r] * f;
+#else
       if (col < dv) o[orow * dv + col] = acc[ci][r] * f;
+#endif
     }
     if (tid == 0) p.lse[orow] = lse;
   }
@@ -693,7 +780,11 @@ template <typename OutT>
 __global__ void __launch_bounds__(kThreads)
     merge_splits_kernel(const float* o, const float* lse, OutT* o_out,
                         float* lse_out, int splits, int hq, int dv,
-                        int sigmoid) {
+                        int sigmoid
+#ifdef FI_USER_VARIANT
+                        , const UserParams user
+#endif
+                        ) {
   const int row = blockIdx.x, tok = row / hq, h = row % hq;
   const float* ls = lse + size_t(tok) * splits * hq + h;  // stride hq
   float m = -CUDART_INF_F;
@@ -713,7 +804,11 @@ __global__ void __launch_bounds__(kThreads)
                                      : expf(ls[i * hq] - m_safe));
       acc += w * os[size_t(i) * hq * dv + c];
     }
+#if defined(FI_USER_VARIANT) && FI_USER_HAS_OUT
+    store(o_out + size_t(row) * dv + c, user_out(acc * inv, h, user));
+#else
     store(o_out + size_t(row) * dv + c, acc * inv);
+#endif
   }
   if (threadIdx.x == 0)
     lse_out[row] = sigmoid ? 0.f
@@ -806,7 +901,11 @@ extern "C" int fi_flash_attention(
     long long k_st, long long k_sh, long long v_st, long long v_sh,
     int qo_len, int kv_len, int hq, int hkv, int d, int dv, int causal,
     int window_left, int splits, float sm_scale, float soft_cap, int sigmoid,
-    float sig_scale, float sig_bias, int dtype, void* stream) {
+    float sig_scale, float sig_bias, int dtype, void* stream
+#ifdef FI_USER_VARIANT
+    , const UserParams* user
+#endif
+    ) {
   if (qo_len <= 0 || kv_len < 0 || hkv <= 0 || hq % hkv != 0 || d % 16 != 0 ||
       d <= 0 || d > 256 || dv % 16 != 0 || dv <= 0 || dv > 256 || splits < 1 ||
       (splits > 1 && (o_part == nullptr || lse_part == nullptr)))
@@ -829,10 +928,22 @@ extern "C" int fi_flash_attention(
   p.heads_inner = 0;
   // the default path folds its scale into the exponent after the row max,
   // which needs the scale positive
-  const bool general =
-      alibi != nullptr || soft_cap > 0.f || sigmoid || !(sm_scale > 0.f);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
+#ifdef FI_USER_VARIANT
+  // a caller's variant: its hooks on the elementwise path, its weights
+  // added without softmax
+  p.user = *user;
+  p.sigmoid = sigmoid = !FI_USER_SOFTMAX;
+  if (dtype == kBF16)
+    err = launch_tc<true>(p, s);
+  else if (dtype == kF32)
+    err = launch_f32<true>(p, s);
+  else
+    err = cudaErrorInvalidValue;
+#else
+  const bool general =
+      alibi != nullptr || soft_cap > 0.f || sigmoid || !(sm_scale > 0.f);
   if (dtype == kBF16) {
     err = general ? launch_tc<true>(p, s) : launch_tc<false>(p, s);
   } else if (dtype == kF32) {
@@ -840,14 +951,20 @@ extern "C" int fi_flash_attention(
   } else {
     err = cudaErrorInvalidValue;
   }
+#endif
   if (err != cudaSuccess || splits == 1) return int(err);
+#ifdef FI_USER_VARIANT
+#define FI_MERGE_USER , p.user
+#else
+#define FI_MERGE_USER
+#endif
   if (dtype == kBF16)
     merge_splits_kernel<<<qo_len * hq, kThreads, 0, s>>>(
         o_part, lse_part, static_cast<__nv_bfloat16*>(o), lse, splits, hq, dv,
-        sigmoid);
+        sigmoid FI_MERGE_USER);
   else
     merge_splits_kernel<<<qo_len * hq, kThreads, 0, s>>>(
         o_part, lse_part, static_cast<float*>(o), lse, splits, hq, dv,
-        sigmoid);
+        sigmoid FI_MERGE_USER);
   return int(cudaGetLastError());
 }

@@ -59,6 +59,19 @@
 // the elementwise path after S: scale, + slope * (kv_pos - q_pos), cap, then
 // log2(e), in the plain version's order and roundings; the default path
 // (neither) keeps its scale folded into the exponent.
+//
+// A caller's variant (flashinfer_tpu_torch/jit/variant.py) arrives as a
+// generated header, passed by -include with -DFI_USER_VARIANT (its hooks
+// user_logits, user_mask and user_q, their flags FI_USER_HAS_*, and the
+// UserParams its leaves travel in), in all three kernels: the logits hook
+// on s * sm_scale * k_scale in place of general_logit's transform, then
+// log2(e); the mask ANDed where keep() reads the work mask, which turns off
+// the mask-free interior tiles; the q hook on each q element in f32 before
+// q is rounded to bf16. The head is the row's true query head. Hooks see
+// real positions only: keys past the item's span take its last key's
+// position and rows past its last real row that row's token (their values
+// are masked or dropped). The output hook is not applied, as the TPU
+// kernel applies none; softmax only. Without the macro nothing changes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -104,6 +117,9 @@ struct Params {
   float scale_log2;  // sm_scale * k_scale * log2(e)
   float sm_scale;    // sm_scale * k_scale (soft cap path)
   float soft_cap, v_scale;
+#ifdef FI_USER_VARIANT
+  UserParams user;
+#endif
 };
 
 
@@ -180,6 +196,76 @@ __device__ __forceinline__ float general_logit(const Params& p, float s,
   if (p.soft_cap > 0.f) return p.soft_cap * tanhf(x / p.soft_cap) * kLog2e;
   return __fmul_rn(x, kLog2e);
 }
+
+#ifdef FI_USER_VARIANT
+// The true query head of row r of kv head h (the head alibi_slope reads).
+__device__ __forceinline__ int row_head(const Params& p, const Item& it, int h,
+                                        int r) {
+  return h * p.group + (it.qo_tile * p.tile_q + r) % p.group;
+}
+
+// The caller's logits hook on raw score s of the row at tok (clamped to
+// the last real row's) and key at pos, then log2(e); explicit roundings as
+// general_logit's.
+__device__ __forceinline__ float user_logit(const Params& p, const Item& it,
+                                            float s, int head, int tok,
+                                            int pos) {
+  float x = __fmul_rn(s, p.sm_scale);
+#if FI_USER_HAS_LOGITS
+  x = user_logits(x, tok, min(pos, it.kv_start + it.span - 1), head, p.user);
+#endif
+  return __fmul_rn(x, kLog2e);
+}
+
+// Whether the caller's mask keeps local key lk of the row at tok; asked
+// only of keys keep() keeps.
+__device__ __forceinline__ bool user_keep(const Params& p, const Item& it,
+                                          int head, int tok, int lk) {
+#if FI_USER_HAS_MASK
+  return user_mask(tok, it.kv_start + lk, head, p.user);
+#else
+  return true;
+#endif
+}
+
+// Eight q values of `head` through the q hook, in f32, packed as bf16.
+__device__ __forceinline__ uint4 user_q_pack8(const float* f, int head,
+                                              const UserParams& u) {
+  float g[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) g[j] = user_q(f[j], head, u);
+  return make_uint4(pack_bf16(g[0], g[1]), pack_bf16(g[2], g[3]),
+                    pack_bf16(g[4], g[5]), pack_bf16(g[6], g[7]));
+}
+
+// Eight q values (f32 or bf16, as the kernel holds q) at q + off.
+__device__ __forceinline__ void load_q8(const Params& p, size_t off,
+                                        float* f) {
+  if (p.q_f32) {
+    const float4* src =
+        reinterpret_cast<const float4*>(static_cast<const float*>(p.q) + off);
+    const float4 a = src[0], b = src[1];
+    f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+    f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+  } else {
+    const uint4 x = *reinterpret_cast<const uint4*>(
+        static_cast<const __nv_bfloat16*>(p.q) + off);
+    const __nv_bfloat162* v = reinterpret_cast<const __nv_bfloat162*>(&x);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 t = __bfloat1622float2(v[j]);
+      f[2 * j] = t.x;
+      f[2 * j + 1] = t.y;
+    }
+  }
+}
+#endif
+
+#if defined(FI_USER_VARIANT) && FI_USER_HAS_MASK
+#define FI_USER_MASK 1
+#else
+#define FI_USER_MASK 0
+#endif
 
 // The merge identity (o = 0, lse = -inf) for rows [r0, r1) of item w, head h.
 __device__ void write_identity(const Params& p, int w, int h, int r0, int r1,
@@ -534,6 +620,11 @@ __global__ void __launch_bounds__(384, 1)
     uint4 x = make_uint4(0u, 0u, 0u, 0u);
     if (lr < p.tile_q && it.qo_start + lr < p.q_rows && col < d) {
       const size_t off = (size_t(h) * p.q_rows + it.qo_start + lr) * d + col;
+#if defined(FI_USER_VARIANT) && FI_USER_HAS_Q
+      float f[8];
+      load_q8(p, off, f);
+      x = user_q_pack8(f, row_head(p, it, h, lr), p.user);
+#else
       if (p.q_f32) {
         const float4* src =
             reinterpret_cast<const float4*>(static_cast<const float*>(p.q) + off);
@@ -543,6 +634,7 @@ __global__ void __launch_bounds__(384, 1)
       } else {
         x = *reinterpret_cast<const uint4*>(static_cast<const bf16*>(p.q) + off);
       }
+#endif
     }
     *reinterpret_cast<uint4*>(sQw + cb * kWgRows * 128 + sw128(r, c)) = x;
   }
@@ -557,8 +649,15 @@ __global__ void __launch_bounds__(384, 1)
   // the default path folds its scale into the exponent after the row max,
   // which needs it positive; ALiBi, the soft cap and any other scale go
   // elementwise
+#ifdef FI_USER_VARIANT
+  // (a caller's logits hook too); its rows' heads and clamped tokens
+  const bool general = FI_USER_HAS_LOGITS || !(p.scale_log2 > 0.f);
+  const int head_a = row_head(p, it, h, ra), head_b = row_head(p, it, h, rb);
+  const int utok_a = min(tok_a, tok_hi), utok_b = min(tok_b, tok_hi);
+#else
   const bool general =
       p.soft_cap > 0.f || p.alibi != nullptr || !(p.scale_log2 > 0.f);
+#endif
   const int tail = it.span % TK ? it.span / TK : -1;  // the tile ending inside
 
   float o[kO];
@@ -590,19 +689,31 @@ __global__ void __launch_bounds__(384, 1)
     if (general) {
 #pragma unroll
       for (int k = 0; k < kS; ++k)
+#ifdef FI_USER_VARIANT
+        s[k] = user_logit(p, it, s[k], (k & 2) ? head_b : head_a,
+                          (k & 2) ? utok_b : utok_a,
+                          it.kv_start + key0 + (k >> 2) * 8 + (k & 1));
+#else
         s[k] = general_logit(p, s[k], (k & 2) ? slope_b : slope_a,
                              (k & 2) ? tok_b : tok_a,
                              it.kv_start + key0 + (k >> 2) * 8 + (k & 1));
+#endif
     }
     const bool full =
-        p.work_mask == nullptr && (t + 1) * TK <= it.span &&
+        !FI_USER_MASK && p.work_mask == nullptr && (t + 1) * TK <= it.span &&
         !(p.causal && it.kv_start + (t + 1) * TK - 1 > tok_lo) &&
         !(p.window_left >= 0 && it.kv_start + t * TK < tok_hi - p.window_left);
     if (!full) {  // an edge: test each (row, key)
 #pragma unroll
       for (int k = 0; k < kS; ++k)
         if (!keep(p, it, (k & 2) ? rb : ra, (k & 2) ? tok_b : tok_a,
-                  key0 + (k >> 2) * 8 + (k & 1)))
+                  key0 + (k >> 2) * 8 + (k & 1))
+#if FI_USER_MASK
+            || !user_keep(p, it, (k & 2) ? head_b : head_a,
+                          (k & 2) ? utok_b : utok_a,
+                          key0 + (k >> 2) * 8 + (k & 1))
+#endif
+        )
           s[k] = -CUDART_INF_F;
     }
     const float c = general ? 1.f : p.scale_log2;  // raw logit -> base 2
@@ -797,6 +908,11 @@ __global__ void __launch_bounds__(384, 1)
     uint4 x = make_uint4(0u, 0u, 0u, 0u);
     if (r < p.tile_q && it.qo_start + r < p.q_rows && col < d) {
       const size_t off = (size_t(h) * p.q_rows + it.qo_start + r) * d + col;
+#if defined(FI_USER_VARIANT) && FI_USER_HAS_Q
+      float f[8];
+      load_q8(p, off, f);
+      x = user_q_pack8(f, row_head(p, it, h, r), p.user);
+#else
       if (p.q_f32) {
         const float4* src =
             reinterpret_cast<const float4*>(static_cast<const float*>(p.q) + off);
@@ -806,6 +922,7 @@ __global__ void __launch_bounds__(384, 1)
       } else {
         x = *reinterpret_cast<const uint4*>(static_cast<const bf16*>(p.q) + off);
       }
+#endif
     }
     *reinterpret_cast<uint4*>(sQ + cb * NR * 128 + sw128(r, ch)) = x;
   }
@@ -820,8 +937,18 @@ __global__ void __launch_bounds__(384, 1)
     slope[jr] = alibi_slope(p, it, h, 8 * (jr >> 1) + 2 * tq + (jr & 1));
   }
   const int tok_lo = q_tok(p, it, 0), tok_hi = q_tok(p, it, last);
+#ifdef FI_USER_VARIANT
+  const bool general = FI_USER_HAS_LOGITS || !(p.scale_log2 > 0.f);
+  int head[kR];
+#pragma unroll
+  for (int jr = 0; jr < kR; ++jr) {
+    head[jr] = row_head(p, it, h, 8 * (jr >> 1) + 2 * tq + (jr & 1));
+    tok[jr] = min(tok[jr], tok_hi);  // rows past the last real one
+  }
+#else
   const bool general =
       p.soft_cap > 0.f || p.alibi != nullptr || !(p.scale_log2 > 0.f);
+#endif
   const float c = general ? 1.f : p.scale_log2;  // raw logit -> base 2
   const int tail = it.span % TK ? it.span / TK : -1;
   float m[kR], l[kR], o[kVB][kN];
@@ -868,14 +995,21 @@ __global__ void __launch_bounds__(384, 1)
 #pragma unroll
         for (int k = 0; k < kN; ++k) {
           const int jr = 2 * (k >> 2) + (k & 1);
+#ifdef FI_USER_VARIANT
+          s[mb][k] = user_logit(
+              p, it, s[mb][k], head[jr], tok[jr],
+              it.kv_start + t * TK + mb * 64 + warp * 16 + g +
+                  ((k >> 1) & 1) * 8);
+#else
           s[mb][k] = general_logit(
               p, s[mb][k], slope[jr], tok[jr],
               it.kv_start + t * TK + mb * 64 + warp * 16 + g +
                   ((k >> 1) & 1) * 8);
+#endif
         }
     }
     const bool full =
-        p.work_mask == nullptr && (t + 1) * TK <= it.span &&
+        !FI_USER_MASK && p.work_mask == nullptr && (t + 1) * TK <= it.span &&
         !(p.causal && it.kv_start + (t + 1) * TK - 1 > tok_lo) &&
         !(p.window_left >= 0 && it.kv_start + t * TK < tok_hi - p.window_left);
     if (!full) {
@@ -885,7 +1019,12 @@ __global__ void __launch_bounds__(384, 1)
         for (int k = 0; k < kN; ++k) {
           const int key = t * TK + mb * 64 + warp * 16 + g + ((k >> 1) & 1) * 8;
           if (!keep(p, it, 8 * (k >> 2) + 2 * tq + (k & 1),
-                    tok[2 * (k >> 2) + (k & 1)], key))
+                    tok[2 * (k >> 2) + (k & 1)], key)
+#if FI_USER_MASK
+              || !user_keep(p, it, head[2 * (k >> 2) + (k & 1)],
+                            tok[2 * (k >> 2) + (k & 1)], key)
+#endif
+          )
             s[mb][k] = -CUDART_INF_F;
         }
     }
@@ -1088,7 +1227,13 @@ __global__ void __launch_bounds__(kThreads) paged_f32_kernel(const Params p) {
                    (size_t(h) * p.q_rows + it.qo_start + row0) * d;
   for (int i = tid; i < ROWS * d; i += kThreads) {
     const int r = row0 + i / d;
+#if defined(FI_USER_VARIANT) && FI_USER_HAS_Q
+    q_s[i] = (r < p.tile_q && it.qo_start + r < p.q_rows)
+                 ? user_q(q[i], row_head(p, it, h, r), p.user)
+                 : 0.f;
+#else
     q_s[i] = (r < p.tile_q && it.qo_start + r < p.q_rows) ? q[i] : 0.f;
+#endif
   }
   const int jq = tid % kTileF32, rg = tid / kTileF32;
   int tok[RPT];
@@ -1139,10 +1284,21 @@ __global__ void __launch_bounds__(kThreads) paged_f32_kernel(const Params p) {
     const int lk = k0 + jq;
 #pragma unroll
     for (int r = 0; r < RPT; ++r) {
+#ifdef FI_USER_VARIANT
+      const int hr = row_head(p, it, h, row0 + rg * RPT + r);
+      const int ut = min(tok[r], q_tok(p, it, last));
+      const float x = user_logit(p, it, s[r], hr, ut, it.kv_start + lk);
+      p_s[(rg * RPT + r) * kTileF32 + jq] =
+          keep(p, it, row0 + rg * RPT + r, tok[r], lk) &&
+                  user_keep(p, it, hr, ut, lk)
+              ? x
+              : -CUDART_INF_F;
+#else
       const float x =
           general_logit(p, s[r], slope[r], tok[r], it.kv_start + lk);
       p_s[(rg * RPT + r) * kTileF32 + jq] =
           keep(p, it, row0 + rg * RPT + r, tok[r], lk) ? x : -CUDART_INF_F;
+#endif
     }
     __syncthreads();
 
@@ -1368,7 +1524,11 @@ extern "C" int fi_paged_attention(
     int pages, int layout_hnd, int kv_indices_offset, int group,
     int mask_chunk, float sm_scale, float v_scale, int causal,
     int window_left, float soft_cap, int q_dtype, int kv_dtype,
-    void* stream) {
+    void* stream
+#ifdef FI_USER_VARIANT
+    , const UserParams* user
+#endif
+    ) {
   if (d <= 0 || d > 256 || d % 16 != 0 || dv <= 0 || dv > 256 ||
       dv % 16 != 0 || tile_q <= 0 || tile_q % 8 != 0 || T <= 0 ||
       page_size <= 0 || group <= 0 ||
@@ -1386,6 +1546,9 @@ extern "C" int fi_paged_attention(
   p.box_rows = 0; p.stages = 0; p.byte_stages = 0;
   p.scale_log2 = float(double(sm_scale) * 1.4426950408889634);
   p.sm_scale = sm_scale; p.soft_cap = soft_cap; p.v_scale = v_scale;
+#ifdef FI_USER_VARIANT
+  p.user = *user;
+#endif
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool tensor_cores =
       (q_dtype == kBF16 && (kv_dtype == kBF16 || kv_dtype == kE4M3 ||

@@ -1,6 +1,8 @@
 """The port's native-code layer (counterpart of ``flashinfer_tpu/jit/``):
 the CUDA kernels built with nvcc and the host runtime (C++ planner and page
-pool) built with the system C++ compiler, both at first use. See core.py."""
+pool) built with the system C++ compiler, both at first use (core.py); and
+callers' attention variants traced into the flash and paged kernels' own
+builds (variant.py)."""
 
 from flashinfer_tpu_torch.jit.core import (
     KERNEL_SOURCES,

@@ -14,7 +14,13 @@ an O_EXCL lock file so concurrent processes build once:
   ``JitSpec`` (``build_and_load``; ``get_native_runtime`` loads it and
   checks its ABI). The hash reads ``csrc/host/*.h``.
 
-Both land in ``env.CACHE_DIR`` (``flashinfer_tpu_torch/_build`` unless
+A caller's attention variant adds a third kind: ``jit/variant.py`` traces
+its hooks into a generated header, and the flash or paged kernel is built
+again with ``-DFI_USER_VARIANT -include <header>``; that library is keyed by
+the header too (its leaves' dtypes are part of it). A target is a kernel
+name, or a (name, header path) pair for such a build.
+
+All land in ``env.CACHE_DIR`` (``flashinfer_tpu_torch/_build`` unless
 ``FLASHINFER_TPU_CACHE_DIR`` says otherwise); ``jit_registry`` records
 every build and load of either kind.
 """
@@ -29,7 +35,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, List, Optional, Sequence
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
 from flashinfer_tpu_torch.jit.env import (
     CACHE_DIR,
@@ -60,7 +66,12 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+# a caller's variant: the generated header arrives by -include
+USER_VARIANT_FLAGS = ["-DFI_USER_VARIANT"]
 _LOCK_STALE_SECONDS = 600
+
+# a kernel name, or (kernel name, generated variant header)
+Target = Union[str, Tuple[str, Path]]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -113,77 +124,104 @@ def _nvcc() -> str:
     return found
 
 
-def _lib_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in [CSRC_DIR / f"{name}.cu"] + sorted(CSRC_DIR.glob("*.cuh")):
+def _split(target: Target) -> Tuple[str, Optional[Path]]:
+    if isinstance(target, str):
+        return target, None
+    name, header = target
+    return name, Path(header)
+
+
+def _label(target: Target) -> str:
+    """The registry's name of a target: ``name``, or ``name:<header stem>``."""
+    name, header = _split(target)
+    return name if header is None else f"{name}:{header.stem}"
+
+
+def _flags(header: Optional[Path]) -> List[str]:
+    return NVCC_FLAGS + (USER_VARIANT_FLAGS if header is not None else [])
+
+
+def _lib_path(target: Target) -> Path:
+    name, header = _split(target)
+    h = hashlib.sha256(" ".join(_flags(header)).encode())
+    srcs = [CSRC_DIR / f"{name}.cu"] + sorted(CSRC_DIR.glob("*.cuh"))
+    for p in srcs + ([header] if header is not None else []):
         h.update(p.read_bytes())
-    return CACHE_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    stem = name if header is None else f"{name}-user"
+    return CACHE_DIR / f"{stem}-{h.hexdigest()[:16]}.so"
 
 
-def build_log(name: str) -> str:
+def build_log(target: Target) -> str:
     """The compiler's output (ptxas register and shared-memory report) from
-    the build of ``name``, or '' if it was built by another process."""
-    log = _lib_path(name).with_suffix(".log")
+    the build of ``target``, or '' if it was built by another process."""
+    log = _lib_path(target).with_suffix(".log")
     return log.read_text() if log.exists() else ""
 
 
-def build_all(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, float]:
-    """Build every named library that is not built yet, one nvcc process per
-    source, all started together. Returns seconds spent per built name."""
+def build_all(targets: Iterable[Target] = KERNEL_SOURCES) -> Dict[str, float]:
+    """Build every target that is not built yet, one nvcc process per
+    library, all started together. Returns seconds spent per built target
+    (by ``_label``)."""
     CACHE_DIR.mkdir(parents=True, exist_ok=True)
-    pending: List[str] = [n for n in names if not _lib_path(n).exists()]
+    pending = [t for t in targets if not _lib_path(t).exists()]
     procs = {}
     t0 = time.time()
-    waiting: List[str] = []
-    for name in pending:
-        lib = _lib_path(name)
+    waiting: List[Target] = []
+    for target in pending:
+        name, header = _split(target)
+        lib = _lib_path(target)
         lock = lib.with_suffix(".lock")
         if not _take_lock(lock):
-            waiting.append(name)
+            waiting.append(target)
             continue
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR),
+        extra = [] if header is None else ["-include", str(header)]
+        cmd = [_nvcc(), *_flags(header), *extra, "-I", str(CSRC_DIR),
                str(CSRC_DIR / f"{name}.cu"), "-o", str(lib) + ".tmp"]
-        procs[name] = (subprocess.Popen(
+        procs[_label(target)] = (target, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             lock)
     seconds: Dict[str, float] = {}
     errors = []
-    for name, (proc, lock) in procs.items():
+    for label, (target, proc, lock) in procs.items():
         try:
             out, _ = proc.communicate()
-            lib = _lib_path(name)
+            lib = _lib_path(target)
             if proc.returncode != 0:
-                errors.append(f"nvcc failed for {name}.cu:\n{out}")
+                errors.append(f"nvcc failed for {label}:\n{out}")
                 continue
             lib.with_suffix(".log").write_text(out)
             os.replace(str(lib) + ".tmp", lib)
-            seconds[name] = time.time() - t0
-            jit_registry.record(name, lib, True, seconds[name], "nvcc")
+            seconds[label] = time.time() - t0
+            jit_registry.record(label, lib, True, seconds[label], "nvcc")
         finally:
             lock.unlink(missing_ok=True)
     if errors:
         raise RuntimeError("\n".join(errors))
-    for name in waiting:  # another process holds the lock: wait for its .so
-        lib = _lib_path(name)
+    for target in waiting:  # another process holds the lock: wait for its .so
+        lib = _lib_path(target)
         lock = lib.with_suffix(".lock")
         while not lib.exists():
             if not lock.exists():  # that build failed or was abandoned
-                seconds.update(build_all([name]))
+                seconds.update(build_all([target]))
                 break
             time.sleep(0.2)
     return seconds
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for csrc/<name>.cu, built first if needed."""
-    lib = _loaded.get(name)
+def load(name: str, header: Optional[Path] = None) -> ctypes.CDLL:
+    """The loaded library for csrc/<name>.cu (with a caller variant's
+    ``header``, its own build), built first if needed; a library loaded
+    before comes from memory, with no build and no file read."""
+    target: Target = name if header is None else (name, Path(header))
+    label = _label(target)
+    lib = _loaded.get(label)
     if lib is None:
-        built = build_all([name])
-        path = _lib_path(name)
+        built = build_all([target])
+        path = _lib_path(target)
         lib = ctypes.CDLL(str(path))
-        _loaded[name] = lib
-        if name not in built:
-            jit_registry.record(name, path, False, 0.0, "nvcc")
+        _loaded[label] = lib
+        if label not in built:
+            jit_registry.record(label, path, False, 0.0, "nvcc")
     return lib
 
 

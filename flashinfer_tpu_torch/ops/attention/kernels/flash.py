@@ -30,10 +30,16 @@ from typing import Any, Optional, Tuple
 import torch
 
 from flashinfer_tpu_torch import jit
+from flashinfer_tpu_torch.jit.variant import (
+    CompiledVariant,
+    UserParamsC,
+    compile_variant,
+    needs_jit,
+)
 from flashinfer_tpu_torch.ops.attention.variants import (
-    VARIANT_JIT,
     AttentionVariant,
     DefaultAttention,
+    KernelVariant,
 )
 from flashinfer_tpu_torch.ops.quantization import packbits, unpackbits
 from flashinfer_tpu_torch.utils import cdiv
@@ -125,8 +131,8 @@ def flash_attention_plain(
         mask = mask & _dense_mask(custom_mask, qo_len, kv_len)
 
     qf = q.float()
-    if variant.query_transform is not None:
-        qf = variant.query_transform(variant_params, qf)
+    if variant.query_transform is not None:  # rounded as the kernel feeds q
+        qf = variant.query_transform(variant_params, qf).to(q.dtype).float()
     out = torch.empty(qo_len, hq, dv, dtype=torch.float32, device=dev)
     lse = torch.zeros(qo_len, hq, device=dev)
     for h in range(hkv):
@@ -170,8 +176,11 @@ def flash_attention_plain(
     return out.to(q.dtype), lse
 
 
-def _lib():
-    fn = jit.load("flash_attention").fi_flash_attention
+def _lib(user: Optional[CompiledVariant] = None):
+    """The kernel's C entry; with a caller's variant, that of its own build
+    (``jit.variant``), which takes a ``UserParams`` last."""
+    fn = (jit.load("flash_attention") if user is None else
+          jit.load("flash_attention", user.header_path())).fi_flash_attention
     if fn.argtypes is None:
         P, I, F, L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                       ctypes.c_longlong)
@@ -182,6 +191,8 @@ def _lib():
                        I, I, I,  # causal window splits
                        F, F, I, F, F,  # scale cap sigmoid sig_scale sig_bias
                        I, P]  # dtype stream
+        if user is not None:
+            fn.argtypes.append(ctypes.POINTER(UserParamsC))
         fn.restype = I
     return fn
 
@@ -233,17 +244,15 @@ def flash_attention_dense(
     num_qo_heads] f32).
 
     A CUDA tensor launches the kernel (or raises); a CPU tensor takes
-    ``flash_attention_plain``."""
+    ``flash_attention_plain``. A variant with hooks of the caller's own
+    runs in the kernel's build for that variant (``jit.variant``: traced,
+    built by nvcc at first use, cached); a hook outside the traced subset
+    raises ``NotImplementedError`` before any build."""
     kw = dict(causal=causal, sm_scale=sm_scale, window_left=window_left,
               custom_mask=custom_mask, sink=sink, variant=variant,
               variant_params=variant_params)
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, **kw)
-    spec = variant.kernel
-    if spec is None or any(h is not None for h in (
-            variant.query_transform, variant.logits_mask,
-            variant.output_transform)):
-        raise NotImplementedError(f"variant {variant.name!r}: {VARIANT_JIT}")
     qo_len, hq, d = q.shape
     kv_len, hkv, _ = k.shape
     dv = v.shape[-1]
@@ -261,9 +270,14 @@ def flash_attention_dense(
                          f"dv={dv}")
     if not (k.is_cuda and v.is_cuda):
         raise ValueError("q, k and v must lie on one CUDA device")
+    user = (compile_variant(variant, variant_params, "flash", hq)
+            if needs_jit(variant, "flash") else None)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
     dev = q.device
+    # a caller's variant: its hooks replace the built-in numbers
+    spec = variant.kernel if user is None else KernelVariant(
+        sigmoid=None if user.softmax else (1.0, 0.0))
     softmax = spec.sigmoid is None
     alibi = None
     if spec.use_alibi:
@@ -278,6 +292,7 @@ def flash_attention_dense(
     if qo_len == 0:
         return (torch.empty(out_shape, dtype=dt, device=dev),
                 torch.empty(qo_len, hq, device=dev))
+    fn = _lib(user)
     q, k, v = _kernel_ready(q), _kernel_ready(k), _kernel_ready(v)
     splits = flash_num_splits(qo_len, kv_len, hq, hkv, dt,
                               _num_sms(dev.index), d, dv)
@@ -295,7 +310,11 @@ def flash_attention_dense(
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    err = _lib()(
+    extra = ()
+    if user is not None:  # the leaves, alive until the launch is enqueued
+        up, leaves = user.user_params(variant_params, dev)
+        extra = (ctypes.byref(up),)
+    err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(mask), ptr(alibi),
         ptr(sink_k), o.data_ptr(), lse.data_ptr(), ptr(o_part), ptr(lse_part),
         q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
@@ -303,7 +322,7 @@ def flash_attention_dense(
         int(window_left), splits, float(sm_scale),
         float(spec.logits_soft_cap), int(not softmax), float(sig_scale),
         float(sig_bias), _DTYPE_CODES[dt],
-        torch.cuda.current_stream(dev).cuda_stream)
+        torch.cuda.current_stream(dev).cuda_stream, *extra)
     jit.check(err, "flash attention kernel")
     flash_attention_dense.launches += 1
     return o, lse

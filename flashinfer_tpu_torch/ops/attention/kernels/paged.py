@@ -41,10 +41,13 @@ from typing import Any, Optional, Tuple
 import torch
 
 from flashinfer_tpu_torch import jit
-from flashinfer_tpu_torch.ops.attention.variants import (
-    VARIANT_JIT,
-    AttentionVariant,
+from flashinfer_tpu_torch.jit.variant import (
+    CompiledVariant,
+    UserParamsC,
+    compile_variant,
+    needs_jit,
 )
+from flashinfer_tpu_torch.ops.attention.variants import AttentionVariant
 from flashinfer_tpu_torch.utils import TensorLayout
 
 __all__ = ["batch_paged_attention_run", "paged_attention_plain"]
@@ -74,14 +77,15 @@ def _resolve_variant(variant: Optional[AttentionVariant], variant_params,
                      logits_soft_cap: float):
     """(soft cap, ALiBi slopes or None, hooks or None). A built-in variant
     becomes the numbers the kernel reads; a variant with hooks of the
-    caller's own is returned as ``hooks`` (the plain version runs them)."""
+    caller's own is returned as ``hooks`` (the plain version runs them, the
+    kernel its build for them). The output transform is not applied, as in
+    the TPU kernel."""
     if variant is None:
         return float(logits_soft_cap), None, None
     if not variant.use_softmax:
         raise ValueError(NON_SOFTMAX)
     spec = variant.kernel
-    if spec is None or variant.query_transform is not None \
-            or variant.logits_mask is not None:
+    if needs_jit(variant, "paged"):
         return 0.0, None, variant
     alibi = variant_params["alibi_slopes"] if spec.use_alibi else None
     return float(spec.logits_soft_cap), alibi, None
@@ -118,7 +122,10 @@ def paged_attention_plain(
     whose decode the TPU kernel runs in bf16, so q is rounded to bf16 too),
     rounded as 2^(s - ceil(max s)) in the base-2 domain, which the kernel's
     online softmax reproduces exactly. ``variant``'s hooks (query and logit
-    transforms, logit mask) run here only."""
+    transforms, logit mask) see the positions the kernel gives them: keys
+    past an item's span take its last key's, rows past its last real row
+    that row's token (only masked or dropped values change), so a table a
+    hook reads at ``q_pos`` / ``kv_pos`` is read at real positions."""
     cap, alibi, hooks = _resolve_variant(variant, variant_params,
                                          logits_soft_cap)
     fmt = _kv_format(k_cache)
@@ -175,6 +182,12 @@ def paged_attention_plain(
     head = (torch.arange(kvh, device=dev)[None, :, None] * group
             + (local % group)[:, None, :])[..., None]  # [T, kvh, tile_q, 1]
     transform = hooks is not None and hooks.logits_transform is not None
+    if hooks is not None:
+        kv_hook = torch.minimum(
+            kv_pos, (kv_start + span - 1)[:, None, None, None])
+        tok2 = q_tok[:, 0, :, 0]  # [T, tile_q]
+        tok_hi = torch.where(real, tok2, tok2.min()).amax(dim=1)
+        q_hook = torch.minimum(q_tok, tok_hi[:, None, None, None])
 
     # base-2 softmax domain of the kernels: log2(e) rides the scale, or is
     # applied after the transforms (ALiBi, the caller's, the soft cap)
@@ -184,7 +197,8 @@ def paged_attention_plain(
         if alibi is not None:
             s = s + alibi.to(dev).float()[head] * (kv_pos - q_tok).float()
         if transform:
-            s = hooks.logits_transform(variant_params, s, q_tok, kv_pos, head)
+            s = hooks.logits_transform(variant_params, s, q_hook, kv_hook,
+                                       head)
         if cap > 0.0:
             s = cap * torch.tanh(s / cap)
         s = s * _LOG2E
@@ -198,7 +212,8 @@ def paged_attention_plain(
     if work_mask is not None:
         mask = mask & (work_mask[:, None, :, :C] != 0)
     if hooks is not None and hooks.logits_mask is not None:
-        mask = mask & hooks.logits_mask(variant_params, q_tok, kv_pos, head)
+        mask = mask & hooks.logits_mask(variant_params, q_hook, kv_hook,
+                                        head)
     s2 = torch.where(mask, s, float("-inf"))
     # the ceiling of the base-2 max, as the kernel takes it (an integer,
     # so its online rescales are exact powers of two)
@@ -216,8 +231,11 @@ def paged_attention_plain(
     return o.to(q_packed.dtype), lse
 
 
-def _lib():
-    lib = jit.load("paged_attention")
+def _lib(user: Optional[CompiledVariant] = None):
+    """The kernel's C entry; with a caller's variant, that of its own build
+    (``jit.variant``), which takes a ``UserParams`` last."""
+    lib = (jit.load("paged_attention") if user is None else
+           jit.load("paged_attention", user.header_path()))
     fn = lib.fi_paged_attention
     if fn.argtypes is None:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -227,6 +245,8 @@ def _lib():
                        I, I, I, I, I, I, I, I, I, I, I, I,
                        # scales causal window cap dtypes stream
                        F, F, I, I, F, I, I, P]
+        if user is not None:
+            fn.argtypes.append(ctypes.POINTER(UserParamsC))
         fn.restype = I
     return fn
 
@@ -281,7 +301,9 @@ def batch_paged_attention_run(
     on the tensor cores and need pages of a multiple of 8 tokens (the
     wrappers repack other pages); f32 q with an f32 or int8 cache runs on
     the CUDA cores. A variant with hooks of the caller's own runs in the
-    plain version only, and a non-softmax variant in neither."""
+    kernel's build for that variant (``jit.variant``; a hook outside the
+    traced subset raises ``NotImplementedError`` before any build); a
+    non-softmax variant runs in neither version."""
     kw = dict(tile_q=tile_q, group=group, causal=causal, sm_scale=sm_scale,
               k_scale=k_scale, v_scale=v_scale, window_left=window_left,
               logits_soft_cap=logits_soft_cap, kv_layout=kv_layout,
@@ -293,8 +315,6 @@ def batch_paged_attention_run(
     if not q_packed.is_cuda:
         return paged_attention_plain(q_packed, k_cache, v_cache, kv_indices,
                                      plan, **kw)
-    if hooks is not None:
-        raise NotImplementedError(f"variant {hooks.name!r}: {VARIANT_JIT}")
     fmt = _kv_format(k_cache)
     kvh, q_rows, d = q_packed.shape
     if q_packed.dtype not in _Q_CODES:
@@ -351,11 +371,18 @@ def batch_paged_attention_run(
                       device=q_packed.device)
     kv_code = {"model": _Q_CODES[q_packed.dtype], "e4m3": _KV_E4M3,
                "int8": _KV_I8}[fmt]
+    user = (None if hooks is None else
+            compile_variant(hooks, variant_params, "paged", kvh * group))
+    fn = _lib(user)
+    extra = ()
+    if user is not None:  # the leaves, alive until the launch is enqueued
+        up, leaves = user.user_params(variant_params, q_packed.device)
+        extra = (ctypes.byref(up),)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    err = _lib()(
+    err = fn(
         q_packed.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         plan.data_ptr(), kv_indices.data_ptr(), ptr(row_valid),
         ptr(work_mask), ptr(alibi), o.data_ptr(), lse.data_ptr(), T, kvh,
@@ -363,7 +390,7 @@ def batch_paged_attention_run(
         int(kv_indices_offset), group, chunk, float(sm_scale * k_scale),
         float(v_scale), int(causal), int(window_left), cap,
         _Q_CODES[q_packed.dtype], kv_code,
-        torch.cuda.current_stream(q_packed.device).cuda_stream)
+        torch.cuda.current_stream(q_packed.device).cuda_stream, *extra)
     jit.check(err, "paged attention kernel")
     batch_paged_attention_run.launches += 1
     return o, lse

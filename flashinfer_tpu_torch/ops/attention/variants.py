@@ -13,12 +13,15 @@ A variant is a bundle of optional hooks applied to plain tensors:
 (absolute query position, key position, query head). ``use_softmax`` False
 makes the transformed logits the weights themselves (lse is 0).
 
-The CUDA flash kernel cannot call Python hooks, so each built-in variant
-also carries a ``KernelVariant``: the few numbers the kernel reads (soft
-cap, ALiBi on or off, sigmoid scale and bias). A variant built from hooks of
-the caller's own has none and runs only in the plain PyTorch versions; on a
-CUDA tensor it raises (a user's CUDA functor compiled into the kernel is the
-ROADMAP item "variant JIT").
+The CUDA kernels cannot call Python hooks. Each built-in variant carries a
+``KernelVariant``: the few numbers the flash and paged kernels read (soft
+cap, ALiBi on or off, sigmoid scale and bias), on the libraries built once
+for every variant. A variant with hooks of the caller's own goes through
+the variant JIT (``flashinfer_tpu_torch/jit/variant.py``): on a CUDA
+tensor its hooks are traced into scalar CUDA functions, spliced into the
+flash or paged kernel and built by nvcc at first use (cached on disk,
+keyed by a hash); ``VARIANT_JIT`` says what the trace takes. The paged
+kernel applies no output transform and needs softmax, as the TPU kernel.
 """
 
 from __future__ import annotations
@@ -40,16 +43,25 @@ __all__ = [
 
 Params = Any  # per-call tensors the hooks read (slopes, sinks, scales, ...)
 
-VARIANT_JIT = ("a variant with hooks of its own runs only in the plain "
-               "PyTorch version; compiling it into the CUDA kernel is the "
-               "ROADMAP item 'variant JIT'")
+VARIANT_JIT = (
+    "the variant JIT compiles hooks of elementwise scalar math into the "
+    "flash and paged kernels: + - * / // % ** by constants or traced values, "
+    "negation, abs, comparisons, & | ~, torch.where, minimum / maximum / "
+    "clamp, exp, exp2, log, log2, tanh, sigmoid, reciprocal, sqrt, rsqrt, "
+    "sin, cos, .float() / .int() / .bool(), Python numbers, and leaves of "
+    "variant_params that are numbers, one-element f32/int32 tensors, or 1-D "
+    "f32/int32 tables indexed by an int expression (p[name][:, None] reads "
+    "the row's head in the flash kernel's query and output transforms)")
 
 
 @dataclasses.dataclass(frozen=True)
 class KernelVariant:
-    """What the flash kernel reads of a built-in variant. ALiBi slopes come
-    from ``variant_params["alibi_slopes"]``; ``sigmoid`` is (scale, bias)
-    of ``FlashSigmoid`` (weights, no softmax)."""
+    """What the flash and paged kernels read of a built-in variant, on
+    their libraries built without a variant header. ALiBi slopes come from
+    ``variant_params["alibi_slopes"]``; ``sigmoid`` is (scale, bias) of
+    ``FlashSigmoid`` (weights, no softmax; flash only). A variant without
+    one, or with a query transform, logit mask or (flash) output transform
+    of its own, runs through the variant JIT instead."""
 
     logits_soft_cap: float = 0.0
     use_alibi: bool = False
@@ -58,8 +70,9 @@ class KernelVariant:
 
 @dataclasses.dataclass(frozen=True)
 class AttentionVariant:
-    """Hooks applied by the plain versions; ``kernel`` is set for the
-    built-in variants the CUDA kernel runs."""
+    """Hooks applied by the plain versions and, traced, by the kernels'
+    builds for the variant; ``kernel`` is set for the built-in variants the
+    kernels' own libraries run."""
 
     name: str = "default"
     query_transform: Optional[Callable[[Params, torch.Tensor], torch.Tensor]] = None

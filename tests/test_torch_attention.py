@@ -227,12 +227,14 @@ class _CudaMarked(torch.Tensor):
 @pytest.mark.parametrize("hook", ["query_transform", "logits_mask",
                                   "output_transform", "logits_transform"])
 def test_hooked_variant_on_a_cuda_call_raises(hook, monkeypatch):
-    """A variant with a hook of the caller's own cannot enter a kernel
-    built by nvcc: given CUDA tensors, the flash and paged wrappers raise
-    ``NotImplementedError`` before any kernel is built or launched (JAX's
-    paged kernel applies no output transform, so paged takes the other
-    three), and never give way to the plain version. On the CPU the plain
-    versions compute it."""
+    """A variant with a hook of the caller's own, given CUDA tensors,
+    reaches the variant JIT: the flash and paged wrappers trace it and ask
+    ``jit.load`` for the kernel built with the generated header (JAX's
+    paged kernel applies no output transform, so with that hook alone the
+    paged wrapper takes its built-in library). Only a hook outside the
+    traced subset still raises ``NotImplementedError``, naming its op,
+    before any build; no call gives way to the plain version. On the CPU
+    the plain versions compute it."""
     from flashinfer_tpu_torch import jit
     from flashinfer_tpu_torch.ops.attention.kernels import flash, paged
     from flashinfer_tpu_torch.ops.attention.variants import (
@@ -240,32 +242,53 @@ def test_hooked_variant_on_a_cuda_call_raises(hook, monkeypatch):
         DefaultAttention,
     )
 
-    def no_kernel(name):
-        raise AssertionError(f"kernel {name} built on a hooked call")
+    class Reached(Exception):
+        pass
 
-    monkeypatch.setattr(jit, "load", no_kernel)
+    asked = []
+
+    def load(name, header=None):
+        asked.append((name, header))
+        raise Reached
+
+    monkeypatch.setattr(jit, "load", load)
     hooks = dict(
         query_transform=lambda p, x: x * 0.5,
         logits_mask=lambda p, qp, kp, h: (kp + h) % 3 != 0,
         output_transform=lambda p, o: o + 1.0,
         logits_transform=lambda p, s, qp, kp, h: s * 2.0)
+    # the same hook with an op the kernels cannot take
+    refused = dict(
+        query_transform=(lambda p, x: x / x.norm(), "norm"),
+        logits_mask=(lambda p, qp, kp, h: (kp < qp) if qp else kp, "branch"),
+        output_transform=(lambda p, o: o @ o, "matmul"),
+        logits_transform=(lambda p, s, qp, kp, h: s - s.amax(dim=-1),
+                          "amax"))
     kernel = None if hook == "logits_transform" else DefaultAttention.kernel
     variant = AttentionVariant(name=hook, kernel=kernel,
                                **{hook: hooks[hook]})
+    bad = AttentionVariant(name=hook, kernel=kernel,
+                           **{hook: refused[hook][0]})
+    flag = {"query_transform": "Q", "logits_mask": "MASK",
+            "output_transform": "OUT", "logits_transform": "LOGITS"}[hook]
     rng = np.random.default_rng(9)
     q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
                for s in ((12, HQ, D), (20, HKV, D), (20, HKV, D)))
     marked = [t.as_subclass(_CudaMarked) for t in (q, k, v)]
     launches = flash.flash_attention_dense.launches
-    with pytest.raises(NotImplementedError, match="variant JIT"):
+    with pytest.raises(Reached):
         flash.flash_attention_dense(*marked, causal=True, variant=variant)
-    assert flash.flash_attention_dense.launches == launches
+    (name, header), = asked
+    assert name == "flash_attention"
+    assert f"#define FI_USER_HAS_{flag} 1" in header.read_text()
+    asked.clear()
+    with pytest.raises(NotImplementedError, match=refused[hook][1]):
+        flash.flash_attention_dense(*marked, causal=True, variant=bad)
+    assert not asked and flash.flash_attention_dense.launches == launches
     o, lse = flash.flash_attention_dense(q, k, v, causal=True,
                                          variant=variant)
     plain_o, _ = flash.flash_attention_plain(q, k, v, causal=True)
     assert torch.isfinite(o).all() and not torch.equal(o, plain_o)
-    if hook == "output_transform":
-        return
     qo, kv, indptr, indices, last, pages = _batch(rng, "prefill")
     (_, kt), (_, vt) = _caches(rng, "NHD", "model", pages)
     w = torch_batch.BatchPrefillWithPagedKVCacheWrapper(
@@ -279,10 +302,21 @@ def test_hooked_variant_on_a_cuda_call_raises(hook, monkeypatch):
     kw = dict(tile_q=dp.meta.tile_q, group=HQ // HKV, causal=True,
               sm_scale=D ** -0.5, variant=variant)
     launches = paged.batch_paged_attention_run.launches
-    with pytest.raises(NotImplementedError, match="variant JIT"):
+    with pytest.raises(Reached):
         paged.batch_paged_attention_run(
             *(t.as_subclass(_CudaMarked) for t in args), **kw)
+    (name, header), = asked
+    assert name == "paged_attention"
+    assert (header is None) == (hook == "output_transform")
+    asked.clear()
+    if hook != "output_transform":
+        with pytest.raises(NotImplementedError, match=refused[hook][1]):
+            paged.batch_paged_attention_run(
+                *(t.as_subclass(_CudaMarked) for t in args),
+                **{**kw, "variant": bad})
+        assert not asked
     assert paged.batch_paged_attention_run.launches == launches
     o, _ = paged.batch_paged_attention_run(*args, **kw)
     plain_o, _ = paged.paged_attention_plain(*args, **{**kw, "variant": None})
-    assert torch.isfinite(o).all() and not torch.equal(o, plain_o)
+    assert torch.isfinite(o).all()
+    assert torch.equal(o, plain_o) == (hook == "output_transform")

@@ -430,8 +430,10 @@ def test_paged_kernel_surface_matches_plain(dev, feature, qdt, kv, mode,
 
 
 def test_paged_kernel_refuses_hooks_and_non_softmax(dev):
-    """A variant with hooks of the caller's own runs only in the plain
-    version (variant JIT), and a non-softmax variant in neither."""
+    """A variant with hooks of the caller's own runs in the kernel's build
+    for it (the variant JIT) and matches the plain version; a hook outside
+    the traced subset raises before any build, and a non-softmax variant
+    runs in neither."""
     from flashinfer_tpu_torch.ops.attention.variants import (
         AttentionVariant,
         FlashSigmoid,
@@ -445,11 +447,193 @@ def test_paged_kernel_refuses_hooks_and_non_softmax(dev):
     kw = dict(tile_q=16, group=2, causal=True, sm_scale=0.2)
     mine = AttentionVariant(
         name="mine", logits_transform=lambda p, s, qp, kp, h: s * 2)
-    with pytest.raises(NotImplementedError, match="variant JIT"):
-        batch_paged_attention_run(*args, **kw, variant=mine)
-    paged_attention_plain(*(t.cpu() for t in args), **kw, variant=mine)
+    before = batch_paged_attention_run.launches
+    o, lse = batch_paged_attention_run(*args, **kw, variant=mine)
+    assert batch_paged_attention_run.launches == before + 1
+    ref_o, ref_lse = paged_attention_plain(*args, **kw, variant=mine)
+    torch.testing.assert_close(o, ref_o, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-4)
+    reduced = AttentionVariant(
+        name="reduced", logits_transform=lambda p, s, qp, kp, h: s.softmax(-1))
+    with pytest.raises(NotImplementedError, match="softmax"):
+        batch_paged_attention_run(*args, **kw, variant=reduced)
     with pytest.raises(ValueError, match="non-softmax variants"):
         batch_paged_attention_run(*args, **kw, variant=FlashSigmoid())
+
+
+# ---------------------------------------------------- the variant JIT
+
+# the callers' variants the JIT builds (the CPU tests in
+# tests/test_torch_variant_jit.py hold the same hooks to JAX's kernels)
+JIT_VARIANTS = ["alibi", "doc_mask", "q_out", "sigmoid", "soft_cap"]
+
+
+def _jit_variant(name, hq, kv_len, dev):
+    """(variant, variant_params) of one caller variant written as plain
+    torch hooks, and the built-in variant computing the same function, if
+    one exists (ALiBi, the sigmoid, the soft cap)."""
+    from flashinfer_tpu_torch.ops.attention.single import default_alibi_slopes
+    from flashinfer_tpu_torch.ops.attention.variants import (
+        AttentionVariant,
+        FlashSigmoid,
+        make_default_variant,
+    )
+
+    if name == "alibi":
+        return (AttentionVariant(
+            name="caller_alibi",
+            logits_transform=lambda p, s, qp, kp, h: (
+                s + p["alibi_slopes"][h] * (kp - qp).float())),
+            {"alibi_slopes": default_alibi_slopes(hq, dev)},
+            make_default_variant(use_alibi=True))
+    if name == "doc_mask":  # documents of 37 tokens; the table covers a
+        # tile past the keys
+        doc = (torch.arange(kv_len + 256, device=dev) // 37).int()
+        return (AttentionVariant(
+            name="doc_mask",
+            logits_mask=lambda p, qp, kp, h: p["doc"][qp] == p["doc"][kp]),
+            {"doc": doc}, None)
+    if name == "q_out":
+        return (AttentionVariant(
+            name="q_out", query_transform=lambda p, x: x * p["q_scale"],
+            output_transform=lambda p, o: o * 1.5 + p["o_bias"]),
+            {"q_scale": torch.tensor(0.75, device=dev), "o_bias": 0.25},
+            None)
+    if name == "sigmoid":  # bias -log(n) over many keys, as the built-in
+        bias = -math.log(kv_len) if kv_len > 256 else -1.0
+        return (AttentionVariant(
+            name="caller_sigmoid", use_softmax=False,
+            logits_transform=lambda p, s, qp, kp, h: torch.reciprocal(
+                1.0 + torch.exp(-(s * 0.5 + bias)))),
+            None, FlashSigmoid(0.5, bias))
+    return (AttentionVariant(
+        name="caller_soft_cap",
+        logits_transform=lambda p, s, qp, kp, h: 2.0 * torch.tanh(s / 2.0)),
+        None, make_default_variant(logits_soft_cap=2.0))
+
+
+@pytest.fixture(scope="module")
+def jit_built():
+    """Every library the JIT tests below launch, built at once (one nvcc a
+    library, in parallel), as chip_smoke.py's variants phase builds its."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from flashinfer_tpu_torch import jit
+    from flashinfer_tpu_torch.jit.variant import compile_variant
+
+    dev = torch.device("cuda")
+    targets = list(jit.KERNEL_SOURCES)
+    for name in JIT_VARIANTS:
+        variant, params, _ = _jit_variant(name, 8, 4096, dev)
+        kernels = ("flash", "paged") if variant.use_softmax else ("flash",)
+        for kernel in kernels:
+            c = compile_variant(variant, params, kernel, 8)
+            targets.append((f"{kernel}_attention", c.header_path()))
+    jit.build_all(list(dict.fromkeys(targets)))
+
+
+JIT_FLASH_SHAPES = {"prefill": (70, 70, True, -1),
+                    "long": (300, 700, True, -1),
+                    "qo_gt_kv": (90, 40, True, -1),
+                    "split": (1, 3000, False, -1)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", list(JIT_FLASH_SHAPES))
+@pytest.mark.parametrize("name", JIT_VARIANTS)
+def test_flash_kernel_runs_a_callers_variant(dev, jit_built, dtype, shape,
+                                            name):
+    """A caller's variant in the flash kernel's build for it against the
+    plain version (the split case merges its key splits in the kernel's
+    merge launch, which applies the output transform), and against the
+    built-in variant's library where one computes the same function."""
+    from flashinfer_tpu_torch.ops.attention.kernels.flash import (
+        flash_attention_dense,
+        flash_attention_plain,
+    )
+
+    qo, kv, causal, window = JIT_FLASH_SHAPES[shape]
+    hq, hkv = (32, 8) if shape == "split" else (8, 2)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    q, k, v = (torch.randn(n, h, 64, device=dev, generator=gen).to(dtype)
+               for n, h in ((qo, hq), (kv, hkv), (kv, hkv)))
+    if name == "soft_cap":
+        q = q * 4
+    variant, params, builtin = _jit_variant(name, hq, kv, dev)
+    kw = dict(causal=causal, window_left=window, variant=variant,
+              variant_params=params)
+    before = flash_attention_dense.launches
+    o, lse = flash_attention_dense(q, k, v, **kw)
+    assert flash_attention_dense.launches == before + 1
+    ref_o, ref_lse = flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    _check_flash(o, lse, ref_o, ref_lse, dtype)
+    if builtin is not None:
+        b_o, b_lse = flash_attention_dense(q, k, v, **{**kw,
+                                                       "variant": builtin})
+        _check_flash(o, lse, b_o, b_lse, dtype)
+
+
+# (mode, tile_q, q dtype, cache): the wgmma prefill tiles, the swap-AB
+# decode tiles, the f32 CUDA-core kernel, e4m3 and int8 caches
+JIT_PAGED_PATHS = {
+    "prefill_tiles": ("prefill", 64, torch.bfloat16, "model"),
+    "decode_tiles": ("decode", None, torch.bfloat16, "model"),
+    "f32": ("prefill", 16, torch.float32, "model"),
+    "e4m3": ("prefill", 64, torch.bfloat16, "e4m3"),
+    "e4m3_decode": ("decode", None, torch.bfloat16, "e4m3"),
+    "int8": ("decode", None, torch.bfloat16, "int8"),
+    "int8_f32": ("prefill", 16, torch.float32, "int8"),
+}
+
+
+@pytest.mark.parametrize("path", list(JIT_PAGED_PATHS))
+@pytest.mark.parametrize("name", [n for n in JIT_VARIANTS if n != "sigmoid"])
+def test_paged_kernel_runs_a_callers_variant(dev, jit_built, path, name):
+    """A caller's variant in the paged kernel's build for it, on each of
+    its three kernels and the 8-bit caches, against the plain version (the
+    hooks see s * sm_scale * k_scale and the row's true head); the output
+    transform is not applied, as in the TPU kernel."""
+    mode, tile_q, qdt, kv = JIT_PAGED_PATHS[path]
+    rng = np.random.default_rng(32)
+    gen = torch.Generator(device=dev).manual_seed(32)
+    ps, hq, hkv, d = 16, 8, 2, 64
+    dp, pages, _ = _plan(mode, ps, hq, hkv, d, rng, tile_q)
+    kc, vc = _paged_caches(dev, gen, "NHD", kv, qdt, pages, ps, hkv, d, d)
+    q = torch.randn(hkv, dp.meta.bucket_rows, d, device=dev,
+                    generator=gen).to(qdt)
+    if name == "soft_cap":
+        q = q * 4
+    variant, params, _ = _jit_variant(name, hq, 4096, dev)
+    _paged_check(dev, dp, kc, vc, q, hq, hkv, d, k_scale=0.7, v_scale=1.3,
+                 variant=variant, variant_params=params)
+
+
+def test_jit_builds_once(dev, monkeypatch):
+    """A second call with the same variant loads no library and runs no
+    nvcc; a variant differing in a closure constant has its own build."""
+    from flashinfer_tpu_torch import jit
+    from flashinfer_tpu_torch.jit import core
+    from flashinfer_tpu_torch.ops.attention.kernels.flash import (
+        flash_attention_dense,
+    )
+    from flashinfer_tpu_torch.ops.attention.variants import AttentionVariant
+
+    def scaled(c):
+        return AttentionVariant(
+            name=f"x{c}", logits_transform=lambda p, s, qp, kp, h: s * c)
+
+    q = torch.randn(20, 4, 64, device=dev)
+    flash_attention_dense(q, q, q, variant=scaled(2.0))
+    calls = []
+    real = core.build_all
+    monkeypatch.setattr(core, "build_all",
+                        lambda *a, **k: calls.append(a) or real(*a, **k))
+    o1, _ = flash_attention_dense(q, q, q, variant=scaled(2.0))
+    assert calls == []
+    o2, _ = flash_attention_dense(q, q, q, variant=scaled(3.0))
+    assert len(calls) == 1 and not torch.equal(o1, o2)
+    assert any(":" in n for n in jit.jit_registry.get_stats())
 
 
 @pytest.mark.parametrize("case", ["ragged", "sink", "bsr", "bsr12",
@@ -1701,14 +1885,20 @@ def test_flash_split_decode_in_a_cuda_graph(dev, variant):
 def test_flash_kernel_refuses_what_it_cannot_run(dev):
     from flashinfer_tpu_torch.ops.attention.kernels.flash import (
         flash_attention_dense,
+        flash_attention_plain,
     )
     from flashinfer_tpu_torch.ops.attention.variants import AttentionVariant
 
     q = torch.randn(4, 4, 64, device=dev)
     custom = AttentionVariant(name="mine",
                               query_transform=lambda p, x: x * 2)
-    with pytest.raises(NotImplementedError, match="variant JIT"):
-        flash_attention_dense(q, q, q, variant=custom)
+    o, _ = flash_attention_dense(q, q, q, variant=custom)  # the variant JIT
+    ref_o, _ = flash_attention_plain(q, q, q, variant=custom)
+    torch.testing.assert_close(o, ref_o, atol=1e-4, rtol=1e-4)
+    reduced = AttentionVariant(name="reduced",
+                               query_transform=lambda p, x: x.sum(dim=-1))
+    with pytest.raises(NotImplementedError, match="variant JIT.*sum"):
+        flash_attention_dense(q, q, q, variant=reduced)
     with pytest.raises(TypeError):
         flash_attention_dense(q.half(), q.half(), q.half())
     with pytest.raises(ValueError):
