@@ -9,8 +9,10 @@ Run from the root of a checkout. Phases, in order:
 2. build: every CUDA kernel built with nvcc from ``flashinfer_tpu_torch/csrc``
    (one process per source, all at once); ``cuobjdump -sass`` counts the
    wgmma (HGMMA), TMA load (UTMALDG) and mma.sync (HMMA) instructions of
-   the flash, grouped-GEMM and paged-attention libraries, and the phase
-   fails if one lacks wgmma or TMA, or the grouped GEMM holds an mma.sync;
+   the flash, grouped-GEMM, MLA and paged-attention libraries, and the
+   phase fails if one lacks wgmma or TMA, or the grouped GEMM holds an
+   mma.sync, or the paged kernel's gather build lacks wgmma or holds a TMA
+   load;
 3. native host runtime: the C++ planner and page pool (``csrc/host``,
    built with the system C++ compiler) load with ABI 4; the engine's
    decode, prefill and verify plans and every MLA plan of the DeepSeek
@@ -121,6 +123,16 @@ Run from the root of a checkout. Phases, in order:
    and one graphed sampled decode step is traced with
    ``profiler.profile_trace``, whose ``summarize_trace`` must name the
    paged, RMSNorm and sampler kernels;
+11b. pages: pages of 12 and 20 tokens, which the paged kernel's gather
+   build reads in place (``csrc/paged_attention_gather.cu``): its launches
+   at the engine's Llama-3-8B decode and prefill plans on those pages (NHD
+   and HND; bf16, e4m3 and int8; decode also at head_dim 256) against the
+   plain version, timed, each launch counted as the gather build's; the
+   repack route it replaces at page 12 (the gather into 128-token pages
+   and the launch there, timed apart); then the engine phase's weights
+   through ``LlamaServingEngine`` at page 12, greedy, eager and graphed
+   (tokens identical; the graphed run is the pages path, whose launch
+   counts are read from it), and at page 16 graphed on the same traffic;
 12. distributed: ``torch.distributed`` at world size 1 through NCCL (a
    FileStore; the group is destroyed at the phase's end): the mesh views
    of ``parallel.make_mesh``, every collective and ``MoeAlltoAll`` against
@@ -306,6 +318,8 @@ def phase_card():
 # the libraries built on wgmma and TMA
 TENSOR_CORE_LIBS = ("flash_attention", "grouped_gemm", "paged_attention",
                     "mla_attention")
+# the paged kernel's gather build: wgmma, pages copied by cp.async (no TMA)
+GATHER_LIB = "paged_attention_gather"
 
 
 def phase_build():
@@ -319,8 +333,8 @@ def phase_build():
             # register and spill reports; C75xx (wgmma serialised, for
             # one) but C7519, an informational fence the compiler adds
             if ("Used" in ln and "registers" in ln or "spill" in ln
-                    or (name in TENSOR_CORE_LIBS and "C75" in ln
-                        and "C7519" not in ln)):
+                    or (name in TENSOR_CORE_LIBS + (GATHER_LIB,)
+                        and "C75" in ln and "C7519" not in ln)):
                 log("  ptxas:", ln.strip())
     for name in TENSOR_CORE_LIBS:
         sass = sass_counts(name)
@@ -329,6 +343,11 @@ def phase_build():
             raise AssertionError(f"{name} lacks wgmma or TMA: {sass}")
         if name == "grouped_gemm" and sass["HMMA"]:
             raise AssertionError(f"{name} still holds mma.sync: {sass}")
+    sass = sass_counts(GATHER_LIB)
+    log(f"{GATHER_LIB} SASS: {sass}")
+    if not sass["HGMMA"] or sass["UTMALDG"]:
+        raise AssertionError(f"{GATHER_LIB} lacks wgmma or loads by TMA: "
+                             f"{sass}")
     return secs
 
 
@@ -357,22 +376,30 @@ def sass_counts(name):
 LAYERS_ROTATED = 8  # distinct caches per timing loop: 8 layers exceed L2
 
 
-def _engine_like_plans(np, lens_decode, lens_prefill, d=128):
+def _page_table(np, lens, ps):
+    """(indptr, page ids) of requests of ``lens`` tokens on ``ps``-token
+    pages, the ids a seeded permutation."""
+    npages = -(-np.asarray(lens) // ps)
+    indptr = np.concatenate([[0], np.cumsum(npages)]).astype(np.int32)
+    indices = np.random.default_rng(1).permutation(
+        int(indptr[-1])).astype(np.int32)
+    return indptr, indices
+
+
+def _engine_like_plans(np, lens_decode, lens_prefill, d=128, ps=16):
     """Plans built as the engine builds them (engine.py _decode and
-    _prefill) at Llama-3-8B heads (head_dim ``d``), page 16, chunk 512."""
+    _prefill) at Llama-3-8B heads (head_dim ``d``), pages of ``ps``
+    tokens, chunk 512 (rounded up to whole pages by the planner)."""
     from flashinfer_tpu_torch.ops.attention.batch import (
         BatchDecodeWithPagedKVCacheWrapper,
         BatchPrefillWithPagedKVCacheWrapper,
     )
     from flashinfer_tpu_torch.utils import next_power_of_2
 
-    ps, hq, hkv, chunk, page_bucket = 16, 32, 8, 512, 1024
+    hq, hkv, chunk, page_bucket = 32, 8, 512, 1024
 
     def table(lens):
-        npages = -(-np.asarray(lens) // ps)
-        indptr = np.concatenate([[0], np.cumsum(npages)]).astype(np.int32)
-        indices = np.random.default_rng(1).permutation(
-            int(indptr[-1])).astype(np.int32)
+        indptr, indices = _page_table(np, lens, ps)
         padded = np.zeros(page_bucket, np.int32)
         padded[: len(indices)] = indices
         last = (((np.asarray(lens) - 1) % ps) + 1).astype(np.int32)
@@ -518,19 +545,6 @@ def check_paged_attention(torch, np, lens_decode, lens_prefill):
     and prefill plans (NHD and HND; bf16, e4m3 and int8 caches), the same
     decode at head_dim 256, and POD's combined plan (HND, Llama-3-8B widths:
     32 decodes in 256-row tiles beside a 2048-token chunk)."""
-    from flashinfer_tpu_torch.ops.attention.batch import (
-        kernel_caches,
-        pack_queries,
-    )
-    from flashinfer_tpu_torch.ops.attention.kernels.paged import (
-        batch_paged_attention_run,
-    )
-    from flashinfer_tpu_torch.utils import TensorLayout
-
-    hq, hkv, ps = 32, 8, 16
-    group = hq // hkv
-    dev = torch.device(DEVICE)
-    gen = torch.Generator(device=dev).manual_seed(7)
     cases = [(mode, 128, plan,
               ("NHD",) if mode == "verify" else ("NHD", "HND"))
              for mode, plan in
@@ -538,6 +552,25 @@ def check_paged_attention(torch, np, lens_decode, lens_prefill):
     cases.append(("decode", 256, _engine_like_plans(
         np, lens_decode, lens_prefill, d=256)["decode"], ("NHD", "HND")))
     cases.append(("pod_combined", 128, _pod_combined_case(np), ("HND",)))
+    return _paged_rows(torch, cases, 16, "paged_attention")
+
+
+def _paged_rows(torch, cases, ps, label):
+    """Each case's plan (mode, head_dim, (plan, pages, kv lens, qo lens),
+    layouts) on bf16, e4m3 and int8 caches of ``ps``-token pages: the
+    kernel against its plain version on every row, timed (in a CUDA graph
+    and as a call) beside its bound and the plain version. Raises if a
+    case disagrees."""
+    from flashinfer_tpu_torch.ops.attention.batch import pack_queries
+    from flashinfer_tpu_torch.ops.attention.kernels.paged import (
+        batch_paged_attention_run,
+    )
+    from flashinfer_tpu_torch.utils import TensorLayout
+
+    hq, hkv = 32, 8
+    group = hq // hkv
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(7)
     rows = []
     for mode, d, (dp, pages, kv_lens, qo_lens), layouts in cases:
         m = dp.meta
@@ -595,7 +628,8 @@ def check_paged_attention(torch, np, lens_decode, lens_prefill):
                 ops = 4 * d * _attention_work(kv_lens, qo_lens, hq)
                 b_ms, b_by = bound_ms(nbytes, ops)
                 row = dict(mode=mode, d=d, layout=layout, kv=kv_dtype,
-                           q_shape=list(q.shape), kv_tokens=int(kv_lens.sum()),
+                           page_size=ps, q_shape=list(q.shape),
+                           kv_tokens=int(kv_lens.sum()),
                            T=m.num_work_items, tile_q=m.tile_q,
                            splits=m.max_splits, err_o=chk["err_o"],
                            o_ratio=chk["o_ratio"], err_lse=chk["err_lse"],
@@ -604,7 +638,7 @@ def check_paged_attention(torch, np, lens_decode, lens_prefill):
                            bound_ops=ops, bound_ms=b_ms, bound_by=b_by,
                            ok=chk["ok"])
                 rows.append(row)
-                log(f"paged_attention {mode:12s} d={d} {layout} {kv_dtype:4s} "
+                log(f"{label} {mode:12s} d={d} {layout} {kv_dtype:4s} "
                     f"q={list(q.shape)} kv_tokens={int(kv_lens.sum())} "
                     f"T={m.num_work_items} tile_q={m.tile_q} "
                     f"splits={m.max_splits} err_o={chk['err_o']:.2e} "
@@ -617,8 +651,8 @@ def check_paged_attention(torch, np, lens_decode, lens_prefill):
         torch.cuda.empty_cache()
     bad = [r for r in rows if not r["ok"]]
     if bad:
-        raise AssertionError(f"paged attention kernel disagrees with its "
-                             f"plain version: {bad}")
+        raise AssertionError(f"{label} disagrees with its plain version: "
+                             f"{bad}")
     return rows
 
 
@@ -1914,6 +1948,7 @@ def _reset_counts():
     from flashinfer_tpu_torch.ops.sampling import family_call
 
     fns = {"paged_attention": batch_paged_attention_run,
+           "paged_attention_gather": _GatherLaunches(),
            "sampler_family": family_call, "rmsnorm": rmsnorm,
            "mla_attention": mla_paged_run,
            "grouped_gemm": grouped_gemm_padded,
@@ -1921,6 +1956,28 @@ def _reset_counts():
     for fn in fns.values():
         fn.launches = 0
     return fns
+
+
+class _GatherLaunches:
+    """The launches of the paged kernel's gather build (pages that are not
+    a multiple of 8 tokens; its wrapper's ``gather_launches``, also counted
+    in ``launches``) as a count of its own."""
+
+    @property
+    def launches(self):
+        from flashinfer_tpu_torch.ops.attention.kernels.paged import (
+            batch_paged_attention_run,
+        )
+
+        return batch_paged_attention_run.gather_launches
+
+    @launches.setter
+    def launches(self, n):
+        from flashinfer_tpu_torch.ops.attention.kernels.paged import (
+            batch_paged_attention_run,
+        )
+
+        batch_paged_attention_run.gather_launches = n
 
 
 LLAMA_PATH = ("paged_attention", "sampler_family", "rmsnorm")
@@ -2223,6 +2280,162 @@ def phase_engine(torch, np, card, shared):
     # the distributed phase serves these weights next
     shared["llama"] = (mc, params, prompts)
     return results
+
+
+# pages that are not a multiple of 8 tokens: the paged kernel's gather build
+ODD_PAGES = (12, 20)
+PAGES_REQUESTS = 8  # of the engine phase's prompts (64-512 tokens)
+PAGES_NEW = 16
+PAGES_PATH = ("paged_attention", "paged_attention_gather", "rmsnorm")
+
+
+def _repack_flat(np, lens, ps):
+    """The gather map of the route pages of ``ps`` tokens took before the
+    gather build (the wrappers' repack, now kept for pages under 8): flat
+    token ids (page * ps + slot) of the caller's cache, [n, 128] in the
+    order of the page ids ``_engine_like_plans`` gives 128-token pages, so
+    the plan at page 128 reads the repacked cache; slots past a request's
+    end repeat its last token, as the wrapper's map does."""
+    kv = np.asarray(lens, np.int64)
+    indptr, indices = _page_table(np, kv, ps)
+    syn_indptr, syn_ids = _page_table(np, kv, 128)
+    r = np.repeat(np.arange(len(kv)), np.diff(syn_indptr))
+    j = np.arange(len(r)) - syn_indptr[r]
+    t = np.minimum(j[:, None] * 128 + np.arange(128), kv[r][:, None] - 1)
+    flat = np.empty((len(r), 128), np.int64)
+    flat[syn_ids] = indices[indptr[r][:, None] + t // ps] * ps + t % ps
+    return flat
+
+
+def _repack_route(torch, np, mode, lens, gather_row, ps=12, d=128):
+    """The repack route on the decode or prefill case of ``gather_row`` (NHD
+    bf16): the gather of the caller's pages into 128-token pages (both K
+    and V, the wrapper's ``kernel_caches``) and the TMA build's launch on
+    the plan at page 128, each timed over ``LAYERS_ROTATED`` caches,
+    beside the gather build's launch on the caller's pages."""
+    from flashinfer_tpu_torch.ops.attention.kernels.paged import (
+        batch_paged_attention_run,
+    )
+
+    hq, hkv = 32, 8
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    lens_d, lens_p = ((lens, [64]) if mode == "decode" else ([64], lens))
+    dp, syn_pages, _, _ = _engine_like_plans(np, lens_d, lens_p, d=d,
+                                             ps=128)[mode]
+    flat = torch.from_numpy(_repack_flat(np, lens, ps)).to(dev)
+    pages = int(-(-np.asarray(lens) // ps).sum())
+    L = LAYERS_ROTATED
+    kc, vc = (torch.randn(L * pages, ps, hkv, d, device=dev, generator=gen,
+                          dtype=torch.bfloat16) for _ in range(2))
+    turn = [0]
+
+    def gather():
+        off = (turn[0] % L) * pages * ps
+        turn[0] += 1
+        return (kc.reshape(-1, hkv, d)[flat + off],
+                vc.reshape(-1, hkv, d)[flat + off])
+
+    syn = [gather() for _ in range(L)]
+    m = dp.meta
+    q = torch.randn(hkv, m.bucket_rows, d, device=dev, generator=gen,
+                    dtype=torch.bfloat16)
+    kw = dict(tile_q=m.tile_q, group=hq // hkv, causal=m.causal,
+              sm_scale=m.sm_scale, row_valid=dp.segment("row_valid"))
+
+    def launch():
+        k, v = syn[turn[0] % L]
+        turn[0] += 1
+        return batch_paged_attention_run(q, k, v, dp.segment("kv_indices"),
+                                         dp.segment("plan"), **kw)
+
+    gather_ms = cuda_ms(torch, gather, 10, graph=True)
+    launch_ms = cuda_ms(torch, launch, 20, graph=True)
+    row = dict(mode=mode, page_size=ps, synthetic_pages=syn_pages,
+               gather_ms=gather_ms, launch_ms=launch_ms,
+               repack_ms=gather_ms + launch_ms,
+               gather_build_ms=gather_row["ms"],
+               gather_build_bound_ms=gather_row["bound_ms"])
+    log(f"paged repack route {mode:7s} page {ps}: gather {gather_ms:.4f} ms "
+        f"+ launch on 128-token pages {launch_ms:.4f} ms = "
+        f"{row['repack_ms']:.4f} ms; the gather build on the caller's pages "
+        f"{gather_row['ms']:.4f} ms (bound {gather_row['bound_ms']:.5f})")
+    del syn, kc, vc
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_pages(torch, np, card, shared, lens_decode, lens_prefill):
+    """Pages of 12 and 20 tokens (the pages path): the paged kernel's
+    gather build at the engine's Llama-3-8B decode and prefill plans on
+    pages of 12 and 20 (NHD and HND; bf16, e4m3 and int8 caches; decode
+    also at head_dim 256 on pages of 12) against its plain version, timed,
+    every launch the gather build's (its count); the repack route it
+    replaces at page 12, its gather and launch timed apart; then the
+    engine phase's Llama-3-8B weights through ``LlamaServingEngine`` at
+    page 12, greedy, eager and graphed (tokens identical; the graphed run's
+    launch counts are the pages path's, the gather build's among them),
+    and at page 16 graphed on the same traffic (no gather launch)."""
+    rows = []
+    for ps in ODD_PAGES:
+        plans = _engine_like_plans(np, lens_decode, lens_prefill, ps=ps)
+        cases = [(mode, 128, plans[mode], ("NHD", "HND"))
+                 for mode in ("decode", "prefill")]
+        if ps == ODD_PAGES[0]:
+            cases.append(("decode", 256, _engine_like_plans(
+                np, lens_decode, lens_prefill, d=256, ps=ps)["decode"],
+                ("NHD",)))
+        counters = _reset_counts()
+        rows += _paged_rows(torch, cases, ps, "paged_attention_gather")
+        n, g = (counters[k].launches for k in ("paged_attention",
+                                               "paged_attention_gather"))
+        log(f"pages of {ps}: {n} paged launches, {g} of the gather build")
+        if not 0 < n == g:
+            raise AssertionError(f"pages of {ps}: {g} of {n} launches went "
+                                 f"to the gather build")
+
+    def nhd_bf16(mode):
+        return next(r for r in rows if r["mode"] == mode and r["d"] == 128
+                    and r["page_size"] == ODD_PAGES[0]
+                    and r["layout"] == "NHD" and r["kv"] == "bf16")
+
+    repack = [_repack_route(torch, np, "decode", lens_decode,
+                            nhd_bf16("decode")),
+              _repack_route(torch, np, "prefill", lens_prefill,
+                            nhd_bf16("prefill"))]
+    mc, params, prompts = shared["llama"]
+    prompts = prompts[:PAGES_REQUESTS]
+    engine, outs = {}, {}
+    for label, extra in (("page12 eager", dict(page_size=12,
+                                               cuda_graphs=False)),
+                         ("page12 graphed", dict(page_size=12)),
+                         ("page16 graphed", dict(page_size=16))):
+        res, outs[label], params = _engine_mode(
+            torch, np, mc, params, prompts, PAGES_NEW, card, label,
+            PAGES_PATH, greedy=True, **extra)
+        engine[label] = res
+    shared["llama"] = (shared["llama"][0], params, shared["llama"][2])
+    same = outs["page12 eager"] == outs["page12 graphed"]
+    agree = float(np.mean(np.asarray(outs["page12 graphed"])
+                          == np.asarray(outs["page16 graphed"])))
+    log(f"engine page 12: greedy tokens eager == graphed: {same}; equal to "
+        f"page 16's: {agree:.3f} (not asserted: other KV chunks sum in "
+        f"other orders); graphed step device ms page 12 "
+        f"{engine['page12 graphed']['device_ms_per_step']} vs page 16 "
+        f"{engine['page16 graphed']['device_ms_per_step']}, wall ms "
+        f"{engine['page12 graphed']['decode_step_ms_median_batch8']} vs "
+        f"{engine['page16 graphed']['decode_step_ms_median_batch8']} "
+        f"[{card}]")
+    launches = engine["page12 graphed"]["launches"]
+    if not same:
+        raise AssertionError("page-12 greedy tokens differ eager and graphed")
+    if not all(launches.values()):
+        raise AssertionError(f"page 12: a kernel of the pages path was not "
+                             f"launched: {launches}")
+    if engine["page16 graphed"]["launches"]["paged_attention_gather"]:
+        raise AssertionError("page 16 launched the gather build")
+    return dict(rows=rows, repack=repack, engine=engine,
+                page16_agreement=agree, launches=launches)
 
 
 def _engine_numpy_planner(torch, np, mc, params, prompts, n_new, card,
@@ -5153,6 +5366,9 @@ def main() -> int:
     ph.run("tiny Mixtral reference", phase_tiny_mixtral, torch, np)
     shared = {}
     eng = ph.run("engine", phase_engine, torch, np, card, shared)
+    # before the distributed phase, which takes the engine's weights
+    pages = ph.run("pages", phase_pages, torch, np, card, shared,
+                   lens_decode, lens_prefill)
     dist_res = ph.run("distributed", phase_distributed, torch, np, card,
                       shared)
     shared.clear()
@@ -5179,7 +5395,8 @@ def main() -> int:
                "surface": (surf or {}).get("launches", {}),
                "variants": (var or {}).get("launches", {}),
                "moe_api": (moe_api or {}).get("launches", {}),
-               "pipe": (pipes or {}).get("launches", {})}
+               "pipe": (pipes or {}).get("launches", {}),
+               "pages": (pages or {}).get("launches", {})}
     # the distributed phase's paths: the engine's sampled run, then the
     # ring / Ulysses, sharded MoE, pipelined and TP-step calls
     by_path.update((dist_res or {}).get("launches", {}))
@@ -5200,6 +5417,19 @@ def main() -> int:
             max_abs_err=max(r["err_o"] for r in attn), ms=main_row["ms"],
             plain_ms=main_row["plain_ms"], bound_ms=main_row["bound_ms"],
             bound_by=main_row["bound_by"], library_ms=None))
+    if pages:
+        main_row = next(r for r in pages["rows"] if r["mode"] == "decode"
+                        and r["d"] == 128 and r["page_size"] == ODD_PAGES[0]
+                        and r["layout"] == "NHD" and r["kv"] == "bf16")
+        kernels.append(dict(
+            name=GATHER_LIB, route="cuda",
+            source=f"flashinfer_tpu_torch/csrc/{GATHER_LIB}.cu",
+            replaces="flashinfer_tpu/ops/attention/kernels/paged.py:161",
+            launches=launches(GATHER_LIB),
+            max_abs_err=max(r["err_o"] for r in pages["rows"]),
+            ms=main_row["ms"], plain_ms=main_row["plain_ms"],
+            bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
+            library_ms=None))
     if samp:
         kernels.append(dict(
             name="sampler_family", route="cuda",
@@ -5280,7 +5510,7 @@ def main() -> int:
                            flash=flash, single=single, pod=pod,
                            cascade=casc, surface=surf, variants=var,
                            engine=eng,
-                           deepseek=dsk, distributed=dist_res,
+                           deepseek=dsk, distributed=dist_res, pages=pages,
                            mixtral=mix, kernels=kernels,
                            launches_by_path=by_path, failed=ph.failed), f,
                       indent=1)

@@ -33,6 +33,21 @@
 //   tensor map over the cache ([P, ps, kvh, d] NHD or [P, kvh, ps, d] HND),
 //   lane b issuing box b (up to a page, a 64-column block) of each tile and
 //   loading the next tile's page ids meanwhile.
+// - Pages whose size is not a multiple of 8 tokens (12, 20, 9: any size)
+//   are gathered instead, in this source's second build (FI_PAGED_GATHER,
+//   csrc/paged_attention_gather.cu; the wrapper picks the build by page
+//   size, and this one's instructions stay as they were): a TMA box of
+//   gcd(page, tile) rows would be as small as one row and start inside a
+//   128-byte swizzle atom. The producer warpgroup's 128 threads copy each
+//   row's 16-byte chunks with cp.async into the same swizzled layout (the
+//   row's page and slot from the page table, as the CUDA-core kernel
+//   addresses it), zero-filling rows past the span and columns past the
+//   width; one commit group a tile, published a tile behind (wait, proxy
+//   fence, named barrier, one arrival), so the consumers run unchanged.
+//   8-bit caches: the warpgroup that converts an operand copies its rows'
+//   bytes into the byte stages with cp.async, each thread arriving on the
+//   stage's barrier when its copies land (128 arrivals), and converts them
+//   as with TMA.
 // - 8-bit caches are read as bytes (half of bf16's): TMA brings byte
 //   stages, and the producer warpgroup's four warps (at decode, two
 //   warpgroups: one for K, one for V) convert them, exactly (e4m3x2 ->
@@ -82,7 +97,14 @@
 #include "hopper.cuh"
 #include "wgmma.cuh"
 
+// 1 in the gather build (pages of any size, by cp.async), 0 in the TMA one
+#ifndef FI_PAGED_GATHER
+#define FI_PAGED_GATHER 0
+#endif
+
 namespace {
+
+constexpr bool kGather = FI_PAGED_GATHER;
 
 enum PlanRow {
   kReq = 0, kQoTile = 1, kQoStart = 3, kKvStart = 5, kKvEnd = 6,
@@ -400,6 +422,157 @@ struct Ring {
   uint64_t* empty_v;
 };
 
+// 16 bytes from global src to shared dst by cp.async; src_bytes 0 writes
+// zeros and reads nothing. No memory clobber: the copies are ordered by
+// the commit / wait / arrive below, and the compiler may hoist the page
+// table's loads across them.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// One arrival on bar once this thread's earlier cp.async copies land.
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// Local key lk's row of kv head h in the cache's rows of one head: its
+// page from the page table and its slot in that page, at any page size.
+__device__ __forceinline__ unsigned key_row(const Params& p, const Item& it,
+                                            int h, int lk) {
+  const unsigned page =
+      p.kv_indices[it.page0 + lk / p.page_size] + p.kv_indices_offset;
+  const unsigned slot = lk % p.page_size;
+  return p.layout_hnd ? (page * p.kvh + h) * p.page_size + slot
+                      : (page * p.page_size + slot) * p.kvh + h;
+}
+
+// Tile t of one bf16 operand (`width` columns, `blocks` 64-column blocks)
+// into a stage in the 128-byte swizzle, a 16-byte cp.async a chunk (ct:
+// this thread among the producer warpgroup's 128). Warp w copies rows
+// [w TK/4, (w + 1) TK/4): lane l reads row l's page from the table once,
+// and each chunk takes its row from that lane by a shuffle (neighbouring
+// lanes on one row's neighbouring chunks). Rows past the span and
+// columns past the width are zero-filled.
+template <int TK>
+__device__ __forceinline__ void gather_bf16(const Params& p, const Item& it,
+                                            const void* cache, int h, int t,
+                                            int width, int blocks,
+                                            unsigned char* dst, int ct) {
+  constexpr int R = TK / 4;  // rows a warp copies
+  const int lane = ct & 31, j0 = (ct >> 5) * R;
+  const int valid = min(TK, it.span - t * TK), per_row = blocks * 8;
+  const unsigned row = lane < R && j0 + lane < valid
+                           ? key_row(p, it, h, t * TK + j0 + lane) : 0u;
+  const unsigned char* base = static_cast<const unsigned char*>(cache);
+  for (int i = lane; i < R * per_row; i += 32) {  // R * per_row % 32 == 0
+    const int r = i / per_row, c = i - r * per_row, j = j0 + r;
+    const unsigned src = __shfl_sync(0xffffffffu, row, r);
+    const bool real = j < valid && c * 8 < width;
+    cp_async16(dst + (c >> 3) * TK * 128 + sw128(j, c & 7),
+               base + (real ? size_t(src) * (width * 2) + c * 16 : 0),
+               real ? 16 : 0);
+  }
+}
+
+// The bf16 ring filled by gathering (kGather), tiles [t0, t1): each
+// thread of the producer warpgroup copies its chunks of tile t as one
+// commit group, then tile t - 1 is published once its group has landed:
+// every thread fences its copies for the async proxy (wgmma), the
+// warpgroup meets at named barrier 4, one thread arrives on the full
+// barriers (one arrival each, as a TMA tile's). Keeping more tiles in
+// flight on the decode kernel's deeper ring measured no faster.
+template <int TK>
+__device__ __forceinline__ void gather_ring(const Params& p, const Item& it,
+                                            int h, const Ring& r,
+                                            int blocks_k, int blocks_v,
+                                            int t0, int t1, int wtid) {
+  auto publish = [&](int i) {
+    fence_async_smem();
+    asm volatile("bar.sync 4, 128;\n" ::: "memory");
+    if (wtid == 0) {
+      mbar_arrive(&r.full_k[i % r.n]);
+      mbar_arrive(&r.full_v[i % r.n]);
+    }
+  };
+  for (int t = t0, i = 0; t < t1; ++t, ++i) {
+    const int st = i % r.n, ph = (i / r.n) & 1;
+    mbar_wait(&r.empty_k[st], ph ^ 1);
+    gather_bf16<TK>(p, it, p.k, h, t, p.d, blocks_k, r.k + st * r.k_stage,
+                    wtid);
+    mbar_wait(&r.empty_v[st], ph ^ 1);
+    gather_bf16<TK>(p, it, p.v, h, t, p.dv, blocks_v, r.v + st * r.v_stage,
+                    wtid);
+    cp_async_commit();
+    if (i > 0) {
+      cp_async_wait<1>();
+      publish(i - 1);
+    }
+  }
+  if (t1 > t0) {
+    cp_async_wait<0>();
+    publish(t1 - t0 - 1);
+  }
+}
+
+// Tile t's rows of one 8-bit operand (`width` bytes a row) into a byte
+// stage [TK][width] by cp.async (ct: this thread among the 128 of the
+// warpgroup that converts the operand). Warp w copies rows [w TK/4,
+// (w + 1) TK/4), lane l reading row l's page once and the chunks taking
+// it by a shuffle; rows past the span are left unwritten (the converters
+// zero them). Each thread then arrives on `full` once its copies land
+// (the byte ring's full barriers take 128 arrivals when gathering).
+template <int TK>
+__device__ __forceinline__ void gather_bytes(const Params& p, const Item& it,
+                                             const void* cache, int h, int t,
+                                             int width, unsigned char* dst,
+                                             uint64_t* full, int ct) {
+  constexpr int R = TK / 4;  // rows a warp copies
+  const int lane = ct & 31, j0 = (ct >> 5) * R;
+  const int valid = min(TK, it.span - t * TK), per_row = width / 16;
+  const unsigned row = lane < R && j0 + lane < valid
+                           ? key_row(p, it, h, t * TK + j0 + lane) : 0u;
+  const unsigned char* base = static_cast<const unsigned char*>(cache);
+  for (int i0 = 0; i0 < R * per_row; i0 += 32) {  // the same trips a lane
+    const int i = i0 + lane, r = i / per_row, c = i - r * per_row;
+    const unsigned src = __shfl_sync(0xffffffffu, row, r & 31);
+    if (i < R * per_row && j0 + r < valid)
+      cp_async16(dst + (j0 + r) * width + c * 16,
+                 base + size_t(src) * width + c * 16, 16);
+  }
+  cp_async_arrive(full);
+}
+
+// issue_tile's byte stages of tile t (ring stage i % n) where the pages
+// are gathered (kGather), by the warpgroup that converts them (part 0:
+// K and V, part 1: K, part 2: V), each operand once its stage is free.
+template <int TK>
+__device__ __forceinline__ void gather_tile8(const Params& p, const Item& it,
+                                             int h, const Ring& r, int t,
+                                             int i, int part, int ct) {
+  const int st = i % r.n, ph = (i / r.n) & 1;
+#pragma unroll
+  for (int kv = 0; kv < 2; ++kv) {
+    if (part == 2 - kv) continue;  // the other warpgroup's operand
+    if ((ct & 31) == 0)
+      mbar_wait(kv ? &r.empty_v[st] : &r.empty_k[st], ph ^ 1);
+    __syncwarp();
+    gather_bytes<TK>(p, it, kv ? p.v : p.k, h, t, kv ? p.dv : p.d,
+                     kv ? r.v + st * r.v_stage : r.k + st * r.k_stage,
+                     kv ? &r.full_v[st] : &r.full_k[st], ct);
+  }
+}
+
 // Issues tile t's K then V boxes into ring stage i % n, one TMA box a
 // (page part, 64-column block) for bf16, a page part of all columns for
 // 8-bit; lane b issues box b, so a tile's boxes go out together.
@@ -445,7 +618,9 @@ __device__ __forceinline__ void issue_tile(const Params& p, const Item& it,
 // K and V (part 0), or K only (part 1, which also issues the loads) or V
 // only (part 2) where two warpgroups share the conversion (named barrier
 // 4 + part). The bf16 ring's full barriers take one arrival. first_page:
-// lane b's page id of tile t0's box b (box_page).
+// lane b's page id of tile t0's box b (box_page). The gather build
+// (kGather) copies pages by cp.async instead: the bf16 ring by
+// gather_ring, the byte ring by gather_tile8.
 // UNROLL: chunks a converting thread has in flight (as its registers allow).
 template <int TK, bool KV8, int UNROLL>
 __device__ __forceinline__ void produce(const Params& p, const Item& it,
@@ -457,23 +632,31 @@ __device__ __forceinline__ void produce(const Params& p, const Item& it,
                                         int wtid) {
   const int warp = wtid >> 5, lane = wtid & 31;
   if (!KV8) {
-    if (warp != 0) return;
-    int next = first_page;
-    for (int t = t0, i = 0; t < t1; ++t, ++i) {
-      const int page = next;
-      if (t + 1 < t1) next = box_page<TK>(p, it, t + 1, lane);
-      issue_tile<TK, false>(p, it, h, tm_k, tm_v, ring, blocks_k, blocks_v, t,
-                            i, page, lane);
+    if constexpr (kGather) {
+      gather_ring<TK>(p, it, h, ring, blocks_k, blocks_v, t0, t1, wtid);
+    } else {
+      if (warp != 0) return;
+      int next = first_page;
+      for (int t = t0, i = 0; t < t1; ++t, ++i) {
+        const int page = next;
+        if (t + 1 < t1) next = box_page<TK>(p, it, t + 1, lane);
+        issue_tile<TK, false>(p, it, h, tm_k, tm_v, ring, blocks_k, blocks_v,
+                              t, i, page, lane);
+      }
     }
     return;
   }
   const int S8 = bytes.n;
   auto issue = [&](int t) {
-    issue_tile<TK, true>(p, it, h, tm_k, tm_v, bytes, 1, 1, t, t - t0,
-                         t == t0 ? first_page : box_page<TK>(p, it, t, lane),
-                         lane);
+    if constexpr (kGather)
+      gather_tile8<TK>(p, it, h, bytes, t, t - t0, part, wtid);
+    else
+      issue_tile<TK, true>(p, it, h, tm_k, tm_v, bytes, 1, 1, t, t - t0,
+                           t == t0 ? first_page : box_page<TK>(p, it, t, lane),
+                           lane);
   };
-  const bool issuer = warp == 0 && part != 2;
+  // every converting thread copies its operand's bytes when gathering
+  const bool issuer = kGather || (warp == 0 && part != 2);
   if (issuer)
     for (int t = t0; t < min(t1, t0 + S8 - 1); ++t) issue(t);
   for (int t = t0, i = 0; t < t1; ++t, ++i) {
@@ -590,7 +773,7 @@ __global__ void __launch_bounds__(384, 1)
   if (tid == 0) {
     // empty: one arrival a consumer warp (a converter warp, byte ring)
     init_ring(ring, 1, 4 * active);
-    init_ring(bytes, 1, 4);
+    init_ring(bytes, kGather ? 128 : 1, 4);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -882,7 +1065,7 @@ __global__ void __launch_bounds__(384, 1)
   if (tid == 0) {
     // empty: one arrival a consumer warp (a converter warp, byte ring)
     init_ring(ring, 1, 4);
-    init_ring(bytes, 1, 4);
+    init_ring(bytes, kGather ? 128 : 1, 4);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -1418,19 +1601,31 @@ bool cache_map(CUtensorMap* map, const void* ptr, bool kv8, int width,
 
 int gcd(int a, int b) { return b == 0 ? a : gcd(b, a % b); }
 
+// The K and V maps of a tensor-core launch with TK-key tiles: boxes of
+// gcd(page, TK) rows (p.box_rows), a multiple of 8 tokens as the TMA build
+// takes pages. The gather build leaves the maps unused (zero), and
+// box_rows 8, which box_page reads harmlessly.
+bool cache_maps(CUtensorMap* tm_k, CUtensorMap* tm_v, Params& p, bool kv8,
+                int tk, int pages) {
+  if (kGather) {
+    p.box_rows = 8;
+    return true;
+  }
+  p.box_rows = gcd(p.page_size, tk);
+  return cache_map(tm_k, p.k, kv8, p.d, p.kvh, p.page_size,
+                   pages, p.layout_hnd, p.box_rows) &&
+         cache_map(tm_v, p.v, kv8, p.dv, p.kvh, p.page_size,
+                   pages, p.layout_hnd, p.box_rows);
+}
+
 template <int DV, int TK, bool KV8>
 cudaError_t launch_tc_at(Params p, int pages, cudaStream_t s) {
   const TcGeo g = tc_geo(p.d, p.dv, DV, KV8);
   if (g.smem > size_t(kSmemLimit)) return cudaErrorInvalidValue;
-  p.box_rows = gcd(p.page_size, TK);
   p.stages = g.stages;
   p.byte_stages = g.byte_stages;
-  CUtensorMap tm_k, tm_v;
-  if (!cache_map(&tm_k, p.k, KV8, p.d, p.kvh, p.page_size, pages,
-                 p.layout_hnd, p.box_rows) ||
-      !cache_map(&tm_v, p.v, KV8, p.dv, p.kvh, p.page_size, pages,
-                 p.layout_hnd, p.box_rows))
-    return cudaErrorInvalidValue;
+  CUtensorMap tm_k{}, tm_v{};
+  if (!cache_maps(&tm_k, &tm_v, p, KV8, TK, pages)) return cudaErrorInvalidValue;
   auto kernel = paged_tc_kernel<DV, TK, KV8>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(g.smem));
@@ -1451,15 +1646,10 @@ cudaError_t launch_dec_at(Params p, int pages, cudaStream_t s) {
     ++grow;
   const size_t bytes = dec_smem(p.d, p.dv, DV, TK, NR, stages, byte_stages);
   if (bytes > size_t(kSmemLimit)) return cudaErrorInvalidValue;
-  p.box_rows = gcd(p.page_size, TK);
   p.stages = stages;
   p.byte_stages = byte_stages;
-  CUtensorMap tm_k, tm_v;
-  if (!cache_map(&tm_k, p.k, KV8, p.d, p.kvh, p.page_size, pages,
-                 p.layout_hnd, p.box_rows) ||
-      !cache_map(&tm_v, p.v, KV8, p.dv, p.kvh, p.page_size, pages,
-                 p.layout_hnd, p.box_rows))
-    return cudaErrorInvalidValue;
+  CUtensorMap tm_k{}, tm_v{};
+  if (!cache_maps(&tm_k, &tm_v, p, KV8, TK, pages)) return cudaErrorInvalidValue;
   auto kernel = paged_dec_kernel<DV, TK, NR, KV8>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
@@ -1514,8 +1704,9 @@ cudaError_t launch_tc(const Params& p, int kv_dtype, int pages,
 // of `pages` pages; row_valid [q_rows] int32 or null; work_mask uint8 [T,
 // tile_q, mask_chunk] or null; alibi f32 [kvh * group] or null. bf16 q with a bf16,
 // e4m3 or int8 cache, and f32 q with an e4m3 cache, run on the tensor
-// cores (page_size % 8 == 0, 16-byte-aligned caches); f32 q with an f32
-// or int8 cache on the CUDA cores.
+// cores (16-byte-aligned caches; pages of a multiple of 8 tokens in the
+// TMA build, of any size in the gather build); f32 q with an f32 or int8
+// cache on the CUDA cores.
 extern "C" int fi_paged_attention(
     const void* q, const void* k, const void* v, const int* plan,
     const int* kv_indices, const int* row_valid,
@@ -1557,7 +1748,8 @@ extern "C" int fi_paged_attention(
   if (tensor_cores) {
     const uintptr_t addr =
         reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v);
-    if (page_size % 8 != 0 || (addr & 15)) return int(cudaErrorInvalidValue);
+    if ((!kGather && page_size % 8 != 0) || (addr & 15))
+      return int(cudaErrorInvalidValue);
     return int(launch_tc(p, kv_dtype, pages, s));
   }
   if (q_dtype != kF32) return int(cudaErrorInvalidValue);

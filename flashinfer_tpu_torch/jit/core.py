@@ -8,7 +8,9 @@ an O_EXCL lock file so concurrent processes build once:
   a plain C interface, built with nvcc for ``sm_90a`` (``build_all`` starts
   one nvcc per source, all at once; ``load`` returns one). Every C entry
   point returns ``cudaGetLastError()``; ``check`` raises on a non-zero code,
-  so a refused launch never passes silently. The hash reads ``csrc/*.cuh``.
+  so a refused launch never passes silently. The hash reads ``csrc/*.cuh``
+  and the ``.cu`` files a source includes (``paged_attention_gather.cu``
+  is ``paged_attention.cu`` built again with ``FI_PAGED_GATHER``).
 * the host runtime (``csrc/host/``: the C++ planner and page pool, a copy
   of the JAX package's ``csrc/``), built with the system C++ compiler as a
   ``JitSpec`` (``build_and_load``; ``get_native_runtime`` loads it and
@@ -31,6 +33,7 @@ import ctypes
 import dataclasses
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -60,8 +63,8 @@ __all__ = [
     "get_native_runtime",
 ]
 
-KERNEL_SOURCES = ("paged_attention", "sampling", "mla_attention",
-                  "grouped_gemm", "flash_attention", "norm")
+KERNEL_SOURCES = ("paged_attention", "paged_attention_gather", "sampling",
+                  "mla_attention", "grouped_gemm", "flash_attention", "norm")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -144,7 +147,11 @@ def _flags(header: Optional[Path]) -> List[str]:
 def _lib_path(target: Target) -> Path:
     name, header = _split(target)
     h = hashlib.sha256(" ".join(_flags(header)).encode())
-    srcs = [CSRC_DIR / f"{name}.cu"] + sorted(CSRC_DIR.glob("*.cuh"))
+    src = CSRC_DIR / f"{name}.cu"
+    included = re.findall(r'^#include "(\w+\.cu)"', src.read_text(),
+                          re.MULTILINE)
+    srcs = ([src] + [CSRC_DIR / f for f in included]
+            + sorted(CSRC_DIR.glob("*.cuh")))
     for p in srcs + ([header] if header is not None else []):
         h.update(p.read_bytes())
     stem = name if header is None else f"{name}-user"

@@ -220,15 +220,22 @@ def deepseek_decode_step(
     kpe_caches); the new tokens' ckv and kpe are written into the caches in
     place (the JAX package returns new stacked caches instead).
 
-    e4m3 serving: pass ``torch.float8_e4m3fn`` caches, the dequant
-    ``kv_scale`` and a ``cos_sin_cache`` ([max_pos, d_kpe] f32,
-    ``rope_cos_sin_cache``); the new tokens then take the fused
-    ``mla_rope_quantize_fp8`` prologue and attention reads the e4m3 cache
-    in the kernel."""
-    fp8 = ckv_caches.dtype == torch.float8_e4m3fn
+    e4m3 serving: pass ``torch.float8_e4m3fn`` caches, or int8 caches
+    holding e4m3 bits (the JAX package's containers: an int8 cache is e4m3
+    here, as in JAX), the dequant ``kv_scale`` and a ``cos_sin_cache``
+    ([max_pos, d_kpe] f32, ``rope_cos_sin_cache``); the new tokens then
+    take the fused ``mla_rope_quantize_fp8`` prologue and attention reads
+    the e4m3 cache in the kernel. An int8 cache is viewed as
+    ``torch.float8_e4m3fn`` (no copy): the new tokens' bits land in the
+    caller's int8 tensors, which are returned."""
+    fp8 = ckv_caches.dtype in (torch.float8_e4m3fn, torch.int8)
     if fp8 and cos_sin_cache is None:
         raise ValueError("e4m3 MLA decode needs a cos_sin_cache for the "
                          "fused rope + quantize prologue")
+    ckv_out, kpe_out = ckv_caches, kpe_caches
+    if ckv_caches.dtype == torch.int8:
+        ckv_caches = ckv_caches.view(torch.float8_e4m3fn)
+        kpe_caches = kpe_caches.view(torch.float8_e4m3fn)
     B = token_ids.shape[0]
     x = params["embedding"][token_ids]
     batch_indices = torch.arange(B, dtype=torch.int32, device=x.device)
@@ -258,4 +265,4 @@ def deepseek_decode_step(
                                   x, params["ffn_norm"][layer], cfg.rms_eps)
         ffn = _moe_ffn(params, cfg, layer, xn).to(x.dtype)
     x = fused_add_rmsnorm(ffn, x, params["final_norm"], cfg.rms_eps)[0]
-    return (x @ params["lm_head"]).float(), ckv_caches, kpe_caches
+    return (x @ params["lm_head"]).float(), ckv_out, kpe_out

@@ -20,10 +20,10 @@ What a plan carries, as JAX's does:
 - pages under 8 tokens take JAX's repack: the plan is built on a synthetic
   cache of 128-token pages, and the plan carries the gather map
   (``DevicePlan.repack``), so ``run_device_plan`` fills that cache from the
-  caller's with one gather whoever runs the plan. Pages of 8 or more that
-  are not a multiple of 8 take it too (JAX plans those natively; the
-  kernel's tensor-core route cannot address them), so their plan is not
-  JAX's;
+  caller's with one gather whoever runs the plan. Pages of 8 or more are
+  planned natively, as JAX plans them (the kernel reads a page of any size
+  in place: by TMA at a multiple of 8 tokens, else by its cp.async
+  gather);
 - ``kv_chunk_size=None``: decode-like plans balance as JAX's planner does;
   prefill plans take ``prefill_kv_chunk``, an H100 rule in place of JAX's
   VMEM model;
@@ -367,14 +367,19 @@ def run_device_plan(
     v_scale: float = 1.0,
     kv_indices_offset: int = 0,
     return_lse: bool = False,
+    kv_dtype: Optional[str] = None,
 ):
     """Execute a DevicePlan. q [nnz, hq, d]; k/v paged caches in
     ``kv_layout``. ``kv_indices_offset`` is added to every page id, so a
     cache that stacks all layers' pages ([L * pages, ...]) is passed whole.
     The cache's dtype says how it is read: ``torch.float8_e4m3fn`` as e4m3,
-    int8 as the linear container. ``variant`` None is the default softmax
-    (the wrappers pass their planned variant, soft cap included). A plan
-    on repacked pages gathers its cache first (``kernel_caches``)."""
+    int8 as the linear container, or with ``kv_dtype="e4m3"`` as e4m3 bits
+    (the JAX package's container; viewed as ``float8_e4m3fn``, no copy),
+    as JAX reads them. ``variant`` None is the default softmax (the
+    wrappers pass their planned variant, soft cap included). A plan on
+    repacked pages gathers its cache first (``kernel_caches``)."""
+    if kv_dtype == "e4m3" and k.dtype == torch.int8:
+        k, v = k.view(torch.float8_e4m3fn), v.view(torch.float8_e4m3fn)
     m = dplan.meta
     group = m.num_qo_heads // m.num_kv_heads
     nnz, hq, d = q.shape
@@ -553,11 +558,11 @@ class BatchAttention:
                     kv_indices=kv_indices_np, kv_lens=kv_lens,
                     page_size=page_size)
 
-        # pages the kernel cannot address (under 8 tokens, or not a multiple
-        # of 8): the plan is built on a synthetic cache of 128-token pages,
-        # one gather at run() fills it (JAX's tiny-page repack)
+        # pages under 8 tokens: the plan is built on a synthetic cache of
+        # 128-token pages, one gather at run() fills it (JAX's tiny-page
+        # repack)
         repack = None
-        if page_size % 8:
+        if page_size < 8:
             syn_pages = -(-np.maximum(kv_lens, 0) // _SYN_PAGE)
             syn_indptr = np.concatenate([[0], np.cumsum(syn_pages)])
             n_syn = int(syn_indptr[-1])
@@ -817,6 +822,15 @@ class BatchPrefillWithPagedKVCacheWrapper(BatchAttention):
     def __init__(self, float_workspace_buffer=None, kv_layout: str = "HND",
                  **kw):
         super().__init__(kv_layout=kv_layout, **kw)
+
+    def plan(self, qo_indptr, paged_kv_indptr, paged_kv_indices,
+             paged_kv_last_page_len, num_qo_heads, num_kv_heads, head_dim_qk,
+             page_size, **kwargs):
+        """``BatchAttention.plan`` under the reference's names of the page
+        table (JAX's too), so calls by keyword reach it."""
+        return super().plan(qo_indptr, paged_kv_indptr, paged_kv_indices,
+                            paged_kv_last_page_len, num_qo_heads,
+                            num_kv_heads, head_dim_qk, page_size, **kwargs)
 
 
 class BatchDecodeWithPagedKVCacheWrapper(BatchAttention):

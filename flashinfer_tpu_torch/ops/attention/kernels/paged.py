@@ -231,11 +231,14 @@ def paged_attention_plain(
     return o.to(q_packed.dtype), lse
 
 
-def _lib(user: Optional[CompiledVariant] = None):
-    """The kernel's C entry; with a caller's variant, that of its own build
-    (``jit.variant``), which takes a ``UserParams`` last."""
-    lib = (jit.load("paged_attention") if user is None else
-           jit.load("paged_attention", user.header_path()))
+def _lib(user: Optional[CompiledVariant] = None, gather: bool = False):
+    """The kernel's C entry: of the TMA build, or with ``gather`` of the
+    build that gathers pages of any size (``csrc/paged_attention_gather.cu``);
+    with a caller's variant, that of its own build (``jit.variant``), which
+    takes a ``UserParams`` last."""
+    name = "paged_attention_gather" if gather else "paged_attention"
+    lib = (jit.load(name) if user is None else
+           jit.load(name, user.header_path()))
     fn = lib.fi_paged_attention
     if fn.argtypes is None:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -298,9 +301,11 @@ def batch_paged_attention_run(
 
     A CUDA tensor launches the kernel (or raises); a CPU tensor takes
     ``paged_attention_plain``. bf16 numerics (bf16 q, or an e4m3 cache) run
-    on the tensor cores and need pages of a multiple of 8 tokens (the
-    wrappers repack other pages); f32 q with an f32 or int8 cache runs on
-    the CUDA cores. A variant with hooks of the caller's own runs in the
+    on the tensor cores, at any page size: pages of a multiple of 8 tokens
+    arrive by TMA, others in the kernel's gather build, by cp.async (the
+    wrappers repack pages under 8 tokens, as JAX's do); f32 q with an f32
+    or int8 cache runs on the CUDA cores. ``launches`` counts every
+    launch, ``gather_launches`` those of the gather build. A variant with hooks of the caller's own runs in the
     kernel's build for that variant (``jit.variant``; a hook outside the
     traced subset raises ``NotImplementedError`` before any build); a
     non-softmax variant runs in neither version."""
@@ -338,12 +343,9 @@ def batch_paged_attention_run(
         raise ValueError(f"cache {tuple(k_cache.shape)} does not fit q "
                          f"[{kvh}, *, {d}] in layout {kv_layout.name}")
     tensor_cores = q_packed.dtype == torch.bfloat16 or fmt == "e4m3"
-    if tensor_cores and (ps % 8 or k_cache.data_ptr() % 16
-                         or v_cache.data_ptr() % 16):
-        raise ValueError(f"the tensor-core paged kernel takes pages of a "
-                         f"multiple of 8 tokens in 16-byte-aligned caches "
-                         f"(the wrappers repack other pages); got "
-                         f"page_size={ps}")
+    if tensor_cores and (k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16):
+        raise ValueError("the tensor-core paged kernel takes 16-byte-aligned "
+                         "caches")
     for t, name in ((k_cache, "k"), (v_cache, "v"), (kv_indices, "kv_indices"),
                     (plan, "plan")):
         if not t.is_cuda or not t.is_contiguous():
@@ -373,7 +375,8 @@ def batch_paged_attention_run(
                "int8": _KV_I8}[fmt]
     user = (None if hooks is None else
             compile_variant(hooks, variant_params, "paged", kvh * group))
-    fn = _lib(user)
+    gather = tensor_cores and ps % 8 != 0
+    fn = _lib(user, gather)
     extra = ()
     if user is not None:  # the leaves, alive until the launch is enqueued
         up, leaves = user.user_params(variant_params, q_packed.device)
@@ -393,7 +396,9 @@ def batch_paged_attention_run(
         torch.cuda.current_stream(q_packed.device).cuda_stream, *extra)
     jit.check(err, "paged attention kernel")
     batch_paged_attention_run.launches += 1
+    batch_paged_attention_run.gather_launches += gather
     return o, lse
 
 
 batch_paged_attention_run.launches = 0
+batch_paged_attention_run.gather_launches = 0

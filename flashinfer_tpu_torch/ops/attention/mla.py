@@ -405,12 +405,24 @@ class BatchMLAPagedAttentionWrapper:
         return_lse: bool = False,
         ckv_scale: float = 1.0,
         kpe_scale: float = 1.0,
+        cache_dtype: str = "e4m3",
     ):
         """ckv_scale/kpe_scale dequantize 8-bit caches (e4m3 or linear
         int8); they fold into the softmax scale and the output (q_pe is
-        prescaled by kpe_scale / ckv_scale when they differ)."""
+        prescaled by kpe_scale / ckv_scale when they differ).
+
+        ``cache_dtype`` says how an int8 cache is read, as in JAX:
+        "e4m3" (the default) as e4m3 bits, viewed as
+        ``torch.float8_e4m3fn`` without a copy; "int8" as linear int8
+        (value = q * scale). A ``float8_e4m3fn`` cache ignores it."""
         if self._state is None:
             raise RuntimeError("call plan() before run()")
+        if cache_dtype not in ("e4m3", "int8"):
+            raise ValueError(f"unknown cache_dtype {cache_dtype!r}")
+        if cache_dtype == "e4m3":
+            ckv_cache, kpe_cache = (
+                c.view(torch.float8_e4m3fn) if c.dtype == torch.int8 else c
+                for c in (ckv_cache, kpe_cache))
         if self._backend == "reference":
             return self._run_reference(q_nope, q_pe, ckv_cache, kpe_cache,
                                        return_lse, ckv_scale, kpe_scale)
@@ -467,9 +479,10 @@ class BatchMLAPagedAttentionWrapper:
 
     def _run_reference(self, q_nope, q_pe, ckv_cache, kpe_cache, return_lse,
                        ckv_scale, kpe_scale):
-        """The dense oracle, request by request. Unlike the JAX package's
-        (mla.py:805-810, which reads every int8 cache as e4m3 bits), it
-        reads an int8 cache as linear int8."""
+        """The dense oracle, request by request. It reads the caches as
+        ``run`` hands them over: an int8 cache that reaches it is linear
+        (``cache_dtype="int8"``); the JAX package's reads every int8 cache
+        as e4m3 bits (mla.py:805-810), as ``run``'s default does."""
         st = self._state
         d_ckv, d_kpe = q_nope.shape[-1], q_pe.shape[-1]
 

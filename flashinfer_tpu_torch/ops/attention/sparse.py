@@ -6,8 +6,8 @@ to [N / C, C, h, d] is an NHD paged cache whose page table is the BSR column
 index array, so ``BlockSparseAttentionWrapper`` plans each row of blocks as
 a request whose pages are its column blocks. Variable block sizes become
 page-size-1 token indices (the reference's vector-sparse conversion), which
-``BatchAttention`` repacks into 128-token pages at ``run()``; so do blocks of
-a width that is not a multiple of 8.
+``BatchAttention`` repacks into 128-token pages at ``run()``; so do blocks
+narrower than 8 columns (JAX's rule; wider ones are read in place).
 """
 
 from __future__ import annotations

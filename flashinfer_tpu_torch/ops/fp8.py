@@ -28,12 +28,12 @@ _MX_BLOCK = 32
 _E4M3_MAX = 448.0
 
 
-def e4m3_bits_to_bf16(bits: torch.Tensor) -> torch.Tensor:
+def e4m3_bits_to_bf16(b_int8: torch.Tensor) -> torch.Tensor:
     """e4m3fn bits held in an int8 (or uint8) tensor as bfloat16: exponent
     rebias by shifts and adds, exponent-0 codes (zero and the denormals) to
     signed zero, the NaN code (0x7F) to 480 (flashinfer_tpu/ops/fp8.py:
     45-71)."""
-    b = bits.to(torch.int32) & 0xFF
+    b = b_int8.to(torch.int32) & 0xFF
     s = (b & 0x80) << 24
     em = (b & 0x7F) << 20  # (e << 23 | m << 20) in one shift
     out = torch.where(em < (1 << 23), s, s | (em + 0x3C000000))

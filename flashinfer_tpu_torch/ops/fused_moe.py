@@ -169,26 +169,32 @@ def _scales_1d(s) -> bool:
 
 
 def _kernel_takes(w13: torch.Tensor, w2: torch.Tensor, w13_scale,
-                  w2_scale) -> bool:
+                  w2_scale, weights_kn: bool = False) -> bool:
     """Whether the grouped-GEMM kernel takes both GEMMs of the call, from
     shapes, dtypes and scale ranks alone: one scale an expert (or one in
     all), and for bf16/e4m3 weights K % 32 == 0 and N % 16 == 0 (GEMM 1:
-    K = hidden, N = 2 * inter; GEMM 2: K = inter, N = hidden). f32 weights
-    run on the CUDA cores at any width."""
+    K = hidden, N = 2 * inter; GEMM 2: K = inter, N = hidden), read from
+    the layout the weights are stored in ([e, N, K], or [e, K, N] with
+    ``weights_kn``). f32 weights run on the CUDA cores at any width."""
     if not (_scales_1d(w13_scale) and _scales_1d(w2_scale)):
         return False
-    for w in (w13, w2):  # [e, N, K]
-        if w.dtype != torch.float32 and (w.shape[2] % 32 or w.shape[1] % 16):
+    for w in (w13, w2):
+        n, k = (w.shape[2], w.shape[1]) if weights_kn else (w.shape[1],
+                                                           w.shape[2])
+        if w.dtype != torch.float32 and (k % 32 or n % 16):
             return False
     return True
 
 
-def _dequant(w: torch.Tensor, s) -> torch.Tensor:
+def _dequant(w: torch.Tensor, s, ftz: bool = False) -> torch.Tensor:
     """JAX's ``deq`` (fused_moe.py:371-382): e4m3 weights, or any weights
     given a scale, become bf16, times the scale (one an expert, or one a
-    weight row or column, broadcast over [e, N, K]) in f32."""
+    weight row or column, broadcast over [e, N, K]) in f32. ``ftz``: e4m3
+    through JAX's bit decode (denormals to zero), as it decodes its int8
+    containers."""
     if w.dtype == torch.float8_e4m3fn or s is not None:
-        w = w.to(torch.bfloat16)
+        w = (fp8_to_bf16(w) if ftz and w.dtype == torch.float8_e4m3fn
+             else w.to(torch.bfloat16))
         if s is not None:
             s = torch.as_tensor(s, dtype=torch.float32, device=w.device)
             s = s.reshape(-1, 1, 1) if s.dim() <= 1 else s
@@ -212,12 +218,14 @@ def _ragged_matmul(x: torch.Tensor, w: torch.Tensor, sizes, out_dtype):
 
 
 def _fused_moe_ragged(hidden_states, w13, w2, expert_ids, expert_scales,
-                      gated_act, w13_scale, w2_scale, out_dtype):
-    """JAX's ragged_dot route (fused_moe.py:371-413) in plain PyTorch."""
+                      gated_act, w13_scale, w2_scale, out_dtype,
+                      ftz=(False, False)):
+    """JAX's ragged_dot route (fused_moe.py:371-413) in plain PyTorch, on
+    [e, N, K] weights (views of [e, K, N] ones)."""
     m, hidden = hidden_states.shape
     e = w13.shape[0]
     top_k = expert_ids.shape[1]
-    w13, w2 = _dequant(w13, w13_scale), _dequant(w2, w2_scale)
+    w13, w2 = _dequant(w13, w13_scale, ftz[0]), _dequant(w2, w2_scale, ftz[1])
     order, group_sizes = _permute_by_expert(expert_ids, e)
     sizes = group_sizes.tolist()  # the host loops over the groups
     x_sorted = hidden_states[order // top_k]
@@ -241,9 +249,14 @@ def fused_moe(
     w2_scale=None,
     out_dtype: Optional[torch.dtype] = None,
     backend: str = "auto",
+    weights_kn: bool = False,  # weights stored [e, K, N]
 ) -> torch.Tensor:
-    """Single-device fused MoE. Weights bf16, f32 or ``float8_e4m3fn``, read
-    in their [e, N, K] layout with no transposed copy.
+    """Single-device fused MoE. Weights bf16, f32, ``float8_e4m3fn`` or int8
+    holding e4m3 bits (the JAX package's containers, read as JAX reads
+    them: viewed as e4m3 without a copy, decoded with denormals flushed),
+    read in the layout they are stored in with no transposed copy: [e, N,
+    K] (w13 [e, 2 * inter, hidden], w2 [e, hidden, inter]), or [e, K, N]
+    with ``weights_kn`` (the grouped GEMM reads both).
 
     ``backend`` is "auto", "pallas" or "xla", as in the JAX package.
     "pallas" runs the grouped-GEMM pipeline (the kernel on a CUDA tensor,
@@ -254,16 +267,22 @@ def fused_moe(
     if backend not in ("auto", "pallas", "xla"):
         raise ValueError(f"unknown backend {backend!r}")
     out_dtype = out_dtype or hidden_states.dtype
-    takes = _kernel_takes(w13, w2, w13_scale, w2_scale)
+    # JAX's e4m3 containers: decoded as JAX decodes them (denormals to 0)
+    ftz13, ftz2 = w13.dtype == torch.int8, w2.dtype == torch.int8
+    w13, w2 = (w.view(torch.float8_e4m3fn) if w.dtype == torch.int8 else w
+               for w in (w13, w2))
+    takes = _kernel_takes(w13, w2, w13_scale, w2_scale, weights_kn)
     if backend == "pallas" and not takes:
         raise ValueError(
             "fused_moe backend='pallas' needs one scale an expert and, for "
             "bf16/e4m3 weights, K % 32 == 0 and N % 16 == 0 in both GEMMs; "
             f"got w13 {tuple(w13.shape)}, w2 {tuple(w2.shape)}")
     if backend == "xla" or not takes:
+        if weights_kn:
+            w13, w2 = w13.transpose(1, 2), w2.transpose(1, 2)
         return _fused_moe_ragged(hidden_states, w13, w2, expert_ids,
                                  expert_scales, gated_act, w13_scale,
-                                 w2_scale, out_dtype)
+                                 w2_scale, out_dtype, (ftz13, ftz2))
     m, hidden = hidden_states.shape
     e = w13.shape[0]
     top_k = expert_ids.shape[1]
@@ -279,12 +298,14 @@ def fused_moe(
     x_pad = torch.where(layout.src_valid[:, None], hidden_states[row_src],
                         0).to(work)
     h1 = grouped_gemm_padded(x_pad, w13, layout.expert_of_tile, w13_scale,
-                             out_dtype=work, rhs_nk=True)
+                             out_dtype=work, rhs_nk=not weights_kn,
+                             e4m3_ftz=ftz13)
     act = silu_and_mul if gated_act == GatedActType.SwiGlu else gelu_and_mul
     h_mid = act(h1)  # f32 math, rounded to the working dtype
     # f32 output: it feeds the f32 top-k combine
     h2 = grouped_gemm_padded(h_mid, w2, layout.expert_of_tile, w2_scale,
-                             out_dtype=torch.float32, rhs_nk=True)
+                             out_dtype=torch.float32, rhs_nk=not weights_kn,
+                             e4m3_ftz=ftz2)
     inv = torch.argsort(order)
     h2_tok = h2[layout.padded_pos[inv]].reshape(m, top_k, hidden)
     out = (h2_tok * expert_scales.float()[:, :, None]).sum(dim=1)

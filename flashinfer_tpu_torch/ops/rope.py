@@ -202,18 +202,23 @@ def mla_rope_quantize_fp8(
     cos_sin_cache: torch.Tensor,  # [max_pos, rope_dim] f32, cos||sin
     pos_ids: torch.Tensor,
     is_neox: bool = True,
+    quantize_dtype: torch.dtype = torch.float8_e4m3fn,
     quant_scale_q: float = 1.0,
     quant_scale_kv: float = 1.0,
     quantize_q: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Rope the MLA query and key rope parts from the cos/sin cache and
-    quantize the pieces to ``torch.float8_e4m3fn`` (value * scale, rounded
-    to nearest); the JAX package's int8 containers hold the same bits
-    (``.view(torch.int8)``). ``quantize_q=False`` keeps q roped but
-    unquantized in its input dtype. Returns (q_rope, k_rope, q_nope,
-    k_nope)."""
+    quantize the pieces to e4m3 (value * scale, rounded to nearest):
+    ``torch.float8_e4m3fn`` tensors, or with ``quantize_dtype=torch.int8``
+    the same bits in int8 tensors (the JAX package's containers, as its
+    ``quantize_dtype=jnp.int8`` returns them). ``quantize_q=False`` keeps q
+    roped but unquantized in its input dtype. Returns (q_rope, k_rope,
+    q_nope, k_nope)."""
     if cos_sin_cache.dtype != torch.float32:
         raise TypeError("cos_sin_cache must be f32")
+    if quantize_dtype not in (torch.float8_e4m3fn, torch.int8):
+        raise ValueError(f"quantize_dtype must be torch.float8_e4m3fn or "
+                         f"torch.int8 (e4m3 bits), got {quantize_dtype}")
     rotary_dim = cos_sin_cache.shape[-1]
     half = rotary_dim // 2
     cs = cos_sin_cache[pos_ids.long()]
@@ -223,7 +228,8 @@ def mla_rope_quantize_fp8(
                 interleave=not is_neox)[:, 0]
 
     def quant(x, scale):
-        return (x.float() * scale).to(torch.float8_e4m3fn)
+        return (x.float() * scale).to(torch.float8_e4m3fn).view(
+            quantize_dtype)
 
     return (
         quant(qr, quant_scale_q) if quantize_q else qr,

@@ -38,6 +38,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
+import warnings
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -129,9 +130,12 @@ class DistributedServingEngine(_LayerStack):
     ``params``: the full weights (numpy arrays as the JAX package's, or
     tensors; a fused ``wqkv`` is taken too), of which each rank keeps its
     tp shard (views where the shard is the whole weight); None draws them
-    from ``seed`` as ``LlamaServingEngine`` does. Model-dtype weights only
-    (``weight_dtype``, speculative decoding and decode windows are the
-    single-card engine's), NHD caches, pages of a multiple of 8 tokens."""
+    from ``seed`` as ``LlamaServingEngine`` does. As JAX's engine, it
+    serves model-dtype weights on its own NHD caches, one token a step,
+    whatever ``weight_dtype``, ``spec_tokens``, ``decode_window`` and
+    ``kv_layout`` say (those are the single-card engine's; a config that
+    sets them is served so, with one ``UserWarning`` naming them), on
+    pages of any size >= 8."""
 
     def __init__(self, config: EngineConfig, mesh: Optional[DeviceMesh],
                  params: Optional[Dict[str, object]] = None, seed: int = 0,
@@ -141,15 +145,20 @@ class DistributedServingEngine(_LayerStack):
         mc = config.model
         if config.kv_dtype not in ("model", "bf16", "fp8_e4m3", "int8"):
             raise ValueError(f"unknown kv_dtype {config.kv_dtype!r}")
-        if (config.weight_dtype != "model" or config.spec_tokens
-                or config.decode_window > 1 or config.kv_layout != "NHD"):
+        unapplied = [name for name, default in (
+            ("weight_dtype", config.weight_dtype == "model"),
+            ("spec_tokens", not config.spec_tokens),
+            ("decode_window", config.decode_window <= 1),
+            ("kv_layout", config.kv_layout == "NHD")) if not default]
+        if unapplied:
+            warnings.warn(
+                f"DistributedServingEngine does not apply "
+                f"{', '.join(unapplied)}: it serves model-dtype weights on "
+                f"NHD caches, one token a step, as JAX's engine does",
+                UserWarning, stacklevel=2)
+        if config.page_size < 8:
             raise ValueError(
-                "the distributed engine serves model-dtype weights on NHD "
-                "caches, one token a step (weight_dtype, spec_tokens, "
-                "decode_window and kv_layout are the single-card engine's)")
-        if config.page_size < 8 or config.page_size % 8:
-            raise ValueError("engine page_size must be a multiple of 8, got "
-                             f"{config.page_size}")
+                f"engine page_size must be >= 8, got {config.page_size}")
         self.device = resolve_device(config.device)
         self.dp = axis_size(mesh, "dp")
         self.tp = axis_size(mesh, "tp")
@@ -179,6 +188,7 @@ class DistributedServingEngine(_LayerStack):
         rows = mc.num_layers * config.num_pages
         shape = (rows + 1, config.page_size, self._hkv, mc.head_dim)
         self._scratch_row = rows
+        self._hnd = False
         self._k_rows = torch.zeros(shape, dtype=cache_dtype,
                                    device=self.device)
         self._v_rows = torch.zeros(shape, dtype=cache_dtype,

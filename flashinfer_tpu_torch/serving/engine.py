@@ -185,8 +185,8 @@ class _LayerStack:
     """The layer loop of both engines: this module's, and the distributed
     engine's on its tp shard. It reads ``cfg``, ``params``,
     ``_layer_keys``, ``_hq`` / ``_hkv`` (the heads this process computes),
-    ``_kv_quant``, ``_kv_scale``, ``_k_rows`` / ``_v_rows`` and ``k_cache``
-    / ``v_cache``. The two hooks are where tensor parallelism reduces the
+    ``_kv_quant``, ``_kv_scale``, ``_hnd`` (the caches' layout is HND),
+    ``_k_rows`` / ``_v_rows`` and ``k_cache`` / ``v_cache``. The two hooks are where tensor parallelism reduces the
     row-parallel partials; on one card they round into the residual's
     dtype."""
 
@@ -211,7 +211,7 @@ class _LayerStack:
         n = x.shape[0]
         num_pages = self.cfg.num_pages
         k_scale, v_scale = self._kv_scale
-        hnd = self.cfg.kv_layout == "HND"
+        hnd = self._hnd
         # the plan may pad the query rows past n (prefill's dummy request)
         q_pad = dplan.meta.nnz - n
         # 8-bit caches take their bytes through an int8 view
@@ -270,12 +270,12 @@ class LlamaServingEngine(_LayerStack):
             raise ValueError(f"unknown kv_layout {config.kv_layout!r}")
         if config.weight_dtype not in ("model", "fp8_e4m3", "int8"):
             raise ValueError(f"unknown weight_dtype {config.weight_dtype!r}")
-        # the paged kernel addresses pages in multiples of 8 tokens, and the
-        # decode step's CUDA graph takes the plan's blob alone, never a
-        # repacked cache (JAX's engine takes any page_size >= 8)
-        if config.page_size < 8 or config.page_size % 8:
-            raise ValueError("engine page_size must be a multiple of 8, got "
-                             f"{config.page_size}")
+        # pages under 8 tokens are the repacked regime (JAX's engine refuses
+        # them too); the paged kernel reads any larger page in place, so
+        # the decode step's CUDA graph takes the plan's blob alone
+        if config.page_size < 8:
+            raise ValueError(
+                f"engine page_size must be >= 8, got {config.page_size}")
         self.device = resolve_device(config.device)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -316,6 +316,7 @@ class LlamaServingEngine(_LayerStack):
             shape = (rows + 1, config.page_size, mc.num_kv_heads,
                      mc.head_dim)
         self._scratch_row = rows
+        self._hnd = config.kv_layout == "HND"
         self._kv_quant = {"fp8_e4m3": "e4m3", "int8": "int8"}.get(
             config.kv_dtype)
         if self._kv_quant:

@@ -18,8 +18,9 @@ failed capture or replay raises; nothing falls back to the eager step.
 
 Launch counts: a capture records launches without running them, and each
 replay runs them all. So a capture takes back the counts its wrappers added,
-and every replay adds them again (``batch_paged_attention_run.launches`` and
-the other wrappers' counts then say how many kernels ran).
+and every replay adds them again (``batch_paged_attention_run.launches``, its
+``gather_launches`` and the other wrappers' counts then say how many
+kernels ran).
 """
 
 from __future__ import annotations
@@ -43,13 +44,20 @@ from flashinfer_tpu_torch.ops.sampling import family_call
 
 __all__ = ["StepGraphs"]
 
-# every kernel wrapper that counts its launches
-_COUNTED = (batch_paged_attention_run, family_call, rmsnorm, mla_paged_run,
-            grouped_gemm_padded, flash_attention_dense)
+# every launch count of the kernel wrappers: (wrapper, attribute)
+_COUNTED = tuple((f, "launches") for f in (
+    batch_paged_attention_run, family_call, rmsnorm, mla_paged_run,
+    grouped_gemm_padded, flash_attention_dense)) + (
+    (batch_paged_attention_run, "gather_launches"),)
 
 
 def _counts() -> List[int]:
-    return [f.launches for f in _COUNTED]
+    return [getattr(f, a) for f, a in _COUNTED]
+
+
+def _add(counts: List[int], sign: int) -> None:
+    for (f, a), n in zip(_COUNTED, counts):
+        setattr(f, a, getattr(f, a) + sign * n)
 
 
 Step = Callable[[torch.Tensor, Hashable], torch.Tensor]
@@ -99,8 +107,7 @@ class StepGraphs:
         """Replay the key's graph once on its buffer as it stands."""
         graph, out, launched = self._graphs[key]
         graph.replay()
-        for f, n in zip(_COUNTED, launched):
-            f.launches += n
+        _add(launched, 1)
         return out
 
     def _capture(self, buf, key, step: Step):
@@ -126,8 +133,7 @@ class StepGraphs:
         finally:
             gc.enable()
         launched = [a - b for a, b in zip(_counts(), before)]
-        for f, n in zip(_COUNTED, launched):
-            f.launches -= n  # recorded, not run
+        _add(launched, -1)  # recorded, not run
         self.pool_bytes += torch.cuda.memory_reserved(self.device) - reserved
         self.capture_seconds += time.perf_counter() - t0
         return graph, out, launched

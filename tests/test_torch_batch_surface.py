@@ -256,9 +256,9 @@ def test_ragged_kv(causal):
                                             (4, "NHD", "prefill"),
                                             (12, "HND", "prefill")])
 def test_small_and_odd_pages(ps, layout, mode):
-    """Pages of 1 and 4 take JAX's repack (the blob is JAX's); pages of 12
-    take it in the port only (the kernel's tensor cores need a multiple of
-    8), so there only the outputs are compared."""
+    """Pages of 1 and 4 take JAX's repack and pages of 12 are planned in
+    place (the kernel's gather build reads them), as JAX plans them: the
+    blob is JAX's at every size."""
     rng = np.random.default_rng([ps, mode == "decode"])
     kv_lens = [37, 5, 200] if mode == "decode" else [37, 14]
     qo_lens = [1] * 3 if mode == "decode" else [9, 14]
@@ -269,8 +269,9 @@ def test_small_and_odd_pages(ps, layout, mode):
         name, args = "BatchDecodeWithPagedKVCacheWrapper", args[1:]
     ws = _plan(_wrappers(name, jkw=ctor, tkw=ctor), *args,
                causal=mode == "prefill", kv_chunk_size=128)
-    assert ws[1].device_plan.meta.page_size == 128
-    _check(ws, q, jc, tc, same_plan=ps < 8)
+    assert ws[1].device_plan.meta.page_size == (128 if ps < 8 else ps)
+    assert (ws[1].device_plan.repack is None) == (ps >= 8)
+    _check(ws, q, jc, tc)
 
 
 @pytest.mark.parametrize("mode", ["decode", "prefill"])
@@ -330,10 +331,11 @@ def test_prefill_kv_chunk_rule():
 
 @pytest.mark.parametrize("ps", [4, 12])
 def test_device_plan_carries_the_repack(ps):
-    """A plan on repacked pages carries its gather: ``run_device_plan``
-    over the caller's own cache (here two layers stacked, read at an
-    offset) computes what the wrapper does, and a plan without its gather
-    refuses the caller's pages."""
+    """A plan on repacked pages (under 8 tokens) carries its gather; a plan
+    on pages of 12 carries none (the kernel reads them in place). Either
+    way ``run_device_plan`` over the caller's own cache (here two layers
+    stacked, read at an offset) computes what the wrapper does, and a
+    cache of pages other than those the plan addresses is refused."""
     rng = np.random.default_rng([ps, 1])
     args, q, _, (k, v) = _prefill_batch(rng, [5, 9], [37, 14], ps, "NHD")
     w = torch_batch.BatchPrefillWithPagedKVCacheWrapper(
@@ -342,14 +344,24 @@ def test_device_plan_carries_the_repack(ps):
     tq = torch.from_numpy(q)
     want = w.run(tq, (k, v))
     dp = w.device_plan
+    assert (dp.repack is None) == (ps >= 8)
     got = torch_batch.run_device_plan(
         dp, tq, torch.cat([torch.zeros_like(k), k]),
         torch.cat([torch.zeros_like(v), v]), kv_layout=TensorLayout.NHD,
         kv_indices_offset=k.shape[0])
     assert torch.equal(got, want)
-    with pytest.raises(ValueError, match=f"pages of {ps} tokens"):
-        torch_batch.run_device_plan(torch_batch.DevicePlan(dp.blob, dp.meta),
-                                    tq, k, v, kv_layout=TensorLayout.NHD)
+    if ps < 8:  # the plan without its gather addresses 128-token pages
+        with pytest.raises(ValueError, match=f"pages of {ps} tokens"):
+            torch_batch.run_device_plan(
+                torch_batch.DevicePlan(dp.blob, dp.meta), tq, k, v,
+                kv_layout=TensorLayout.NHD)
+    else:  # the same tokens in pages of twice the size
+        n = k.shape[0] // 2 * 2
+        with pytest.raises(ValueError, match=f"pages of {2 * ps} tokens"):
+            torch_batch.run_device_plan(
+                dp, tq, k[:n].reshape(n // 2, 2 * ps, *k.shape[2:]),
+                v[:n].reshape(n // 2, 2 * ps, *v.shape[2:]),
+                kv_layout=TensorLayout.NHD)
 
 
 # ----------------------------------------------------------- constructors

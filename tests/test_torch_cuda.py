@@ -240,6 +240,31 @@ def test_paged_kernel_tiles_and_pages(dev, kv, ps, tile_q):
     _paged_check(dev, dp, kc, vc, q, hq, hkv, d)
 
 
+@pytest.mark.parametrize("ps", [12, 20, 9])
+@pytest.mark.parametrize("kv", ["model", "e4m3", "int8"])
+@pytest.mark.parametrize("layout", ["NHD", "HND"])
+@pytest.mark.parametrize("mode,tile_q", [("decode", None), ("prefill", 64)])
+@pytest.mark.parametrize("d", [128, 256])
+def test_paged_kernel_gathers_pages_not_a_multiple_of_8(dev, ps, kv, layout,
+                                                        mode, tile_q, d):
+    """Pages of 12, 20 and 9 tokens, which TMA boxes do not tile, read in
+    place by the cp.async gather on both tensor-core routes (the swap-AB
+    decode tiles and the 64-row prefill tiles), bf16 q over bf16, e4m3
+    and linear-int8 caches, against the plain version at the ATTN limits;
+    one launch each, no repack."""
+    rng = np.random.default_rng([ps, d, mode == "decode"])
+    gen = torch.Generator(device=dev).manual_seed(ps * d)
+    hq, hkv = 8, 2
+    dp, pages, _ = _plan(mode, ps, hq, hkv, d, rng, tile_q)
+    assert dp.meta.page_size == ps and dp.repack is None
+    kc, vc = _paged_caches(dev, gen, layout, kv, torch.bfloat16, 2 * pages,
+                           ps, hkv, d, d)
+    q = torch.randn(hkv, dp.meta.bucket_rows, d, device=dev,
+                    generator=gen).bfloat16()
+    _paged_check(dev, dp, kc, vc, q, hq, hkv, d, k_scale=0.7, v_scale=1.3,
+                 kv_layout=TensorLayout[layout], kv_indices_offset=pages)
+
+
 @pytest.mark.parametrize("kv", ["model", "e4m3", "int8"])
 def test_paged_kernel_pod_shaped_plan(dev, kv):
     """POD's combined plan: decodes in 256-row tiles (4 real rows each)
@@ -360,7 +385,8 @@ def test_paged_kernel_in_a_cuda_graph(dev, kv):
 def _surface_plan(mode, feature, hq, hkv, d, rng, tile_q=None):
     """A planned batch (decode, or causal prefill) for ``feature``: a
     random custom mask ("mask"), ALiBi ("alibi", "alibi_cap": also the soft
-    cap) or pages of 12 tokens ("page12", repacked by the wrapper). Returns
+    cap) or pages of 12 tokens ("page12", read in place by the kernel's
+    cp.async gather). Returns
     the wrapper, the page count and page size of its caller's cache."""
     from flashinfer_tpu_torch.ops.attention.variants import (
         make_default_variant,
@@ -416,9 +442,8 @@ def test_paged_kernel_surface_matches_plain(dev, feature, qdt, kv, mode,
     dp = w.device_plan
     kc, vc = _paged_caches(dev, gen, "HND", kv, qdt, pages, ps, hkv, d, d)
     layout = TensorLayout.HND
-    if feature == "page12":
-        assert dp.meta.page_size == 128
-        kc, vc, layout, _ = attn_batch.kernel_caches(dp, kc, vc, layout)
+    if feature == "page12":  # planned natively, no repack
+        assert dp.meta.page_size == 12 and dp.repack is None
     q = torch.randn(hkv, dp.meta.bucket_rows, d, device=dev,
                     generator=gen).to(qdt)
     extra = {}

@@ -140,3 +140,47 @@ def test_e4m3_witness_on_cpu(model):
     assert len(out["layers"]) == cfg.num_layers
     assert out["logits_max_abs_bc"] <= 1e-5, out
     assert out["logits_max_abs_ab"] > 0.0  # the e4m3 rounding shows
+
+
+def test_int8_container_decode_matches_jax(model):
+    """int8 caches are e4m3 containers in JAX (its FP8 DeepSeek path,
+    deepseek.py:225-234), and the port's ``deepseek_decode_step`` reads them
+    so: the e4m3 prologue writes e4m3 bits into the caller's int8 tensors
+    (returned as they are) and attention reads them as e4m3. Held to
+    ``test_e4m3_decode_matches_jax``'s bounds: logits within 0.1, the same
+    argmax, cache bits >= 99.9% equal."""
+    from flashinfer_tpu_torch.ops.attention.mla import (
+        BatchMLAPagedAttentionWrapper,
+    )
+    from flashinfer_tpu_torch.ops.rope import rope_cos_sin_cache
+
+    jcfg, jparams, cfg, params = model
+    prompts = np.random.default_rng(3).integers(0, cfg.vocab_size, (B, S))
+    want, want_ckv, want_kpe = _decode_jax(
+        jcfg, jparams, prompts, True,
+        jax_cos_sin(64, jcfg.head_dim_kpe, rope_theta=jcfg.rope_theta))
+    L = cfg.num_layers
+    ckv = torch.zeros(L, B, PS, cfg.head_dim_ckv, dtype=torch.int8)
+    kpe = torch.zeros(L, B, PS, cfg.head_dim_kpe, dtype=torch.int8)
+    indptr = torch.arange(B + 1, dtype=torch.int32)
+    indices = torch.arange(B, dtype=torch.int32)
+    cos_sin = rope_cos_sin_cache(64, cfg.head_dim_kpe,
+                                 rope_theta=cfg.rope_theta, device="cpu")
+    sm = 1.0 / math.sqrt(cfg.head_dim_qk_nope + cfg.head_dim_kpe)
+    for t in range(S):
+        w = BatchMLAPagedAttentionWrapper(device="cpu")
+        w.plan(np.arange(B + 1), indptr.numpy(), indices.numpy(),
+               np.full(B, t + 1), cfg.num_heads, cfg.head_dim_ckv,
+               cfg.head_dim_kpe, PS, causal=False, sm_scale=sm)
+        got, ckv_out, kpe_out = ds.deepseek_decode_step(
+            params, cfg, torch.from_numpy(prompts[:, t]).int(),
+            torch.full((B,), t, dtype=torch.int32), ckv, kpe, indices,
+            indptr, torch.full((B,), t + 1, dtype=torch.int32), w,
+            kv_scale=KV_SCALE, cos_sin_cache=cos_sin)
+        assert ckv_out is ckv and kpe_out is kpe
+    for g, w_bits in ((ckv, want_ckv), (kpe, want_kpe)):
+        assert g.dtype == torch.int8
+        same = np.mean(g.numpy() == w_bits)
+        assert same >= 0.999, same
+    np.testing.assert_allclose(got.numpy(), want, rtol=0.1, atol=0.1)
+    assert np.array_equal(got.numpy().argmax(-1), want.argmax(-1))

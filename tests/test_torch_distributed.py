@@ -6,13 +6,15 @@ The port's engines run in worker processes, one a rank (this file run as a
 script, ``python tests/test_torch_distributed.py GROUP DIR RANK WORLD``,
 which imports no JAX; the group comes up through ``bootstrap_distributed``
 on a FileStore): world 4 serves (dp, tp) = (2, 2) with model-dtype, e4m3
-and int8 KV, and a sampled run; world 2 serves (1, 2) and (2, 1) and a late
-admission. JAX's engine and the single-card ``LlamaServingEngine`` (held to
+and int8 KV, a sampled run, and a config JAX's engine takes but does not
+apply (HND, a decode window of 3, pages of 12 tokens); world 2 serves
+(1, 2) and (2, 1) and a late admission. JAX's engine and the single-card ``LlamaServingEngine`` (held to
 JAX by ``tests/test_torch_engine.py``) run here. Greedy tokens must be
 equal; every rank must emit the same tokens."""
 
 import os
 import sys
+import warnings
 
 import numpy as np
 import pytest
@@ -22,6 +24,10 @@ from test_torch_parallel import spawn
 PROMPTS = [[1, 2, 3, 4, 5], [7, 8, 9], [11, 12, 13, 14], [3, 1]]
 N_NEW = [6, 5, 4, 6]
 KV = ("model", "fp8_e4m3", "int8")
+# fields of the single-card engine that the dp x tp engines serve without
+# (model-dtype weights on their own NHD caches, one token a step), and a
+# page size that is not a multiple of 8
+UNAPPLIED = dict(kv_layout="HND", decode_window=3, page_size=12)
 # tiny f32 Llama and engine (tests/test_distributed_serving.py's _tiny_cfg)
 MODEL = dict(vocab_size=256, hidden_size=64, num_layers=2, num_qo_heads=4,
              num_kv_heads=2, head_dim=16, intermediate_size=128)
@@ -75,6 +81,14 @@ def _port_world(d, out, rank, world):
             _port_config(torch, greedy=False, top_k=8, top_p=0.9), m,
             params=params, seed=3)
         out["sampled"] = _tokens_array(_serve(eng))
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            eng = DistributedServingEngine(
+                _port_config(torch, **UNAPPLIED), m, params=params)
+        out["unapplied_warnings"] = np.asarray(
+            [str(w.message) for w in caught
+             if issubclass(w.category, UserWarning)])
+        out["unapplied"] = _tokens_array(_serve(eng))
         return
     for shape in ((1, 2), (2, 1)):
         eng = DistributedServingEngine(_port_config(torch), mesh(shape),
@@ -177,6 +191,34 @@ def test_dp2_tp2_matches_jax_distributed_engine(world4, params):
     want = _tokens_array(_serve(eng))
     np.testing.assert_array_equal(
         _same_on_every_rank(world4, "dp2tp2_model"), want)
+
+
+def test_dp2_tp2_serves_what_jax_serves_of_a_single_card_config(world4,
+                                                                params):
+    """``kv_layout="HND"`` and ``decode_window=3`` (the single-card
+    engine's) at pages of 12 tokens: JAX's ``DistributedServingEngine``
+    serves them as model-dtype weights on NHD caches, one token a step, and
+    so does the port's, with the same greedy tokens on every rank and one
+    ``UserWarning`` naming the fields it does not apply."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh
+
+    from flashinfer_tpu.models.llama import LlamaConfig
+    from flashinfer_tpu.serving import EngineConfig
+    from flashinfer_tpu.serving.distributed import DistributedServingEngine
+
+    cfg = EngineConfig(model=LlamaConfig(**MODEL, dtype=jnp.float32),
+                       interpret=True, **dict(ENGINE, **UNAPPLIED))
+    mesh = Mesh(np.asarray(jax.devices()[:4]).reshape(2, 2), ("dp", "tp"))
+    eng = DistributedServingEngine(
+        cfg, mesh, params={k: jnp.asarray(v) for k, v in params.items()})
+    want = _tokens_array(_serve(eng))
+    np.testing.assert_array_equal(
+        _same_on_every_rank(world4, "unapplied"), want)
+    for out in world4:
+        (msg,) = out["unapplied_warnings"]
+        assert "decode_window, kv_layout" in str(msg)
 
 
 @pytest.mark.parametrize("kv", KV)

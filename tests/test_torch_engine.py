@@ -233,9 +233,17 @@ def test_outside_the_slice_raises(params, change):
 
 @pytest.mark.parametrize("page_size", [4, 12])
 def test_page_size_not_a_multiple_of_8_raises(params, page_size):
-    """The decode step's CUDA graph takes the plan's blob alone, so the
-    engine takes no page the paged kernel reaches only through a repack."""
+    """Pages under 8 tokens raise JAX's ValueError (JAX's engine refuses
+    them: a repacked plan's regime). A page of 12 tokens, not a multiple of
+    8, no longer raises: the paged kernel reads it in place, so the plan is
+    the caller's pages and the decode step's graph takes its blob alone
+    (its tokens against JAX's: tests/test_torch_pages.py)."""
     cfg = dataclasses.replace(
         EngineConfig(model=MC, device="cpu", **BASE), page_size=page_size)
-    with pytest.raises(ValueError, match="multiple of 8"):
-        LlamaServingEngine(cfg, params=params)
+    if page_size < 8:
+        with pytest.raises(ValueError, match="must be >= 8, got 4"):
+            LlamaServingEngine(cfg, params=params)
+        return
+    eng = LlamaServingEngine(cfg, params=params)
+    assert _serve(eng, _prompts(5, (13,)), 2)[0]
+    assert eng.pool.free_pages == cfg.num_pages

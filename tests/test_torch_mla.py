@@ -13,11 +13,13 @@ against the running maximum of each 8-key sub-tile, the port's plain
 version against the chunk's maximum: e4m3 and linear int8 are held to
 1e-2, a few bf16 rounding steps of P. The e4m3 caches avoid e4m3
 denormals, which the TPU bit decode approximates (ROADMAP Queue 3), and
-go to JAX as their int8 bits (``.view(torch.int8)``). Linear int8 is held
-to the Pallas path, not to JAX's ``backend="reference"``, which reads
-every int8 cache as e4m3 bits. Appends and the cos/sin cache are exact;
-the roped and quantised e4m3 bits agree but for rare rounding-boundary
-ties (>= 99% here, f32 rope in other orders)."""
+go to JAX as their int8 bits (``.view(torch.int8)``). An int8 cache is
+read as e4m3 bits by default on both sides (``cache_dtype="e4m3"``) and
+as linear int8 with ``cache_dtype="int8"``; linear int8 is held to the
+Pallas path, not to JAX's ``backend="reference"``, which reads every int8
+cache as e4m3 bits. Appends and the cos/sin cache are exact; the roped
+and quantised e4m3 bits agree but for rare rounding-boundary ties (>= 99%
+here, f32 rope in other orders)."""
 
 import importlib
 
@@ -112,7 +114,8 @@ def test_mla_wrapper_matches_jax_pallas(case, dtype):
     tw.plan(*args, **kw)
     if case == "split_kv":
         assert tw.device_plan.meta.max_splits > 1  # the merge runs
-    got, got_lse = tw.run(*q_t, ckv_t, kpe_t, return_lse=True, **scales)
+    got, got_lse = tw.run(*q_t, ckv_t, kpe_t, return_lse=True,
+                          cache_dtype=jax_cache_dtype, **scales)
     tol = TOL[dtype]
     assert got.dtype == q_t[0].dtype
     np.testing.assert_allclose(got.float().numpy(),
@@ -124,8 +127,9 @@ def test_mla_wrapper_matches_jax_pallas(case, dtype):
 
 @pytest.mark.parametrize("dtype", ["f32", "int8"])
 def test_mla_reference_backend_matches_kernel_path(dtype):
-    """The port's dense oracle reads linear int8 as int8 (the JAX
-    package's reads it as e4m3 bits)."""
+    """The port's dense oracle reads linear int8 as int8 where the caller
+    says so (``cache_dtype="int8"``; the JAX package's reads it as e4m3
+    bits whatever the flag)."""
     kv_lens, qo_lens, causal, chunk, _ = CASES["causal"]
     rng = np.random.default_rng(9)
     indptr, indices = _page_table(rng, kv_lens)
@@ -144,10 +148,50 @@ def test_mla_reference_backend_matches_kernel_path(dtype):
                np.asarray(kv_lens), HEADS, D_CKV, D_KPE, PS, causal=causal,
                kv_chunk_size=chunk)
         outs.append(w.run(q_nope, q_pe, ckv, kpe, return_lse=True,
-                          ckv_scale=ckv_scale, kpe_scale=kpe_scale))
+                          ckv_scale=ckv_scale, kpe_scale=kpe_scale,
+                          cache_dtype="int8"))
     tol = TOL[dtype]
     torch.testing.assert_close(outs[0][0], outs[1][0], atol=tol, rtol=tol)
     torch.testing.assert_close(outs[0][1], outs[1][1], atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("backend", ["auto", "reference"])
+@pytest.mark.parametrize("case", ["decode", "causal"])
+def test_mla_int8_cache_is_e4m3_by_default(case, backend):
+    """JAX's ``run`` reads an int8 cache as e4m3 bits unless told
+    ``cache_dtype="int8"`` (mla.py:699, 707-732); so does the port's, its
+    kernel's plain version and its oracle, against JAX's Pallas path in
+    interpret mode at the e4m3 bound (1e-2). Another ``cache_dtype``
+    raises JAX's ValueError."""
+    kv_lens, qo_lens, causal, chunk, kpe_width = CASES[case]
+    rng = np.random.default_rng([7, len(case)])
+    indptr, indices = _page_table(rng, kv_lens)
+    ckv_scale, kpe_scale = SCALES["e4m3"]
+    ckv_bits, _ = _cache(rng, "e4m3", ckv_scale, D_CKV)
+    kpe_bits, _ = _cache(rng, "e4m3", kpe_scale, kpe_width)
+    nnz = sum(qo_lens)
+    q_nope = rng.standard_normal((nnz, HEADS, D_CKV)).astype(np.float32)
+    q_pe = rng.standard_normal((nnz, HEADS, D_KPE)).astype(np.float32)
+    args = (np.concatenate([[0], np.cumsum(qo_lens)]), indptr, indices,
+            np.asarray(kv_lens), HEADS, D_CKV, D_KPE, PS)
+    kw = dict(causal=causal, kv_chunk_size=chunk)
+    scales = dict(ckv_scale=ckv_scale, kpe_scale=kpe_scale)
+    jw = JaxMLA(backend="pallas", tile_k=8)
+    jw.plan(*args, **kw)
+    want = jw.run(jnp.asarray(q_nope), jnp.asarray(q_pe),
+                  jnp.asarray(ckv_bits), jnp.asarray(kpe_bits),
+                  interpret=True, **scales)
+    tw = BatchMLAPagedAttentionWrapper(backend=backend, device="cpu")
+    tw.plan(*args, **kw)
+    ckv_t, kpe_t = torch.from_numpy(ckv_bits), torch.from_numpy(kpe_bits)
+    got = tw.run(torch.from_numpy(q_nope), torch.from_numpy(q_pe), ckv_t,
+                 kpe_t, **scales)
+    assert ckv_t.dtype == torch.int8  # read through a view
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-2,
+                               rtol=1e-2)
+    with pytest.raises(ValueError, match="cache_dtype"):
+        tw.run(torch.from_numpy(q_nope), torch.from_numpy(q_pe), ckv_t,
+               kpe_t, cache_dtype="fp8", **scales)
 
 
 def test_mla_run_before_plan_raises():
@@ -266,3 +310,35 @@ def test_mla_rope_quantize_fp8_matches_jax(is_neox):
                 assert g.dtype == torch.float32
                 np.testing.assert_allclose(g.numpy(), np.asarray(w),
                                            atol=1e-5, rtol=1e-5)
+
+
+def test_mla_rope_quantize_fp8_to_int8_containers_matches_jax():
+    """``quantize_dtype=torch.int8`` returns the e4m3 bits in int8
+    tensors, as JAX's ``quantize_dtype=jnp.int8`` (rope.py:278-282): bits
+    equal to JAX's but for rare rounding-boundary ties (>= 99%, f32 rope in
+    other orders), and equal to the float8 result's bits exactly. Any other
+    dtype raises."""
+    rng = np.random.default_rng(14)
+    n = 24
+    q_rope = rng.standard_normal((n, HEADS, D_KPE)).astype(np.float32)
+    k_rope = rng.standard_normal((n, D_KPE)).astype(np.float32)
+    q_nope = rng.standard_normal((n, HEADS, D_CKV)).astype(np.float32)
+    k_nope = rng.standard_normal((n, D_CKV)).astype(np.float32)
+    pos = rng.integers(0, 64, n).astype(np.int32)
+    cs = rope.rope_cos_sin_cache(64, D_KPE, device="cpu")
+    kw = dict(quant_scale_q=2.0, quant_scale_kv=4.0)
+    ins = tuple(map(torch.from_numpy, (q_rope, k_rope, q_nope, k_nope)))
+    want = jax_rope.mla_rope_quantize_fp8(
+        *map(jnp.asarray, (q_rope, k_rope, q_nope, k_nope)),
+        jnp.asarray(cs.numpy()), jnp.asarray(pos), True, jnp.int8, **kw)
+    got = rope.mla_rope_quantize_fp8(*ins, cs, torch.from_numpy(pos), True,
+                                     torch.int8, **kw)
+    fp8 = rope.mla_rope_quantize_fp8(*ins, cs, torch.from_numpy(pos), **kw)
+    for g, w, f in zip(got, want, fp8):
+        assert g.dtype == torch.int8
+        assert torch.equal(g, f.view(torch.int8))
+        same = np.mean(g.numpy() == np.asarray(w))
+        assert same >= 0.99, same
+    with pytest.raises(ValueError, match="quantize_dtype"):
+        rope.mla_rope_quantize_fp8(*ins, cs, torch.from_numpy(pos),
+                                   quantize_dtype=torch.bfloat16)

@@ -4,10 +4,9 @@ backend) against the JAX package's on its Pallas kernel in interpret mode,
 and against dense attention under the blocks' mask, on the same seeded
 numpy inputs.
 
-Tolerance: f32 o to 2e-5 (sums in other orders). Where the plan is JAX's
-(blocks of 8 columns; variable blocks, repacked from pages of one token)
-the blob equals JAX's bit for bit; blocks of 12 columns are repacked in
-the port only (the kernel's tensor cores need pages of a multiple of 8)."""
+Tolerance: f32 o to 2e-5 (sums in other orders). The plan is JAX's
+(blocks of 8 and 12 columns, read in place; variable blocks, repacked from
+pages of one token), and the blob equals JAX's bit for bit."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -61,8 +60,8 @@ def test_block_sparse(C):
            for b in ("auto", "reference")]
     for w in tws:
         w.plan(*plan, kv_chunk_size=16)
-    assert tws[0].device_plan.meta.page_size == (C if C % 8 == 0 else 128)
-    got = _both(jw, tws, q, k, v, same_plan=C == 8)
+    assert tws[0].device_plan.meta.page_size == C
+    got = _both(jw, tws, q, k, v, same_plan=True)
     mask = np.zeros((M, N), bool)
     for rb in range(mb):
         for cb in indices[indptr[rb]:indptr[rb + 1]]:

@@ -31,10 +31,13 @@ from flashinfer_tpu_torch.ops.attention import state
 PENDING_EXPORTS = ()
 # JAX's subsystem namespaces the port does not have yet: none is left
 PENDING_NAMESPACES = ()
-# names of JAX's modules that are TPU mechanics, with no counterpart
+# names of JAX's modules (and "Class.method" of their classes) that are TPU
+# mechanics, with no counterpart: DevicePlan's pytree hooks exist for
+# jax.jit, which the port's plan (a tensor blob) does not pass through
 TPU_ONLY_NAMES = ("on_tpu", "default_interpret", "sublane_multiple",
                   "LAST_DIM_LANES", "rmsnorm_pallas", "fp8_k_permutation",
-                  "bench_tpu_time", "bench_tpu_time_differential")
+                  "bench_tpu_time", "bench_tpu_time_differential",
+                  "DevicePlan.tree_flatten", "DevicePlan.tree_unflatten")
 
 
 def _t(a):
@@ -307,14 +310,22 @@ def _jax_modules_with_all():
 def test_every_jax_module_all_is_in_the_port():
     """Each module of JAX's package that declares ``__all__`` has a
     counterpart of the same path in the port holding every name of it,
-    but the TPU-only ones."""
+    and every public method of its classes, but the TPU-only ones."""
     import importlib
+    import inspect
 
     missing, tpu_only = {}, set()
     for name, mod in _jax_modules_with_all():
         ours = importlib.import_module(
             "flashinfer_tpu_torch." + name[len("flashinfer_tpu."):])
         lack = [n for n in mod.__all__ if not hasattr(ours, n)]
+        for n in mod.__all__:
+            cls, our_cls = getattr(mod, n), getattr(ours, n, None)
+            if inspect.isclass(cls) and our_cls is not None:
+                lack += [f"{n}.{m}" for m in dir(cls)
+                         if not m.startswith("_")
+                         and callable(getattr(cls, m))
+                         and not hasattr(our_cls, m)]
         tpu_only.update(n for n in lack if n in TPU_ONLY_NAMES)
         lack = [n for n in lack if n not in TPU_ONLY_NAMES]
         if lack:
