@@ -521,10 +521,11 @@ def _pod_combined_case(np):
 
 
 def _paged_plain(torch, q, kc, vc, kv_idx, plan, items=256, work_mask=None,
-                 **kw):
+                 tile_map=None, **kw):
     """``paged_attention_plain`` over the work list ``items`` items at a
     time (POD's combined plan holds ~1000 items of 256 rows x 512 keys),
-    with their rows of ``work_mask``."""
+    with their rows of ``work_mask`` (the mask read whole: ``tile_map``,
+    which the kernel reads, is left out)."""
     from flashinfer_tpu_torch.ops.attention.kernels.paged import (
         paged_attention_plain,
     )
@@ -1536,6 +1537,50 @@ def _sigmoid_witness(torch, np, inputs, got, want):
     return res
 
 
+def _flash_map_report(torch, label, q, k, v, kw, ms):
+    """The tile map's part of a masked flash call: the map's tiles by class
+    (and its heads), its first launch timed alone (and as a share of the
+    call), the call without the map, whether the map leaves o and lse as
+    they were bit for bit, and whether the first launch's map equals the
+    plain one."""
+    from flashinfer_tpu_torch.ops.attention.kernels.flash import (
+        flash_attention_dense,
+        flash_tile_map,
+        flash_tile_map_plain,
+    )
+    from flashinfer_tpu_torch.ops.attention.kernels.tile_map import (
+        map_counts,
+    )
+
+    qo, hq = q.shape[:2]
+    kv, hkv = k.shape[:2]
+    mkw = {x: kw[x] for x in ("causal", "window_left", "custom_mask",
+                              "variant", "variant_params") if x in kw}
+    mkw["device"] = q.device
+    tmap = flash_tile_map(qo, kv, hq, hkv, **mkw)
+    same_map = bool(torch.equal(tmap, flash_tile_map_plain(
+        qo, kv, hq, hkv, map_heads=tmap.shape[0], **mkw)))
+    got = flash_attention_dense(q, k, v, **kw)
+    bare = flash_attention_dense(q, k, v, tile_map=False, **kw)
+    same = bool(torch.equal(got[0], bare[0]) and torch.equal(got[1],
+                                                             bare[1]))
+    del got, bare
+    pre_ms = cuda_ms(torch, lambda: flash_tile_map(qo, kv, hq, hkv, **mkw),
+                     20, graph=True)
+    nomap_ms = cuda_ms(torch, lambda: flash_attention_dense(
+        q, k, v, tile_map=False, **kw), 5, warmup=1, graph=True)
+    rep = dict(tiles=map_counts(tmap), map_heads=int(tmap.shape[0]),
+               prepass_ms=pre_ms, prepass_share=pre_ms / ms,
+               nomap_ms=nomap_ms, map_bit_identical=same,
+               map_equals_plain=same_map)
+    log(f"  {label} tile map: {rep['tiles']} heads={rep['map_heads']} "
+        f"prepass_ms="
+        f"{pre_ms:.4f} ({100 * pre_ms / ms:.1f}% of the call) nomap_ms="
+        f"{nomap_ms:.4f} map vs no map bit-identical={same} map = plain "
+        f"map: {same_map}")
+    return rep
+
+
 def check_flash_attention(torch, np, cases=FLASH_CASES):
     """The flash kernel against its plain version on the card, case by
     case (Llama-3-8B prefill, chunked prefill and decode, DeepSeek-V2-Lite's
@@ -1559,9 +1604,14 @@ def check_flash_attention(torch, np, cases=FLASH_CASES):
             lib_ms, lib_ratio = _time_library(torch, lib, want, big)
         if variant == "sigmoid":
             chk["vs_float64"] = _sigmoid_witness(torch, np, inputs, got, want)
-        del got, want, inputs
+        del got, want
         ms = cuda_ms(torch, kernel, 5 if big else 20, warmup=1 if big else 2,
                      graph=True)
+        if variant == "mask":
+            chk["tile_map"] = _flash_map_report(torch, name, *inputs, ms)
+            chk["ok"] = (chk["ok"] and chk["tile_map"]["map_bit_identical"]
+                         and chk["tile_map"]["map_equals_plain"])
+        del inputs
         plain_ms = cuda_ms(torch, plain, 2, warmup=1)
         isz = 2 if dtype == "bf16" else 4
         nbytes = ((qo * hq * (d + dv) + kv * hkv * (d + dv)) * isz
@@ -3647,6 +3697,50 @@ def _surface_library(torch, np, w, c, q, kv_cache):
     return run
 
 
+def _paged_map_report(torch, name, dp, launch, ms):
+    """The tile map's part of a masked paged plan: the map's tiles by
+    class, the launch without the map (every tile of the plan tested key by
+    key) timed as the launch with it, whether the two agree bit for bit,
+    and the device route of the map (a caller handing the wrapper a work
+    mask without its map) timed and held to the plan's map."""
+    from flashinfer_tpu_torch.ops.attention.kernels.paged import (
+        batch_paged_attention_run,
+        paged_tile_map,
+    )
+    from flashinfer_tpu_torch.ops.attention.kernels.tile_map import (
+        map_counts,
+    )
+
+    def bare_run(*args, **kw):  # the launch's keywords, less the map
+        return batch_paged_attention_run(*args, **dict(kw, tile_map=False))
+    with_map, bare = launch(batch_paged_attention_run, False), launch(
+        bare_run, False)
+    same = bool(torch.equal(with_map[0], bare[0])
+                and torch.equal(with_map[1], bare[1]))
+    del with_map, bare
+    nomap_ms = cuda_ms(torch, lambda: launch(bare_run), 10, graph=True)
+    m = dp.meta
+
+    def derive():
+        return paged_tile_map(dp.segment("plan"), dp.work_mask,
+                              tile_q=m.tile_q, group=m.gqa_group,
+                              causal=m.causal, window_left=m.window_left,
+                              q_rows=m.bucket_rows,
+                              row_valid=dp.segment("row_valid"))
+
+    derived_equal = bool(torch.equal(derive(), dp.tile_map))
+    derive_ms = cuda_ms(torch, derive, 5, warmup=1, graph=True)
+    rep = dict(tiles=map_counts(dp.tile_map), nomap_ms=nomap_ms,
+               map_bit_identical=same, derive_ms=derive_ms,
+               derived_equal=derived_equal)
+    log(f"surface {name} tile map: {rep['tiles']} (64 x 64 tiles) ms="
+        f"{ms:.4f} nomap_ms="
+        f"{nomap_ms:.4f} map vs no map bit-identical={same}; the device "
+        f"route: derive_ms={derive_ms:.4f}, equal to the plan's: "
+        f"{derived_equal}")
+    return rep
+
+
 def phase_paged_surface(torch, np, card, lens_decode, lens_prefill):
     """The paged-attention surface at full width, each case through the
     wrapper a user calls (the surface path: its paged launches are read
@@ -3705,7 +3799,8 @@ def phase_paged_surface(torch, np, card, lens_decode, lens_prefill):
         kw = dict(tile_q=m.tile_q, group=m.gqa_group, causal=m.causal,
                   sm_scale=m.sm_scale, window_left=m.window_left,
                   row_valid=dp.segment("row_valid"), work_mask=dp.work_mask,
-                  variant=st.variant, variant_params=st.variant_params)
+                  variant=st.variant, variant_params=st.variant_params,
+                  tile_map=dp.tile_map)
         turn = [0]
 
         def copy(rotate=True):  # the cache copy of this call
@@ -3727,6 +3822,11 @@ def phase_paged_surface(torch, np, card, lens_decode, lens_prefill):
         torch.cuda.synchronize()
         ms = cuda_ms(torch, lambda: launch(batch_paged_attention_run), 10,
                      graph=True)
+        tiles = None
+        if dp.tile_map is not None:
+            tiles = _paged_map_report(torch, name, dp, launch, ms)
+            chk["ok"] = (chk["ok"] and tiles["map_bit_identical"]
+                         and tiles["derived_equal"])
         call_ms = cuda_ms(torch, lambda: w.run(q, *c["inputs"](copy())), 5)
         repack_ms = None
         if name in ("ragged", "page1_decode", "page4_decode",
@@ -3755,7 +3855,7 @@ def phase_paged_surface(torch, np, card, lens_decode, lens_prefill):
                    call_ms=call_ms, repack_ms=repack_ms, plain_ms=plain_ms,
                    library_ms=library_ms, bound_bytes=nbytes,
                    bound_ops=4 * d * pairs, bound_ms=b_ms, bound_by=b_by,
-                   err_o=chk["err_o"], ok=ok)
+                   err_o=chk["err_o"], tile_map=tiles, ok=ok)
         rows.append(row)
         log(f"surface {name:18s} heads={hq}/{hkv}/{d} nnz={m.nnz} "
             f"T={m.num_work_items} tile_q={m.tile_q} chunk="
@@ -3881,6 +3981,7 @@ def _variant_flash_case(torch, np, name, gen):
     kv_pos = torch.arange(n, device=dev)[None, :]
     keep = kv_pos <= q_pos
     builtin_call = lib = None
+    masked = []  # (label, flash keywords) of the masked calls
     extra = 0
     pairs = n * (n + 1) // 2
     if builtin is not None:  # ALiBi's slopes, the sigmoid's numbers
@@ -3911,6 +4012,7 @@ def _variant_flash_case(torch, np, name, gen):
         def builtin_call():
             return single_prefill_with_kv_cache(
                 q, k, v, return_lse=True, packed_custom_mask=packed, **kw)
+        masked = [("hook", vkw), ("packed", dict(kw, custom_mask=packed))]
 
         group = hq // hkv
         kt, vt = (x.transpose(0, 1)[None].repeat_interleave(group, dim=1)
@@ -3925,7 +4027,8 @@ def _variant_flash_case(torch, np, name, gen):
     nbytes = (n * hq * d * 2) * 2 + 2 * n * hkv * d * 2 + n * hq * 4 + extra
     ops = 4 * d * pairs * hq
     return dict(kernel=kernel, builtin=builtin_call, plain=plain, lib=lib,
-                nbytes=nbytes, ops=ops, heads=(hq, hkv, d), pairs=pairs)
+                nbytes=nbytes, ops=ops, heads=(hq, hkv, d), pairs=pairs,
+                qkv=(q, k, v), masked=masked)
 
 
 def _variant_batch_cases(torch, np, lens_decode, lens_prefill, gen):
@@ -4099,6 +4202,12 @@ def phase_variants(torch, np, card, lens_decode, lens_prefill):
                              if c["builtin"] is not None else None)
         row["plain_ms"] = cuda_ms(torch, c["plain"], 2, warmup=1)
         row["library_ms"], row["library_o_ratio"] = lib_ms, lib_ratio
+        for label, mkw in c["masked"]:  # the hook's call, the packed mask's
+            ms_m = row["ms"] if label == "hook" else row["builtin_ms"]
+            row[f"tile_map_{label}"] = tm = _flash_map_report(
+                torch, f"flash/{name} ({label})", *c["qkv"], mkw, ms_m)
+            row["ok"] = (row["ok"] and tm["map_bit_identical"]
+                         and tm["map_equals_plain"])
         row["bound_ms"], row["bound_by"] = bound_ms(c["nbytes"], c["ops"])
         row.update(bound_bytes=c["nbytes"], bound_ops=c["ops"],
                    pairs=c["pairs"])

@@ -54,6 +54,21 @@
 //   frontier of the CTA's last token; only the tiles at the edges (the
 //   diagonal, the window's start, the end of the KV, a custom mask) test
 //   each (row, key); the CTAs with the most keys start first.
+// - A mask's structure reaches the key loop through a tile map, uint8
+//   [map heads, 64-row blocks of packed rows, 64-key tiles], written by a
+//   first launch (fi_flash_tile_map: the packed bits, the caller's mask
+//   hook, or both, asked of every (row, key) that kv_len, causal and the
+//   window allow; once per kv head where the hook reads the head, else
+//   once for all, a row block's tokens at their first head): bit kMapKeep
+//   where a real row keeps such a key, kMapDrop where the mask drops one.
+//   A second launch lists, for each CTA, the tiles a row block of it keeps
+//   a key of, with their classes (flash_walk_kernel, csrc/tile_walk.cuh);
+//   the CTA's producer and consumers walk that list, skipping the other
+//   tiles (each would add nothing: the rescale 2^0, every P 0, the
+//   sigmoid's weights 0); a tile the mask keeps whole takes the
+//   mask-free path (tile_full, or keep() without the mask); only the tiles
+//   it cuts test the mask. Without a map every tile under a mask is tested
+//   key by key.
 // - When the (row tile, kv head) CTAs would leave most SMs idle (decode),
 //   the key range is split across CTAs (the wrapper picks the count) and a
 //   second launch of this entry point merges the splits: no PyTorch op and
@@ -79,6 +94,7 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "tile_walk.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -95,6 +111,11 @@ constexpr int kRowsF32 = 16;                // packed rows a CTA, CUDA cores
 constexpr int kSmemLimit = 232448;          // bytes a CTA may use (H100)
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
+#if defined(FI_USER_VARIANT) && FI_USER_HAS_MASK
+#define FI_USER_MASK 1
+#else
+#define FI_USER_MASK 0
+#endif
 
 enum DType { kF32 = 0, kBF16 = 1 };
 
@@ -103,6 +124,7 @@ struct Params {
   const void* k;          // [kv_len, hkv, d] through k_st / k_sh
   const void* v;          // [kv_len, hkv, dv] through v_st / v_sh
   const uint8_t* mask;    // packed bits or null
+  const uint8_t* tile_map;  // [map_heads, map_rb, map_nt] or null
   const float* alibi;     // [hq] or null
   const float* sink;      // [hq] or null; applied by split 0
   void* o;
@@ -112,6 +134,13 @@ struct Params {
   int causal, window_left, splits, sigmoid;
   float sm_scale, scale_log2, soft_cap, sig_scale, sig_bias;
   int heads_inner;  // the K/V tensor maps order (d, head, token)
+  int map_heads, map_rb, map_nt;  // the tile map's kv heads (1 or hkv),
+                                  // 64-row blocks and 64-key tiles
+  // the walks (with a map): [walks] counts, then [walks][map_nt] lists, a
+  // walk a (q tile, map head, split)
+  int* walk_ws;
+  size_t walk_ws_len;  // ints
+  int walks;
 #ifdef FI_USER_VARIANT
   UserParams user;
 #endif
@@ -134,6 +163,30 @@ __device__ __forceinline__ Row row_info(const Params& p, int kvh, int packed) {
   return r;
 }
 
+// Whether row r may see key kv at all: a real row, a real key, causal, the
+// window.
+__device__ __forceinline__ bool in_reach(const Params& p, const Row& r,
+                                         int kv) {
+  return r.tok >= 0 && kv < p.kv_len && !(p.causal && kv > r.q_pos) &&
+         !(p.window_left >= 0 && kv < r.q_pos - p.window_left);
+}
+
+// Whether the mask (the packed bits, the caller's hook) keeps (r, kv).
+__device__ __forceinline__ bool mask_keeps(const Params& p, const Row& r,
+                                           int kv) {
+  if (p.mask) {
+    const long long bit = (long long)r.tok * p.kv_len + kv;
+    if (!((p.mask[bit >> 3] >> (7 - int(bit & 7))) & 1)) return false;
+  }
+#if FI_USER_MASK
+  if (!user_mask(r.q_pos, kv, r.head, p.user)) return false;
+#endif
+  return true;
+}
+
+// Whether row r sees key kv (the mask included). Written out, not as
+// in_reach && mask_keeps: that form ran the packed random-bit mask ~10%
+// slower on the H100.
 __device__ __forceinline__ bool keep(const Params& p, const Row& r, int kv) {
   if (r.tok < 0 || kv >= p.kv_len) return false;
   if (p.causal && kv > r.q_pos) return false;
@@ -142,10 +195,27 @@ __device__ __forceinline__ bool keep(const Params& p, const Row& r, int kv) {
     const long long bit = (long long)r.tok * p.kv_len + kv;
     if (!((p.mask[bit >> 3] >> (7 - int(bit & 7))) & 1)) return false;
   }
-#if defined(FI_USER_VARIANT) && FI_USER_HAS_MASK
+#if FI_USER_MASK
   if (!user_mask(r.q_pos, kv, r.head, p.user)) return false;
 #endif
   return true;
+}
+
+// The map's bits for row block rb of kv head kvh over key tile t of TK keys
+// (ORed over its 64-key tiles).
+template <int TK>
+__device__ __forceinline__ int map_class(const Params& p, int kvh, int rb,
+                                         int t) {
+  const uint8_t* m =
+      p.tile_map +
+      (size_t(p.map_heads > 1 ? kvh : 0) * p.map_rb + rb) * p.map_nt;
+  int c = 0;
+#pragma unroll
+  for (int s = 0; s < TK / kMapKeys; ++s) {
+    const int j = t * (TK / kMapKeys) + s;
+    if (j < p.map_nt) c |= m[j];
+  }
+  return c;
 }
 
 // The variant's transform of a logit, one of: the default (log2(e) *
@@ -254,16 +324,15 @@ __device__ __forceinline__ void transform_tile(const Params& p, float* s,
 }
 
 // Whether every (row, key) of key tile kt is kept for the real rows
-// (tokens tok_lo..tok_hi); rows past the end compute values nobody stores.
+// (tokens tok_lo..tok_hi), the mask aside (`masked` false: the tile map
+// says it keeps the tile whole); rows past the end compute values nobody
+// stores.
 template <int kTile>
 __device__ __forceinline__ bool tile_full(const Params& p, int kt, int tok_lo,
-                                          int tok_hi) {
-#if defined(FI_USER_VARIANT) && FI_USER_HAS_MASK
-  return false;  // the caller's mask: every tile tests each key
-#endif
+                                          int tok_hi, bool masked) {
   const int k_lo = kt * kTile, k_hi = k_lo + kTile - 1;
   const int off = p.kv_len - p.qo_len;
-  return !p.mask && k_hi < p.kv_len && !(p.causal && k_hi > off + tok_lo) &&
+  return !masked && k_hi < p.kv_len && !(p.causal && k_hi > off + tok_lo) &&
          !(p.window_left >= 0 && k_lo < off + tok_hi - p.window_left);
 }
 
@@ -361,8 +430,16 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   const int active = row0 + kWgRows < total ? 2 : 1;
   int t0, t1;
   key_tiles<TK>(p, row0, kRowsTc, split, t0, t1);
+  // a tile's classes without a map: a mask cuts every tile
+  const int mask_cls =
+      (p.mask || FI_USER_MASK) ? kMapKeep | kMapDrop : kMapKeep;
+  __shared__ int s_walk;  // tiles the CTA walks
+  // its walk's index: (q tile, map head, split)
+  const int widx =
+      (tile * p.map_heads + (p.map_heads > 1 ? kvh : 0)) * p.splits + split;
 
   if (tid == 0) {
+    s_walk = p.walk_ws ? p.walk_ws[widx] : (t1 > t0 ? t1 - t0 : 0);
     for (int i = 0; i < kStages; ++i) {
       mbar_init(&full_k[i], 1);
       mbar_init(&full_v[i], 1);
@@ -372,14 +449,21 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
+  const Walk walk{p.walk_ws ? reinterpret_cast<const uint32_t*>(
+                                 p.walk_ws + p.walks) +
+                                 size_t(widx) * p.map_nt
+                           : nullptr,
+                  t0, s_walk, mask_cls | mask_cls << 2};
 
   if (wg == kConsumers) {
     // ---- producer: one thread keeps the K/V ring full through TMA
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     if (wtid == 0) {
-      for (int it = t0; it < t1; ++it) {
-        const int i = it - t0, st = i % kStages;
+      int next = walk.n > 0 ? walk.tile(0) : 0;  // a list's entry ahead
+      for (int i = 0; i < walk.n; ++i) {
+        const int it = next, st = i % kStages;
         const int ph = (i / kStages) & 1;
+        if (i + 1 < walk.n) next = walk.tile(i + 1);
         const int key0 = it * TK;
         const int c1 = p.heads_inner ? kvh : key0;
         const int c2 = p.heads_inner ? key0 : kvh;
@@ -435,8 +519,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     for (int i = 0; i < kO; ++i) o[i] = 0.f;
     float m_a = -CUDART_INF_F, m_b = -CUDART_INF_F, l_a = 0.f, l_b = 0.f;
 
-    for (int it = t0; it < t1; ++it) {
-      const int i = it - t0, st = i % kStages;
+    for (int i = 0; i < walk.n; ++i) {
+      const int it = walk.tile(i), st = i % kStages;
       const int ph = (i / kStages) & 1;
       const unsigned char* ks = sK + st * k_stage;
       const unsigned char* vs = sV + st * v_stage;
@@ -469,11 +553,21 @@ __global__ void __launch_bounds__(kTcThreads, 1)
           transform_tile<kBias, kS>(p, s, ra, rb, key0);
 #endif
       }
-      if (!tile_full<TK>(p, it, tok_lo, tok_hi)) {  // an edge: test each key
+      // whether the mask cuts this warpgroup's rows of the tile
+      const bool masked = walk.classes(i) >> (2 * wg) & kMapDrop;
+      if (!tile_full<TK>(p, it, tok_lo, tok_hi, masked)) {  // an edge
+        if (masked) {  // the mask cuts it: each key asked
 #pragma unroll
-        for (int i = 0; i < kS; ++i)
-          if (!keep(p, (i & 2) ? rb : ra, key0 + (i >> 2) * 8 + (i & 1)))
-            s[i] = sigmoid ? 0.f : -CUDART_INF_F;
+          for (int i = 0; i < kS; ++i)
+            if (!keep(p, (i & 2) ? rb : ra, key0 + (i >> 2) * 8 + (i & 1)))
+              s[i] = sigmoid ? 0.f : -CUDART_INF_F;
+        } else {
+#pragma unroll
+          for (int i = 0; i < kS; ++i)
+            if (!in_reach(p, (i & 2) ? rb : ra,
+                          key0 + (i >> 2) * 8 + (i & 1)))
+              s[i] = sigmoid ? 0.f : -CUDART_INF_F;
+        }
       }
       if (!sigmoid) {
         const float c = kGeneral ? 1.f : p.scale_log2;  // raw logit -> base 2
@@ -645,7 +739,15 @@ __global__ void __launch_bounds__(kThreads) flash_f32_kernel(const Params p) {
 
   int t0, t1;
   key_tiles<kTileK>(p, row0, ROWS, split, t0, t1);
+  const int mask_cls = (p.mask || FI_USER_MASK) ? kMapKeep | kMapDrop
+                                                : kMapKeep;
   for (int it = t0; it < t1; ++it) {
+    // the tile map's class of the tile (its 64 keys are one tile of the
+    // map): skipped where the mask keeps no key, unread where it keeps all
+    const int c = p.tile_map ? map_class<kTileK>(p, kvh, row0 / kMapRows, it)
+                             : mask_cls;
+    if (!(c & kMapKeep)) continue;
+    const bool masked = c & kMapDrop;
     __syncthreads();  // the previous tile's K, V and P are consumed
     const int key0 = it * kTileK;
     for (int i = tid; i < kTileK * d; i += kThreads) {
@@ -679,7 +781,7 @@ __global__ void __launch_bounds__(kThreads) flash_f32_kernel(const Params p) {
 #pragma unroll
     for (int r = 0; r < RPT; ++r)
       p_s[(rg * RPT + r) * kTileK + jq] =
-          keep(p, rq[r], kv)
+          (masked ? keep(p, rq[r], kv) : in_reach(p, rq[r], kv))
 #ifdef FI_USER_VARIANT
               ? user_transform(p, rq[r], kv, s[r])
 #else
@@ -765,6 +867,64 @@ __global__ void __launch_bounds__(kThreads) flash_f32_kernel(const Params p) {
   }
 }
 
+// ------------------------------------------------------------- tile map
+
+constexpr int kMapWarps = 8;  // key tiles a CTA of the map kernel
+
+// The tile map of a mask (the packed bits, the caller's hook, or both): a
+// warp per (64-key tile, 64-row block, map head), its lanes on the tile's
+// keys. The rows are the block's packed rows of kv head blockIdx.z where
+// the map has a head each, else the block's tokens at their first head
+// (the hook does not read the head). Each (row, key) that in_reach allows
+// is asked of the mask: kMapKeep where one is kept, kMapDrop where one is
+// dropped. A lane asks kMapUnroll rows at a time, every ask made (its key
+// clamped to a real one, its answer dropped out of reach), so their loads
+// are in flight together; the warp stops once it has seen both bits.
+constexpr int kMapUnroll = 8;
+
+__global__ void __launch_bounds__(32 * kMapWarps)
+    flash_map_kernel(const Params p) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int kt = blockIdx.x * kMapWarps + warp, rb = blockIdx.y;
+  const int kvh = blockIdx.z;
+  if (kt >= p.map_nt) return;
+  const int total = p.qo_len * p.group, off = p.kv_len - p.qo_len;
+  const int r0 = rb * kMapRows, r1 = min(r0 + kMapRows, total);
+  const int k0 = kt * kMapKeys, k1 = min(k0 + kMapKeys, p.kv_len);
+  const int tok0 = r0 / p.group, tok1 = (r1 - 1) / p.group;
+  const bool per_tok = p.map_heads == 1;
+  // a tile that causal or the window leaves out holds nothing
+  const bool reach =
+      !(p.causal && k0 > off + tok1) &&
+      !(p.window_left >= 0 && k1 - 1 < off + tok0 - p.window_left);
+  bool kept = false, dropped = false;
+  const int rows = reach ? (per_tok ? tok1 - tok0 + 1 : r1 - r0) : 0;
+  for (int j0 = 0; j0 < rows; j0 += kMapUnroll) {
+#pragma unroll
+    for (int jj = 0; jj < kMapUnroll; ++jj) {
+      const int j = min(j0 + jj, rows - 1);  // a row asked twice: no matter
+      const Row r = per_tok ? row_info(p, 0, (tok0 + j) * p.group)
+                            : row_info(p, kvh, r0 + j);
+#pragma unroll
+      for (int e = 0; e < kMapKeys / 32; ++e) {
+        const int kv = k0 + lane + 32 * e;
+        const bool in = kv < k1 && in_reach(p, r, kv);
+        const bool keeps = mask_keeps(p, r, min(kv, k1 - 1));
+        kept |= in && keeps;
+        dropped |= in && !keeps;
+      }
+    }
+    if (__any_sync(0xffffffffu, kept) && __any_sync(0xffffffffu, dropped))
+      break;
+  }
+  kept = __any_sync(0xffffffffu, kept);
+  dropped = __any_sync(0xffffffffu, dropped);
+  if (lane == 0)  // this launch writes the map the attention reads
+    const_cast<uint8_t*>(p.tile_map)[(size_t(kvh) * p.map_rb + rb) *
+                                         p.map_nt + kt] =
+        (kept ? kMapKeep : 0) | (dropped ? kMapDrop : 0);
+}
+
 // --------------------------------------------------------------- merge
 
 // Merges the S split states of one (token, head) a CTA: o [qo_len, S, hq,
@@ -816,6 +976,38 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------- launch
+
+// The walks of a tile map (before the attention launch): a warp a (q tile
+// of 128 packed rows, map head, split), listing in order the tiles of TK
+// keys of the split's range that a row block of the tile keeps a key of.
+template <int TK>
+__global__ void __launch_bounds__(128) flash_walk_kernel(const Params p) {
+  const int widx = blockIdx.x * 4 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (widx >= p.walks) return;
+  const int split = widx % p.splits, hm = (widx / p.splits) % p.map_heads;
+  const int row0 = widx / (p.splits * p.map_heads) * kRowsTc;
+  const int rb0 = row0 / kMapRows;
+  int t0, t1;
+  key_tiles<TK>(p, row0, kRowsTc, split, t0, t1);
+  list_tiles(
+      [&](int t) {
+        return map_class<TK>(p, hm, rb0, t) |
+               (rb0 + 1 < p.map_rb ? map_class<TK>(p, hm, rb0 + 1, t) << 2
+                                   : 0);
+      },
+      t0, t1,
+      reinterpret_cast<uint32_t*>(p.walk_ws + p.walks) +
+          size_t(widx) * p.map_nt,
+      p.walk_ws + widx, lane);
+}
+
+// The tile map's extents: 64-row blocks of packed rows, 64-key tiles.
+void set_map_dims(Params& p, const uint8_t* tile_map, int map_heads) {
+  p.tile_map = tile_map;
+  p.map_heads = map_heads;
+  p.map_rb = (p.qo_len * p.group + kMapRows - 1) / kMapRows;
+  p.map_nt = (p.kv_len + kMapKeys - 1) / kMapKeys;
+}
 
 template <bool G>
 cudaError_t launch_f32(const Params& p, cudaStream_t s) {
@@ -873,6 +1065,18 @@ cudaError_t launch_tc_at(Params p, cudaStream_t s) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
   if (err != cudaSuccess) return err;
+  if (p.tile_map != nullptr) {  // the CTAs' walks first
+    p.walks = (p.qo_len * p.group + kRowsTc - 1) / kRowsTc * p.map_heads *
+              p.splits;
+    if (p.walk_ws == nullptr ||
+        size_t(p.walks) * (1 + p.map_nt) > p.walk_ws_len)
+      return cudaErrorInvalidValue;
+    flash_walk_kernel<TK><<<(p.walks + 3) / 4, 128, 0, s>>>(p);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  } else {
+    p.walk_ws = nullptr;
+  }
   dim3 grid((p.qo_len * p.group + kRowsTc - 1) / kRowsTc, p.hkv, p.splits);
   kernel<<<grid, kTcThreads, bytes, s>>>(tm_k, tm_v, p);
   return cudaGetLastError();
@@ -894,8 +1098,45 @@ cudaError_t launch_tc(const Params& p, cudaStream_t s) {
 
 }  // namespace
 
+// The tile map of a mask over [qo_len, kv_len] (packed bits, the caller's
+// hook, or both) into tile_map uint8 [map_heads, ceil(qo_len * hq / hkv /
+// 64), ceil(kv_len / 64)]; map_heads is hkv where the hook reads the head,
+// else 1. fi_flash_attention reads it.
+extern "C" int fi_flash_tile_map(const uint8_t* mask, uint8_t* tile_map,
+                                 int qo_len, int kv_len, int hq, int hkv,
+                                 int causal, int window_left, int map_heads,
+                                 void* stream
+#ifdef FI_USER_VARIANT
+                                 , const UserParams* user
+#endif
+                                 ) {
+  if (qo_len <= 0 || kv_len <= 0 || hkv <= 0 || hq % hkv != 0 ||
+      tile_map == nullptr || (map_heads != 1 && map_heads != hkv) ||
+      (mask == nullptr && !FI_USER_MASK))
+    return int(cudaErrorInvalidValue);
+  Params p{};
+  p.mask = mask;
+  p.qo_len = qo_len; p.kv_len = kv_len; p.hq = hq; p.hkv = hkv;
+  p.group = hq / hkv; p.causal = causal; p.window_left = window_left;
+  set_map_dims(p, tile_map, map_heads);
+#ifdef FI_USER_VARIANT
+  p.user = *user;
+#endif
+  const dim3 grid((p.map_nt + kMapWarps - 1) / kMapWarps, p.map_rb,
+                  map_heads);
+  flash_map_kernel<<<grid, 32 * kMapWarps, 0,
+                     static_cast<cudaStream_t>(stream)>>>(p);
+  return int(cudaGetLastError());
+}
+
+// tile_map: fi_flash_tile_map's output for the same mask, or null (every
+// tile under a mask tested key by key); walk_ws: int32 scratch of
+// walk_ws_len >= ceil(qo_len * hq / hkv / 128) * map_heads * splits * (1 +
+// ceil(kv_len / 64)) elements for the CTAs' walks (bf16; a map only).
 extern "C" int fi_flash_attention(
     const void* q, const void* k, const void* v, const uint8_t* mask,
+    const uint8_t* tile_map, int map_heads, int* walk_ws,
+    long long walk_ws_len,
     const float* alibi, const float* sink, void* o, float* lse,
     float* o_part, float* lse_part, long long q_st, long long q_sh,
     long long k_st, long long k_sh, long long v_st, long long v_sh,
@@ -908,7 +1149,9 @@ extern "C" int fi_flash_attention(
     ) {
   if (qo_len <= 0 || kv_len < 0 || hkv <= 0 || hq % hkv != 0 || d % 16 != 0 ||
       d <= 0 || d > 256 || dv % 16 != 0 || dv <= 0 || dv > 256 || splits < 1 ||
-      (splits > 1 && (o_part == nullptr || lse_part == nullptr)))
+      (splits > 1 && (o_part == nullptr || lse_part == nullptr)) ||
+      (tile_map != nullptr && mask == nullptr && !FI_USER_MASK) ||
+      (tile_map != nullptr && map_heads != 1 && map_heads != hkv))
     return int(cudaErrorInvalidValue);
   Params p;
   p.q = q; p.k = k; p.v = v; p.mask = mask; p.alibi = alibi; p.sink = sink;
@@ -926,6 +1169,10 @@ extern "C" int fi_flash_attention(
   p.scale_log2 = float(double(sm_scale) * 1.4426950408889634);
   p.soft_cap = soft_cap; p.sig_scale = sig_scale; p.sig_bias = sig_bias;
   p.heads_inner = 0;
+  set_map_dims(p, tile_map, map_heads);
+  p.walk_ws = walk_ws;
+  p.walk_ws_len = walk_ws_len > 0 ? size_t(walk_ws_len) : 0;
+  p.walks = 0;
   // the default path folds its scale into the exponent after the row max,
   // which needs the scale positive
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -69,11 +69,24 @@
 //
 // Masks and ALiBi, in all three kernels: a plan's work mask (uint8 [T,
 // tile_q, chunk], the custom or multi-item mask legalised on the host) is
-// read a byte a (row, key) where a tile is tested key by key, and a masked
-// plan tests every tile so. ALiBi (slopes f32 [hq]) and the soft cap take
-// the elementwise path after S: scale, + slope * (kv_pos - q_pos), cap, then
-// log2(e), in the plain version's order and roundings; the default path
-// (neither) keeps its scale folded into the exponent.
+// read a byte a (row, key) where a tile is tested key by key. Its tile map
+// (uint8 [T, row blocks of 64, key tiles of 64], built with the plan: bit
+// kMapKeep where a real row keeps a key that the span, causal and the
+// window allow, bit kMapDrop where the mask drops one) tells the kernels
+// which key tiles to test: a launch before the attention lists, for each
+// CTA, the tiles that a row block of it keeps a key of, with their classes
+// (paged_walk_kernel, csrc/tile_walk.cuh), and the CTA's producer and
+// consumers walk that list, skipping the other tiles (each would add
+// nothing: every rescale by 2^0 and every P 0); a tile the mask keeps
+// whole takes the mask-free path (the interior test, or the edge test
+// without the mask's bytes); only the tiles it cuts read them. A tile that
+// one row block skips and the other needs is computed, with the first's S
+// masked by its bytes (no branch may enclose a wgmma). A CTA with no tile
+// left writes the merge identity. Without a map every tile of a masked
+// plan is tested key by key. ALiBi (slopes f32 [hq]) and the soft cap take
+// the elementwise path after S: scale, + slope * (kv_pos - q_pos), cap,
+// then log2(e), in the plain version's order and roundings; the default
+// path (neither) keeps its scale folded into the exponent.
 //
 // A caller's variant (flashinfer_tpu_torch/jit/variant.py) arrives as a
 // generated header, passed by -include with -DFI_USER_VARIANT (its hooks
@@ -95,6 +108,7 @@
 
 #include "attention.cuh"
 #include "hopper.cuh"
+#include "tile_walk.cuh"
 #include "wgmma.cuh"
 
 // 1 in the gather build (pages of any size, by cp.async), 0 in the TMA one
@@ -129,12 +143,18 @@ struct Params {
   const int* kv_indices;  // page table
   const int* row_valid;   // [q_rows] or null (every row real)
   const unsigned char* work_mask;  // [T, tile_q, mask_chunk] or null
+  const unsigned char* tile_map;   // [T, map_rb, map_nt] or null
   const float* alibi;     // [kvh * group] ALiBi slopes, or null
   void* o;                // [T, kvh, tile_q, dv] in q's dtype
   float* lse;             // [T, kvh, tile_q]
   int T, kvh, q_rows, tile_q, d, dv, page_size, layout_hnd;
   int kv_indices_offset, group, causal, window_left, q_f32, kv_i8;
   int mask_chunk;  // keys a work-mask row holds (the plan's kv_chunk_size)
+  int map_rb, map_nt;  // the tile map's row blocks and key tiles an item
+  // the walks (with a map): [CTAs] counts, then [CTAs][map_nt] lists
+  int* walk_ws;
+  size_t walk_ws_len;  // ints
+  int walk_ctas;
   int box_rows, stages, byte_stages;  // tensor-core kernel
   float scale_log2;  // sm_scale * k_scale * log2(e)
   float sm_scale;    // sm_scale * k_scale (soft cap path)
@@ -185,15 +205,77 @@ __device__ __forceinline__ void key_range(const Params& p, const Item& it,
   if (hi < lo) hi = lo;
 }
 
+// Whether the row at tok may see the item's local key lk at all: inside
+// the span, causal, the window.
+__device__ __forceinline__ bool in_span(const Params& p, const Item& it,
+                                       int tok, int lk) {
+  const int pos = it.kv_start + lk;
+  return lk < it.span && !(p.causal && pos > tok) &&
+         !(p.window_left >= 0 && pos < tok - p.window_left);
+}
+
 // Whether row r (its token at tok) sees the item's local key lk.
 __device__ __forceinline__ bool keep(const Params& p, const Item& it, int r,
                                      int tok, int lk) {
-  const int pos = it.kv_start + lk;
-  return lk < it.span && !(p.causal && pos > tok) &&
-         !(p.window_left >= 0 && pos < tok - p.window_left) &&
+  return in_span(p, it, tok, lk) &&
          (p.work_mask == nullptr ||
           (r < p.tile_q &&
            p.work_mask[(size_t(it.w) * p.tile_q + r) * p.mask_chunk + lk]));
+}
+
+// The map's bits for row block rb of item w over key tile t of `per` 64-key
+// tiles of the map (ORed; tiles past the map hold nothing).
+__device__ __forceinline__ int map_class(const Params& p, int w, int rb,
+                                         int t, int per) {
+  const unsigned char* m =
+      p.tile_map + (size_t(w) * p.map_rb + rb) * p.map_nt;
+  int c = 0;
+  for (int s = 0; s < per; ++s) {
+    const int j = t * per + s;
+    if (j < p.map_nt) c |= m[j];
+  }
+  return c;
+}
+
+// The walks of a tile map (before the attention launch): a warp a CTA (work
+// item w, row blocks [z * blocks, (z + 1) * blocks) of 64 rows), listing
+// in order the tiles of tk keys of the item that a row block keeps a key
+// of. The map holds real rows and keys in reach only, so a tile outside
+// the CTA's causal and window range carries no bit.
+__global__ void __launch_bounds__(128)
+    paged_walk_kernel(const Params p, int tk, int nz, int blocks) {
+  const int cta = blockIdx.x * 4 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (cta >= p.walk_ctas) return;
+  const int w = cta / nz, rb0 = (cta % nz) * blocks, per = tk / kMapKeys;
+  list_tiles(
+      [&](int t) {
+        int c = 0;
+        for (int b = 0; b < blocks; ++b)
+          if (rb0 + b < p.map_rb)
+            c |= map_class(p, w, rb0 + b, t, per) << (2 * b);
+        return c;
+      },
+      0, (p.map_nt + per - 1) / per,
+      reinterpret_cast<uint32_t*>(p.walk_ws + p.walk_ctas) +
+          size_t(cta) * p.map_nt,
+      p.walk_ws + cta, lane);
+}
+
+// CTA cta's walk: its list (a map) or every tile of [t0, t1) of classes
+// `bits`; its length from *s_walk, which thread 0 set before a barrier.
+__device__ __forceinline__ Walk cta_walk(const Params& p, int cta, int t0,
+                                         int bits, const int* s_walk) {
+  return Walk{p.walk_ws ? reinterpret_cast<const uint32_t*>(
+                              p.walk_ws + p.walk_ctas) +
+                              size_t(cta) * p.map_nt
+                        : nullptr,
+              t0, *s_walk, bits};
+}
+
+// The length of CTA cta's walk, for thread 0 to publish.
+__device__ __forceinline__ int walk_length(const Params& p, int cta, int t0,
+                                           int t1) {
+  return p.walk_ws ? p.walk_ws[cta] : (t1 > t0 ? t1 - t0 : 0);
 }
 
 // ALiBi's slope for row r of kv head h: its query head is h * group + its
@@ -366,6 +448,7 @@ struct TcGeo {
   size_t smem;
 };
 
+
 // Two consumer warpgroups of 64 rows each; 128 keys a tile where S beside
 // O and two stages fit (else 64); two bf16 stages, then as many byte
 // stages (<= 4) as fit.
@@ -485,9 +568,10 @@ __device__ __forceinline__ void gather_bf16(const Params& p, const Item& it,
   }
 }
 
-// The bf16 ring filled by gathering (kGather), tiles [t0, t1): each
-// thread of the producer warpgroup copies its chunks of tile t as one
-// commit group, then tile t - 1 is published once its group has landed:
+// The bf16 ring filled by gathering (kGather), the walk's tiles: each
+// thread of the producer warpgroup copies its chunks of a tile as one
+// commit group, then the tile before is published once its group has
+// landed:
 // every thread fences its copies for the async proxy (wgmma), the
 // warpgroup meets at named barrier 4, one thread arrives on the full
 // barriers (one arrival each, as a TMA tile's). Keeping more tiles in
@@ -496,7 +580,7 @@ template <int TK>
 __device__ __forceinline__ void gather_ring(const Params& p, const Item& it,
                                             int h, const Ring& r,
                                             int blocks_k, int blocks_v,
-                                            int t0, int t1, int wtid) {
+                                            const Walk& walk, int wtid) {
   auto publish = [&](int i) {
     fence_async_smem();
     asm volatile("bar.sync 4, 128;\n" ::: "memory");
@@ -505,8 +589,8 @@ __device__ __forceinline__ void gather_ring(const Params& p, const Item& it,
       mbar_arrive(&r.full_v[i % r.n]);
     }
   };
-  for (int t = t0, i = 0; t < t1; ++t, ++i) {
-    const int st = i % r.n, ph = (i / r.n) & 1;
+  for (int i = 0; i < walk.n; ++i) {
+    const int t = walk.tile(i), st = i % r.n, ph = (i / r.n) & 1;
     mbar_wait(&r.empty_k[st], ph ^ 1);
     gather_bf16<TK>(p, it, p.k, h, t, p.d, blocks_k, r.k + st * r.k_stage,
                     wtid);
@@ -519,9 +603,9 @@ __device__ __forceinline__ void gather_ring(const Params& p, const Item& it,
       publish(i - 1);
     }
   }
-  if (t1 > t0) {
+  if (walk.n > 0) {
     cp_async_wait<0>();
-    publish(t1 - t0 - 1);
+    publish(walk.n - 1);
   }
 }
 
@@ -611,14 +695,13 @@ __device__ __forceinline__ void issue_tile(const Params& p, const Item& it,
   }
 }
 
-// A producer warpgroup for key tiles [t0, t1): warp 0 issues TMA into
+// A producer warpgroup for the walk's key tiles: warp 0 issues TMA into
 // the bf16 ring `ring` (blocks_k / blocks_v 64-column blocks), or for an
 // 8-bit cache into the byte ring `bytes`, S8 - 1 tiles ahead; then all four
 // warps convert each byte stage into the bf16 stage the consumers read:
 // K and V (part 0), or K only (part 1, which also issues the loads) or V
 // only (part 2) where two warpgroups share the conversion (named barrier
-// 4 + part). The bf16 ring's full barriers take one arrival. first_page:
-// lane b's page id of tile t0's box b (box_page). The gather build
+// 4 + part). The bf16 ring's full barriers take one arrival. The gather build
 // (kGather) copies pages by cp.async instead: the bf16 ring by
 // gather_ring, the byte ring by gather_tile8.
 // UNROLL: chunks a converting thread has in flight (as its registers allow).
@@ -627,40 +710,41 @@ __device__ __forceinline__ void produce(const Params& p, const Item& it,
                                         int h, const CUtensorMap* tm_k,
                                         const CUtensorMap* tm_v,
                                         const Ring& ring, const Ring& bytes,
-                                        int blocks_k, int blocks_v, int t0,
-                                        int t1, int part, int first_page,
+                                        int blocks_k, int blocks_v,
+                                        const Walk& walk, int part,
                                         int wtid) {
   const int warp = wtid >> 5, lane = wtid & 31;
   if (!KV8) {
     if constexpr (kGather) {
-      gather_ring<TK>(p, it, h, ring, blocks_k, blocks_v, t0, t1, wtid);
+      gather_ring<TK>(p, it, h, ring, blocks_k, blocks_v, walk, wtid);
     } else {
       if (warp != 0) return;
-      int next = first_page;
-      for (int t = t0, i = 0; t < t1; ++t, ++i) {
+      int next = walk.n > 0 ? box_page<TK>(p, it, walk.tile(0), lane) : 0;
+      for (int i = 0; i < walk.n; ++i) {
         const int page = next;
-        if (t + 1 < t1) next = box_page<TK>(p, it, t + 1, lane);
+        if (i + 1 < walk.n) next = box_page<TK>(p, it, walk.tile(i + 1), lane);
         issue_tile<TK, false>(p, it, h, tm_k, tm_v, ring, blocks_k, blocks_v,
-                              t, i, page, lane);
+                              walk.tile(i), i, page, lane);
       }
     }
     return;
   }
   const int S8 = bytes.n;
-  auto issue = [&](int t) {
+  auto issue = [&](int j) {  // the walk's tile j into byte stage j % S8
+    const int t = walk.tile(j);
     if constexpr (kGather)
-      gather_tile8<TK>(p, it, h, bytes, t, t - t0, part, wtid);
+      gather_tile8<TK>(p, it, h, bytes, t, j, part, wtid);
     else
-      issue_tile<TK, true>(p, it, h, tm_k, tm_v, bytes, 1, 1, t, t - t0,
-                           t == t0 ? first_page : box_page<TK>(p, it, t, lane),
-                           lane);
+      issue_tile<TK, true>(p, it, h, tm_k, tm_v, bytes, 1, 1, t, j,
+                           box_page<TK>(p, it, t, lane), lane);
   };
   // every converting thread copies its operand's bytes when gathering
   const bool issuer = kGather || (warp == 0 && part != 2);
   if (issuer)
-    for (int t = t0; t < min(t1, t0 + S8 - 1); ++t) issue(t);
-  for (int t = t0, i = 0; t < t1; ++t, ++i) {
-    if (issuer && t + S8 - 1 < t1) issue(t + S8 - 1);
+    for (int j = 0; j < min(walk.n, S8 - 1); ++j) issue(j);
+  for (int i = 0; i < walk.n; ++i) {
+    const int t = walk.tile(i);
+    if (issuer && i + S8 - 1 < walk.n) issue(i + S8 - 1);
     const int st = i % ring.n, ph = (i / ring.n) & 1;
     const int s8 = i % S8, ph8 = (i / S8) & 1;
     const int valid = min(TK, it.span - t * TK);
@@ -725,6 +809,7 @@ __global__ void __launch_bounds__(384, 1)
   constexpr int kProducerRegs = 40, kConsumerRegs = 232;
   extern __shared__ unsigned char smem_raw[];
   __shared__ int s_last[2];  // last real row of each row block, or -1
+  __shared__ int s_walk;     // tiles the CTA walks
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   const int d = p.d, qb = (d + 63) / 64, S = p.stages, S8 = p.byte_stages;
@@ -769,19 +854,28 @@ __global__ void __launch_bounds__(384, 1)
     return;
   }
   const int t0 = hi > lo ? lo / TK : 0, t1 = hi > lo ? (hi + TK - 1) / TK : 0;
+  // a tile's classes without a map: the work mask cuts every tile
+  const int mask_cls = p.work_mask ? kMapKeep | kMapDrop : kMapKeep;
+  const int cta = w * gridDim.z + blockIdx.z;
 
   if (tid == 0) {
+    s_walk = walk_length(p, cta, t0, t1);
     // empty: one arrival a consumer warp (a converter warp, byte ring)
     init_ring(ring, 1, 4 * active);
     init_ring(bytes, kGather ? 128 : 1, 4);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
+  const Walk walk = cta_walk(p, cta, t0, mask_cls | mask_cls << 2, &s_walk);
+  if (p.walk_ws != nullptr && walk.n == 0) {  // the mask keeps no key here
+    write_identity(p, w, h, row0, row0 + kRows, tid, 384);
+    return;
+  }
 
   if (wg == 2) {  // ---- producer warpgroup
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
-    produce<TK, KV8, 1>(p, it, h, &tm_k, &tm_v, ring, bytes, qb, kVB, t0, t1,
-                        0, t0 < t1 ? box_page<TK>(p, it, t0, lane) : 0, wtid);
+    produce<TK, KV8, 1>(p, it, h, &tm_k, &tm_v, ring, bytes, qb, kVB, walk, 0,
+                        wtid);
     return;
   }
 
@@ -848,10 +942,10 @@ __global__ void __launch_bounds__(384, 1)
   for (int i = 0; i < kO; ++i) o[i] = 0.f;
   float m_a = -CUDART_INF_F, m_b = -CUDART_INF_F, l_a = 0.f, l_b = 0.f;
 
-  for (int t = t0, i = 0; t < t1; ++t, ++i) {
-    // every tile of the CTA's range: a key this warpgroup's rows do not
-    // see is masked (P = 0), so no branch encloses the products
-    const int st = i % S, ph = (i / S) & 1;
+  for (int i = 0; i < walk.n; ++i) {
+    // every tile the CTA walks: a key this warpgroup's rows do not see is
+    // masked (P = 0), so no branch encloses the products
+    const int t = walk.tile(i), st = i % S, ph = (i / S) & 1;
     const unsigned char* ks = sK + st * k_stage;
     unsigned char* vs = sV + st * v_stage;
     float s[kS];
@@ -882,15 +976,19 @@ __global__ void __launch_bounds__(384, 1)
                              it.kv_start + key0 + (k >> 2) * 8 + (k & 1));
 #endif
     }
+    // whether the work mask cuts this warpgroup's rows of the tile
+    const bool masked = walk.classes(i) >> (2 * wg) & kMapDrop;
     const bool full =
-        !FI_USER_MASK && p.work_mask == nullptr && (t + 1) * TK <= it.span &&
+        !FI_USER_MASK && !masked && (t + 1) * TK <= it.span &&
         !(p.causal && it.kv_start + (t + 1) * TK - 1 > tok_lo) &&
         !(p.window_left >= 0 && it.kv_start + t * TK < tok_hi - p.window_left);
-    if (!full) {  // an edge: test each (row, key)
+    if (!full) {  // an edge: test each (row, key), the mask's bytes if cut
 #pragma unroll
       for (int k = 0; k < kS; ++k)
-        if (!keep(p, it, (k & 2) ? rb : ra, (k & 2) ? tok_b : tok_a,
-                  key0 + (k >> 2) * 8 + (k & 1))
+        if (!(masked ? keep(p, it, (k & 2) ? rb : ra, (k & 2) ? tok_b : tok_a,
+                            key0 + (k >> 2) * 8 + (k & 1))
+                     : in_span(p, it, (k & 2) ? tok_b : tok_a,
+                               key0 + (k >> 2) * 8 + (k & 1)))
 #if FI_USER_MASK
             || !user_keep(p, it, (k & 2) ? head_b : head_a,
                           (k & 2) ? utok_b : utok_a,
@@ -997,7 +1095,7 @@ __global__ void __launch_bounds__(384, 1)
 // [2][4 warps][NR] floats, `s` bf16 stages of K [d blocks][TK][128 B] and V
 // [dv blocks][TK][128 B], with an 8-bit cache `s8` byte stages of K [TK][d]
 // and V [TK][dv], the barriers, and 1024 bytes of slack to align the
-// swizzle atoms.
+// swizzle atoms (and, with a tile map, the CTA's tile classes).
 size_t dec_smem(int d, int dv, int dvp, int tk, int nr, int s, int s8) {
   const int qb = (d + 63) / 64, vb = dvp / 64;
   return 1024 + size_t(qb) * nr * 128 + size_t(tk / 64) * nr * 128 +
@@ -1026,7 +1124,7 @@ __global__ void __launch_bounds__(384, 1)
   constexpr int kN = NR / 2;     // accumulators a thread a block
   constexpr int kR = NR / 4;     // tile rows a thread holds: 8j + 2tq + e
   extern __shared__ unsigned char smem_raw[];
-  __shared__ int s_last;
+  __shared__ int s_last, s_walk;  // last real row; tiles the CTA walks
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   const int d = p.d, dv = p.dv, qb = (d + 63) / 64;
@@ -1062,23 +1160,29 @@ __global__ void __launch_bounds__(384, 1)
   int lo, hi;
   key_range(p, it, 0, last, lo, hi);
   const int t0 = lo / TK, t1 = hi > lo ? (hi + TK - 1) / TK : t0;
+  // a tile's class without a map: the work mask cuts every tile
+  const int mask_cls = p.work_mask ? kMapKeep | kMapDrop : kMapKeep;
   if (tid == 0) {
+    s_walk = walk_length(p, w, t0, t1);
     // empty: one arrival a consumer warp (a converter warp, byte ring)
     init_ring(ring, 1, 4);
     init_ring(bytes, kGather ? 128 : 1, 4);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
+  const Walk walk = cta_walk(p, w, t0, mask_cls, &s_walk);
+  if (p.walk_ws != nullptr && walk.n == 0) {  // the mask keeps no key here
+    write_identity(p, w, h, 0, NR, tid, blockDim.x);
+    return;
+  }
 
   if (tid >= 128) {  // ---- producer warpgroups: 8-bit, one for K, one for V
     if (KV8)
       asm volatile("setmaxnreg.dec.sync.aligned.u32 144;\n" ::: "memory");
     else
       asm volatile("setmaxnreg.dec.sync.aligned.u32 120;\n" ::: "memory");
-    produce<TK, KV8, 4>(p, it, h, &tm_k, &tm_v, ring, bytes, qb, kVB, t0, t1,
-                        KV8 ? 1 + ((tid - 128) >> 7) : 0,
-                        t0 < t1 ? box_page<TK>(p, it, t0, lane) : 0,
-                        tid & 127);
+    produce<TK, KV8, 4>(p, it, h, &tm_k, &tm_v, ring, bytes, qb, kVB, walk,
+                        KV8 ? 1 + ((tid - 128) >> 7) : 0, tid & 127);
     return;
   }
 
@@ -1145,8 +1249,8 @@ __global__ void __launch_bounds__(384, 1)
 #pragma unroll
     for (int k = 0; k < kN; ++k) o[vb][k] = 0.f;
 
-  for (int t = t0, i = 0; t < t1; ++t, ++i) {
-    const int st = i % S, ph = (i / S) & 1;
+  for (int i = 0; i < walk.n; ++i) {
+    const int t = walk.tile(i), st = i % S, ph = (i / S) & 1;
     const unsigned char* ks = ring.k + st * k_stage;
     unsigned char* vs = ring.v + st * v_stage;
     // S^T = K.Q^T: s[mb][4j + c] is key mb*64 + 16 warp + g (+ 8 for
@@ -1191,8 +1295,10 @@ __global__ void __launch_bounds__(384, 1)
 #endif
         }
     }
+    // whether the work mask cuts the tile
+    const bool masked = walk.classes(i) & kMapDrop;
     const bool full =
-        !FI_USER_MASK && p.work_mask == nullptr && (t + 1) * TK <= it.span &&
+        !FI_USER_MASK && !masked && (t + 1) * TK <= it.span &&
         !(p.causal && it.kv_start + (t + 1) * TK - 1 > tok_lo) &&
         !(p.window_left >= 0 && it.kv_start + t * TK < tok_hi - p.window_left);
     if (!full) {
@@ -1201,8 +1307,9 @@ __global__ void __launch_bounds__(384, 1)
 #pragma unroll
         for (int k = 0; k < kN; ++k) {
           const int key = t * TK + mb * 64 + warp * 16 + g + ((k >> 1) & 1) * 8;
-          if (!keep(p, it, 8 * (k >> 2) + 2 * tq + (k & 1),
-                    tok[2 * (k >> 2) + (k & 1)], key)
+          if (!(masked ? keep(p, it, 8 * (k >> 2) + 2 * tq + (k & 1),
+                              tok[2 * (k >> 2) + (k & 1)], key)
+                       : in_span(p, it, tok[2 * (k >> 2) + (k & 1)], key))
 #if FI_USER_MASK
               || !user_keep(p, it, head[2 * (k >> 2) + (k & 1)],
                             tok[2 * (k >> 2) + (k & 1)], key)
@@ -1441,7 +1548,15 @@ __global__ void __launch_bounds__(kThreads) paged_f32_kernel(const Params p) {
 
   const KT* kc = static_cast<const KT*>(p.k);
   const KT* vc = static_cast<const KT*>(p.v);
+  const int mask_cls = p.work_mask ? kMapKeep | kMapDrop : kMapKeep;
   for (int k0 = lo / kTileF32 * kTileF32; k0 < hi; k0 += kTileF32) {
+    // the tile map's class of the tile (its 64 keys are one tile of the map):
+    // skipped where the mask keeps no key, the mask unread where it keeps all
+    const int cls = p.tile_map ? map_class(p, w, row0 / kMapRows,
+                                           k0 / kTileF32, 1)
+                               : mask_cls;
+    if (!(cls & kMapKeep)) continue;
+    const bool masked = cls & kMapDrop;
     __syncthreads();  // the previous tile's K, V and P are consumed
     load_rows_f32<KT>(p, it, kc, h, k0, d, d + 1, k_s);
     load_rows_f32<KT>(p, it, vc, h, k0, dv, dv, v_s);
@@ -1472,7 +1587,8 @@ __global__ void __launch_bounds__(kThreads) paged_f32_kernel(const Params p) {
       const int ut = min(tok[r], q_tok(p, it, last));
       const float x = user_logit(p, it, s[r], hr, ut, it.kv_start + lk);
       p_s[(rg * RPT + r) * kTileF32 + jq] =
-          keep(p, it, row0 + rg * RPT + r, tok[r], lk) &&
+          (masked ? keep(p, it, row0 + rg * RPT + r, tok[r], lk)
+                  : in_span(p, it, tok[r], lk)) &&
                   user_keep(p, it, hr, ut, lk)
               ? x
               : -CUDART_INF_F;
@@ -1480,7 +1596,10 @@ __global__ void __launch_bounds__(kThreads) paged_f32_kernel(const Params p) {
       const float x =
           general_logit(p, s[r], slope[r], tok[r], it.kv_start + lk);
       p_s[(rg * RPT + r) * kTileF32 + jq] =
-          keep(p, it, row0 + rg * RPT + r, tok[r], lk) ? x : -CUDART_INF_F;
+          (masked ? keep(p, it, row0 + rg * RPT + r, tok[r], lk)
+                  : in_span(p, it, tok[r], lk))
+              ? x
+              : -CUDART_INF_F;
 #endif
     }
     __syncthreads();
@@ -1618,6 +1737,22 @@ bool cache_maps(CUtensorMap* tm_k, CUtensorMap* tm_v, Params& p, bool kv8,
                    pages, p.layout_hnd, p.box_rows);
 }
 
+// The walks' launch before the attention's (with a map): nz CTAs an item
+// of `blocks` 64-row blocks each, tiles of tk keys, into the workspace.
+cudaError_t launch_walks(Params& p, int tk, int nz, int blocks,
+                         cudaStream_t s) {
+  if (p.tile_map == nullptr) {
+    p.walk_ws = nullptr;
+    return cudaSuccess;
+  }
+  p.walk_ctas = p.T * nz;
+  if (p.walk_ws == nullptr ||
+      size_t(p.walk_ctas) * (1 + p.map_nt) > p.walk_ws_len)
+    return cudaErrorInvalidValue;
+  paged_walk_kernel<<<(p.walk_ctas + 3) / 4, 128, 0, s>>>(p, tk, nz, blocks);
+  return cudaGetLastError();
+}
+
 template <int DV, int TK, bool KV8>
 cudaError_t launch_tc_at(Params p, int pages, cudaStream_t s) {
   const TcGeo g = tc_geo(p.d, p.dv, DV, KV8);
@@ -1629,6 +1764,9 @@ cudaError_t launch_tc_at(Params p, int pages, cudaStream_t s) {
   auto kernel = paged_tc_kernel<DV, TK, KV8>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(g.smem));
+  if (err == cudaSuccess)
+    err = launch_walks(p, TK, (p.tile_q + 2 * kWgRows - 1) / (2 * kWgRows),
+                       2, s);
   if (err != cudaSuccess) return err;
   dim3 grid(p.T, p.kvh, (p.tile_q + 2 * kWgRows - 1) / (2 * kWgRows));
   kernel<<<grid, 384, g.smem, s>>>(tm_k, tm_v, p);
@@ -1653,6 +1791,7 @@ cudaError_t launch_dec_at(Params p, int pages, cudaStream_t s) {
   auto kernel = paged_dec_kernel<DV, TK, NR, KV8>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+  if (err == cudaSuccess) err = launch_walks(p, TK, 1, 1, s);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(p.T, p.kvh, 1), KV8 ? 384 : 256, bytes, s>>>(tm_k, tm_v, p);
   return cudaGetLastError();
@@ -1702,7 +1841,11 @@ cudaError_t launch_tc(const Params& p, int kv_dtype, int pages,
 
 // q [kvh, q_rows, d] (bf16 or f32); k [.., d] and v [.., dv] paged caches
 // of `pages` pages; row_valid [q_rows] int32 or null; work_mask uint8 [T,
-// tile_q, mask_chunk] or null; alibi f32 [kvh * group] or null. bf16 q with a bf16,
+// tile_q, mask_chunk] or null; tile_map uint8 [T, ceil(tile_q / 64),
+// ceil(mask_chunk / 64)] (a work mask's) or null, with walk_ws, int32
+// scratch of walk_ws_len >= T * ceil(tile_q / 64) * (1 + ceil(mask_chunk /
+// 64)) elements for the CTAs' walks; alibi f32 [kvh * group] or null. bf16
+// q with a bf16,
 // e4m3 or int8 cache, and f32 q with an e4m3 cache, run on the tensor
 // cores (16-byte-aligned caches; pages of a multiple of 8 tokens in the
 // TMA build, of any size in the gather build); f32 q with an f32 or int8
@@ -1710,7 +1853,9 @@ cudaError_t launch_tc(const Params& p, int kv_dtype, int pages,
 extern "C" int fi_paged_attention(
     const void* q, const void* k, const void* v, const int* plan,
     const int* kv_indices, const int* row_valid,
-    const unsigned char* work_mask, const float* alibi, void* o, float* lse,
+    const unsigned char* work_mask, const unsigned char* tile_map,
+    int* walk_ws, long long walk_ws_len, const float* alibi, void* o,
+    float* lse,
     int T, int kvh, int q_rows, int tile_q, int d, int dv, int page_size,
     int pages, int layout_hnd, int kv_indices_offset, int group,
     int mask_chunk, float sm_scale, float v_scale, int causal,
@@ -1723,12 +1868,19 @@ extern "C" int fi_paged_attention(
   if (d <= 0 || d > 256 || d % 16 != 0 || dv <= 0 || dv > 256 ||
       dv % 16 != 0 || tile_q <= 0 || tile_q % 8 != 0 || T <= 0 ||
       page_size <= 0 || group <= 0 ||
-      (work_mask != nullptr && mask_chunk <= 0))
+      (work_mask != nullptr && mask_chunk <= 0) ||
+      (tile_map != nullptr && work_mask == nullptr))
     return int(cudaErrorInvalidValue);
   Params p;
   p.q = q; p.k = k; p.v = v; p.plan = plan; p.kv_indices = kv_indices;
   p.row_valid = row_valid; p.work_mask = work_mask; p.alibi = alibi;
   p.mask_chunk = mask_chunk; p.o = o; p.lse = lse;
+  p.tile_map = tile_map;
+  p.map_rb = (tile_q + kMapRows - 1) / kMapRows;
+  p.map_nt = (mask_chunk + kMapKeys - 1) / kMapKeys;
+  p.walk_ws = walk_ws;
+  p.walk_ws_len = walk_ws_len > 0 ? size_t(walk_ws_len) : 0;
+  p.walk_ctas = 0;
   p.T = T; p.kvh = kvh; p.q_rows = q_rows; p.tile_q = tile_q; p.d = d;
   p.dv = dv; p.page_size = page_size; p.layout_hnd = layout_hnd;
   p.kv_indices_offset = kv_indices_offset; p.group = group;

@@ -895,6 +895,13 @@ class CompiledVariant:
             os.replace(tmp, path)
         return path
 
+    @property
+    def mask_reads_head(self) -> bool:
+        """Whether the mask hook reads its ``head`` argument (a tile map of
+        the mask is then built per kv head)."""
+        e = self.graphs.get("logits_mask")
+        return e is not None and _reads(e, "head")
+
     def user_params(self, variant_params: Any,
                     device: Optional[torch.device] = None):
         """(ctypes ``UserParams``, the tensors it points into): the leaves of
@@ -914,6 +921,20 @@ class CompiledVariant:
             keep.append(t)
             up.ptr[i] = t.data_ptr()
         return up, keep
+
+
+def _reads(expr: Expr, name: str) -> bool:
+    """Whether the graph reads the hook argument ``name``."""
+    seen, todo = set(), [expr]
+    while todo:
+        e = todo.pop()
+        if not isinstance(e, Expr) or id(e) in seen:
+            continue
+        seen.add(id(e))
+        if e.op == "arg" and e.args[0] == name:
+            return True
+        todo.extend(e.args)
+    return False
 
 
 class UserParamsC(ctypes.Structure):

@@ -13,7 +13,10 @@ What a plan carries, as JAX's does:
 - causal and sliding-window masks; custom masks (``custom_mask``,
   ``packed_custom_mask``) and multi-item scoring, legalised on the host
   into JAX's work mask (uint8 [T, tile_q, kv_chunk_size]), held beside the
-  blob as ``DevicePlan.work_mask``;
+  blob as ``DevicePlan.work_mask``, with its tile map (``paged_tile_map``
+  on the host: which 64-key tiles of each item's 64-row blocks the mask
+  keeps nothing of, whole, or in part) as ``DevicePlan.tile_map``, which
+  the kernel reads to skip the first and run the second without the mask;
 - variants: the built-in ones (the soft cap, ALiBi from
   ``variant_params["alibi_slopes"]``) run in the kernel; a variant with
   hooks of the caller's own runs in the plain version only;
@@ -54,6 +57,7 @@ import torch
 
 from flashinfer_tpu_torch.ops.attention.kernels.paged import (
     batch_paged_attention_run,
+    paged_tile_map,
 )
 from flashinfer_tpu_torch.ops.attention.reference import attention_reference
 from flashinfer_tpu_torch.ops.attention.state import (
@@ -268,7 +272,8 @@ class DevicePlan:
     """Dynamic half of a plan: every index array in ONE int32 tensor, so a
     step uploads its plan in one host-to-device copy. Segments are views.
     A masked plan also holds its work mask (uint8 [T, tile_q,
-    kv_chunk_size]). A plan on repacked pages holds the gather map that
+    kv_chunk_size]) and the mask's tile map (uint8 [T, ceil(tile_q / 64),
+    ceil(kv_chunk_size / 64)]). A plan on repacked pages holds the gather map that
     fills its synthetic cache from the caller's (``repack``: int64 [3,
     pages, 128], each slot's page id in the caller's table, its slot in
     that page and its flat token, page * page size + slot) and the caller's
@@ -279,12 +284,13 @@ class DevicePlan:
     work_mask: Optional[torch.Tensor] = None
     repack: Optional[torch.Tensor] = None
     repack_page_size: int = 0
+    tile_map: Optional[torch.Tensor] = None
 
     @classmethod
     def build(cls, meta: PlanMeta, arrays: dict, device: torch.device,
               upload: bool = True) -> "DevicePlan":
         """Pack host arrays (keys: plan = the 12 plan rows, then the other
-        segment names, optionally work_mask, and repack with
+        segment names, optionally work_mask with tile_map, and repack with
         repack_page_size) into the blob and upload it.
         ``upload=False`` keeps the blob on the host, for a caller that moves
         it up together with its other inputs (the engine writes it into the
@@ -294,16 +300,20 @@ class DevicePlan:
             parts.append(np.asarray(arrays[name], np.int32).ravel())
         blob = torch.from_numpy(np.concatenate(parts))
         wm, rp = arrays.get("work_mask"), arrays.get("repack")
+        tm = arrays.get("tile_map")
         if wm is not None:
             wm = torch.from_numpy(np.ascontiguousarray(wm, np.uint8))
+        if tm is not None:
+            tm = torch.from_numpy(np.ascontiguousarray(tm, np.uint8))
         if rp is not None:
             rp = torch.from_numpy(np.ascontiguousarray(rp, np.int64))
         if upload:
             blob = blob.to(device)
-            wm = None if wm is None else wm.to(device)
-            rp = None if rp is None else rp.to(device)
+            wm, tm, rp = (None if x is None else x.to(device)
+                          for x in (wm, tm, rp))
         return cls(blob, meta=meta, work_mask=wm, repack=rp,
-                   repack_page_size=int(arrays.get("repack_page_size", 0)))
+                   repack_page_size=int(arrays.get("repack_page_size", 0)),
+                   tile_map=tm)
 
     def segment(self, name: str) -> torch.Tensor:
         off = 0
@@ -395,6 +405,7 @@ def run_device_plan(
         kv_indices_offset=kv_indices_offset,
         row_valid=dplan.segment("row_valid"), work_mask=dplan.work_mask,
         variant=variant, variant_params=variant_params,
+        tile_map=dplan.tile_map,
     )
     dv = partial_o.shape[3]
     out_map = dplan.segment("out_map").long()
@@ -671,8 +682,16 @@ class BatchAttention:
                 qo_lens, kv_lens, _host(prefix_len_ptr, np.int64), tpos,
                 int(token_pos_in_items_len) or tpos.size)
         host["req_masks"] = req_masks
-        work_mask = (None if req_masks is None
-                     else _build_work_mask(plan, req_masks, group))
+        work_mask = tile_map = None
+        if req_masks is not None:
+            work_mask = _build_work_mask(plan, req_masks, group)
+            tile_map = paged_tile_map(
+                torch.from_numpy(np.stack(plan.prefetch_arrays()).astype(
+                    np.int32)), torch.from_numpy(work_mask),
+                tile_q=plan.tile_q,
+                group=group, causal=causal, window_left=window_left,
+                q_rows=bucket_rows,
+                row_valid=torch.from_numpy(valid_row.astype(np.int32)))
 
         merge_src = build_merge_src(plan.merge_out_row, bucket_rows,
                                     min_splits=min_max_splits)
@@ -702,7 +721,8 @@ class BatchAttention:
             dict(plan=plan.prefetch_arrays(), kv_indices=kv_idx_host,
                  row_src=row_src, row_valid=valid_row,
                  merge_out_row=plan.merge_out_row, out_map=out_map,
-                 merge_src=merge_src, work_mask=work_mask, **(repack or {})),
+                 merge_src=merge_src, work_mask=work_mask, tile_map=tile_map,
+                 **(repack or {})),
             self._device, upload=not defer_upload,
         )
         variant = self._variant or make_default_variant(

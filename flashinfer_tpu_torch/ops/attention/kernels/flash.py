@@ -18,6 +18,13 @@ lse = -inf (o and lse 0 for the sigmoid). lse is natural-log.
 package's packed form, uint8 bits in "big" order over the flattened
 [qo_len, kv_len] matrix; the tensor's dtype decides. The kernel reads the
 packed bits (8x fewer bytes); a bool mask is packed on the device first.
+
+A mask (the custom mask, a caller's mask hook, or both) reaches the kernel
+with its tile map (``kernels/tile_map.py``: [map heads, 64-row blocks of
+packed rows, 64-key tiles]), written by a first launch of the same library
+(``flash_tile_map``); the kernel then skips the key tiles a CTA's rows keep
+nothing of and runs the tiles the mask keeps whole without it. The map has
+a head per kv head where the hook reads the head, else one.
 """
 
 from __future__ import annotations
@@ -36,6 +43,12 @@ from flashinfer_tpu_torch.jit.variant import (
     compile_variant,
     needs_jit,
 )
+from flashinfer_tpu_torch.ops.attention.kernels.tile_map import (
+    MAP_TILE,
+    map_classes,
+    mapped_keep,
+    tile_classes,
+)
 from flashinfer_tpu_torch.ops.attention.variants import (
     AttentionVariant,
     DefaultAttention,
@@ -45,7 +58,7 @@ from flashinfer_tpu_torch.ops.quantization import packbits, unpackbits
 from flashinfer_tpu_torch.utils import cdiv
 
 __all__ = ["flash_attention_dense", "flash_attention_plain",
-           "flash_num_splits"]
+           "flash_num_splits", "flash_tile_map", "flash_tile_map_plain"]
 
 _NEG_INF = float("-inf")
 # the kernel's tiles (csrc/flash_attention.cu): packed q rows a CTA; bf16
@@ -105,13 +118,17 @@ def flash_attention_plain(
     sink: Optional[torch.Tensor] = None,
     variant: AttentionVariant = DefaultAttention,
     variant_params: Any = None,
+    tile_map: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's function in plain PyTorch, one kv head's query group at
     a time (so that long sequences fit), every hook applied. Softmax runs
     against each row's global maximum; the kernel's against a running one.
     Hooks see absolute head indices, as in ``attention_reference``. The
     sink comes from ``sink`` alone, as in the TPU kernel: a variant's
-    ``sink_logits`` hook is the oracle's."""
+    ``sink_logits`` hook is the oracle's. ``tile_map`` (the mask's, as
+    ``flash_tile_map`` builds it) drops the keys of the tiles it says keep
+    nothing and unmasks the tiles it says the mask keeps whole, as the
+    kernel does."""
     qo_len, hq, d = q.shape
     kv_len, hkv, _ = k.shape
     dv = v.shape[-1]
@@ -122,13 +139,10 @@ def flash_attention_plain(
 
     q_pos = torch.arange(qo_len, device=dev)[:, None] + (kv_len - qo_len)
     kv_pos = torch.arange(kv_len, device=dev)[None, :]
-    mask = kv_pos < kv_len
-    if causal:
-        mask = mask & (kv_pos <= q_pos)
-    if window_left >= 0:
-        mask = mask & (kv_pos > q_pos - window_left - 1)
-    if custom_mask is not None:
-        mask = mask & _dense_mask(custom_mask, qo_len, kv_len)
+    reach = _reach(q_pos, kv_pos, kv_len, causal, window_left)
+    dense = (None if custom_mask is None
+             else _dense_mask(custom_mask, qo_len, kv_len))
+    mask = reach if dense is None else reach & dense
 
     qf = q.float()
     if variant.query_transform is not None:  # rounded as the kernel feeds q
@@ -143,10 +157,23 @@ def flash_attention_plain(
         if variant.logits_transform is not None:
             s = variant.logits_transform(variant_params, s, q_pos, kv_pos,
                                          head_idx)
-        keep = mask[None]
-        if variant.logits_mask is not None:
-            keep = keep & variant.logits_mask(variant_params, q_pos, kv_pos,
-                                              head_idx)
+        hook = (None if variant.logits_mask is None else
+                variant.logits_mask(variant_params, q_pos, kv_pos, head_idx))
+        if tile_map is None:
+            keep = mask[None] if hook is None else mask[None] & hook
+        else:  # the mask as the kernel reads it under its map
+            m = torch.ones(group, qo_len, kv_len, dtype=torch.bool,
+                           device=dev)
+            for part in (dense, hook):
+                if part is not None:
+                    m = m & part
+            rows = (torch.arange(qo_len, device=dev)[None, :] * group
+                    + torch.arange(group, device=dev)[:, None])
+            hm = h if tile_map.shape[0] > 1 else 0
+            cls = tile_classes(tile_map[hm:hm + 1], rows.reshape(-1),
+                               torch.arange(kv_len, device=dev))
+            keep = reach[None] & mapped_keep(
+                m, cls.reshape(group, qo_len, kv_len))
         vf = v[:, h].float()
         if not variant.use_softmax:
             w = torch.where(keep, s, 0.0).to(v.dtype).float()
@@ -176,6 +203,134 @@ def flash_attention_plain(
     return out.to(q.dtype), lse
 
 
+def _reach(q_pos, kv_pos, kv_len: int, causal: bool,
+           window_left: int) -> torch.Tensor:
+    """bool [qo, kv]: the pairs a row may see at all (a real key, causal,
+    the window)."""
+    mask = (kv_pos < kv_len).expand(q_pos.shape[0], kv_pos.shape[1])
+    if causal:
+        mask = mask & (kv_pos <= q_pos)
+    if window_left >= 0:
+        mask = mask & (kv_pos > q_pos - window_left - 1)
+    return mask
+
+
+def flash_tile_map_plain(qo_len: int, kv_len: int, num_qo_heads: int,
+                         num_kv_heads: int, *, causal: bool = False,
+                         window_left: int = -1,
+                         custom_mask: Optional[torch.Tensor] = None,
+                         variant: AttentionVariant = DefaultAttention,
+                         variant_params: Any = None, map_heads: int = 1,
+                         device=None) -> torch.Tensor:
+    """The tile map of a mask (``custom_mask``, ``variant.logits_mask`` or
+    both) in plain torch: uint8 [map_heads, ceil(qo_len * group / 64),
+    ceil(kv_len / 64)] over packed rows (token * group + head in group).
+    With ``map_heads`` 1 the hook is asked at head 0 for every row (a hook
+    that does not read the head), else at each row's head of kv head h."""
+    group = num_qo_heads // num_kv_heads
+    if custom_mask is not None:
+        device = custom_mask.device
+    dev = torch.device(device or "cpu")
+    q_pos = torch.arange(qo_len, device=dev)[:, None] + (kv_len - qo_len)
+    kv_pos = torch.arange(kv_len, device=dev)[None, :]
+    keep = torch.ones(qo_len, kv_len, dtype=torch.bool, device=dev)
+    if custom_mask is not None:
+        keep = keep & _dense_mask(custom_mask.to(dev), qo_len, kv_len)
+    rows = torch.arange(qo_len * group, device=dev)
+    tok = rows // group
+    reach = _reach(q_pos, kv_pos, kv_len, causal, window_left)[tok]
+    maps = []
+    for hm in range(map_heads):
+        k = keep[tok]
+        if variant.logits_mask is not None:
+            head = ((hm * group + rows % group) if map_heads > 1
+                    else torch.zeros_like(rows))
+            k = k & variant.logits_mask(variant_params, q_pos[tok], kv_pos,
+                                        head[:, None])
+        maps.append(map_classes(reach[None], k[None])[0])
+    return torch.stack(maps)
+
+
+def _map_lib(user: Optional[CompiledVariant] = None):
+    """The tile map's C entry, of the library the attention runs in."""
+    fn = (jit.load("flash_attention") if user is None else
+          jit.load("flash_attention", user.header_path())).fi_flash_tile_map
+    if fn.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        # mask map qo kv hq hkv causal window map_heads stream
+        fn.argtypes = [P, P, I, I, I, I, I, I, I, P]
+        if user is not None:
+            fn.argtypes.append(ctypes.POINTER(UserParamsC))
+        fn.restype = I
+    return fn
+
+
+def _map_launch(user: Optional[CompiledVariant], bits: Optional[torch.Tensor],
+                qo_len: int, kv_len: int, hq: int, hkv: int, causal: bool,
+                window_left: int, variant_params: Any,
+                dev: torch.device) -> torch.Tensor:
+    """The mask's tile map by the kernel's first launch (packed bits
+    ``bits`` and/or the user build's hook), or raise."""
+    heads = hkv if user is not None and user.mask_reads_head else 1
+    tile_map = torch.empty(heads, cdiv(qo_len * (hq // hkv), MAP_TILE),
+                           cdiv(kv_len, MAP_TILE), dtype=torch.uint8,
+                           device=dev)
+    extra = ()
+    if user is not None:
+        up, leaves = user.user_params(variant_params, dev)
+        extra = (ctypes.byref(up),)
+    err = _map_lib(user)(
+        None if bits is None else bits.data_ptr(), tile_map.data_ptr(),
+        qo_len, kv_len, hq, hkv, int(causal), int(window_left), heads,
+        torch.cuda.current_stream(dev).cuda_stream, *extra)
+    jit.check(err, "flash attention tile map")
+    flash_attention_dense.map_launches += 1
+    return tile_map
+
+
+def _has_mask(custom_mask, variant) -> bool:
+    return custom_mask is not None or variant.logits_mask is not None
+
+
+def flash_tile_map(qo_len: int, kv_len: int, num_qo_heads: int,
+                   num_kv_heads: int, *, causal: bool = False,
+                   window_left: int = -1,
+                   custom_mask: Optional[torch.Tensor] = None,
+                   variant: AttentionVariant = DefaultAttention,
+                   variant_params: Any = None,
+                   device="cuda") -> torch.Tensor:
+    """The tile map ``flash_attention_dense`` builds for this mask: on a CUDA
+    device by the kernel's first launch (counted in
+    ``flash_attention_dense.map_launches``), else ``flash_tile_map_plain``
+    (a head each kv head where a mask hook is given, the hook untraced).
+    ``custom_mask`` as ``flash_attention_dense`` takes it."""
+    dev = torch.device(device)
+    if not _has_mask(custom_mask, variant) or kv_len <= 0 or qo_len <= 0:
+        raise ValueError("a tile map needs a mask and keys")
+    if dev.type != "cuda":
+        return flash_tile_map_plain(
+            qo_len, kv_len, num_qo_heads, num_kv_heads, causal=causal,
+            window_left=window_left, custom_mask=custom_mask,
+            variant=variant, variant_params=variant_params,
+            map_heads=(num_kv_heads if variant.logits_mask is not None
+                       else 1), device=dev)
+    user = (compile_variant(variant, variant_params, "flash", num_qo_heads)
+            if needs_jit(variant, "flash") else None)
+    return _map_launch(user, _packed_bits(custom_mask, qo_len, kv_len, dev),
+                       qo_len, kv_len, num_qo_heads, num_kv_heads, causal,
+                       window_left, variant_params, dev)
+
+
+def _packed_bits(custom_mask, qo_len: int, kv_len: int,
+                 dev: torch.device) -> Optional[torch.Tensor]:
+    """The custom mask as the kernel reads it: packed bits on ``dev``."""
+    if custom_mask is None:
+        return None
+    _check_mask_bits(custom_mask, qo_len, kv_len)
+    return (custom_mask if custom_mask.dtype == torch.uint8
+            else packbits(custom_mask.to(dev))).to(dev).contiguous()
+
+
 def _lib(user: Optional[CompiledVariant] = None):
     """The kernel's C entry; with a caller's variant, that of its own build
     (``jit.variant``), which takes a ``UserParams`` last."""
@@ -184,7 +339,9 @@ def _lib(user: Optional[CompiledVariant] = None):
     if fn.argtypes is None:
         P, I, F, L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                       ctypes.c_longlong)
-        fn.argtypes = [P, P, P, P, P, P, P, P,  # q k v mask alibi sink o lse
+        fn.argtypes = [P, P, P, P, P, I,  # q k v mask tile_map map_heads
+                       P, L,  # the walks' scratch and its length
+                       P, P, P, P,  # alibi sink o lse
                        P, P,  # split partials: o, lse
                        L, L, L, L, L, L,  # q, k, v strides (token, head)
                        I, I, I, I, I, I,  # qo kv hq hkv d dv
@@ -236,6 +393,7 @@ def flash_attention_dense(
     sink: Optional[torch.Tensor] = None,
     variant: AttentionVariant = DefaultAttention,
     variant_params: Any = None,
+    tile_map: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dense single-request attention. q [qo_len, num_qo_heads, d]; k/v
     [kv_len, num_kv_heads, d(_vo)] (any token and head strides: an HND
@@ -247,14 +405,25 @@ def flash_attention_dense(
     ``flash_attention_plain``. A variant with hooks of the caller's own
     runs in the kernel's build for that variant (``jit.variant``: traced,
     built by nvcc at first use, cached); a hook outside the traced subset
-    raises ``NotImplementedError`` before any build."""
+    raises ``NotImplementedError`` before any build. Under a mask (the
+    custom mask, a mask hook) the kernel reads its tile map
+    (``flash_tile_map``); ``tile_map=False`` runs without one (every tile
+    under the mask tested key by key: the kernel's path before the map)."""
     kw = dict(causal=causal, sm_scale=sm_scale, window_left=window_left,
               custom_mask=custom_mask, sink=sink, variant=variant,
               variant_params=variant_params)
-    if not q.is_cuda:
-        return flash_attention_plain(q, k, v, **kw)
     qo_len, hq, d = q.shape
     kv_len, hkv, _ = k.shape
+    mapped = tile_map and _has_mask(custom_mask, variant) and kv_len > 0 \
+        and qo_len > 0
+    if not q.is_cuda:
+        if mapped:
+            kw["tile_map"] = flash_tile_map(
+                qo_len, kv_len, hq, hkv, causal=causal,
+                window_left=window_left, custom_mask=custom_mask,
+                variant=variant, variant_params=variant_params,
+                device=q.device)
+        return flash_attention_plain(q, k, v, **kw)
     dv = v.shape[-1]
     dt = q.dtype
     if dt not in _DTYPE_CODES or k.dtype != dt or v.dtype != dt:
@@ -283,15 +452,13 @@ def flash_attention_dense(
     if spec.use_alibi:
         alibi = variant_params["alibi_slopes"].to(dev, torch.float32)
         alibi = alibi.reshape(hq).contiguous()
-    mask = None
-    if custom_mask is not None:
-        _check_mask_bits(custom_mask, qo_len, kv_len)
-        mask = (custom_mask if custom_mask.dtype == torch.uint8
-                else packbits(custom_mask.to(dev))).to(dev).contiguous()
+    mask = _packed_bits(custom_mask, qo_len, kv_len, dev)
     out_shape = (qo_len, hq, dv)
     if qo_len == 0:
         return (torch.empty(out_shape, dtype=dt, device=dev),
                 torch.empty(qo_len, hq, device=dev))
+    tmap = (_map_launch(user, mask, qo_len, kv_len, hq, hkv, causal,
+                        window_left, variant_params, dev) if mapped else None)
     fn = _lib(user)
     q, k, v = _kernel_ready(q), _kernel_ready(k), _kernel_ready(v)
     splits = flash_num_splits(qo_len, kv_len, hq, hkv, dt,
@@ -314,8 +481,15 @@ def flash_attention_dense(
     if user is not None:  # the leaves, alive until the launch is enqueued
         up, leaves = user.user_params(variant_params, dev)
         extra = (ctypes.byref(up),)
+    walks = None
+    if tmap is not None:  # the kernel's scratch for its CTAs' walks
+        walks = torch.empty(
+            cdiv(qo_len * (hq // hkv), _ROWS[torch.bfloat16]) * tmap.shape[0]
+            * splits * (1 + tmap.shape[2]), dtype=torch.int32, device=dev)
     err = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(mask), ptr(alibi),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(mask), ptr(tmap),
+        1 if tmap is None else tmap.shape[0], ptr(walks),
+        0 if walks is None else walks.numel(), ptr(alibi),
         ptr(sink_k), o.data_ptr(), lse.data_ptr(), ptr(o_part), ptr(lse_part),
         q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
         v.stride(1), qo_len, kv_len, hq, hkv, d, dv, int(causal),
@@ -329,3 +503,4 @@ def flash_attention_dense(
 
 
 flash_attention_dense.launches = 0
+flash_attention_dense.map_launches = 0  # the tile map's first launches

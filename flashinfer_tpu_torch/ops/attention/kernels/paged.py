@@ -31,6 +31,13 @@ row's query head is ``kv_head * group + (qo_tile * tile_q + row) % group``,
 its true head in its request (the TPU kernel takes ``row % group`` of the
 row in its tile, which agrees only where tile_q is a multiple of the
 group).
+
+A work mask's tile map (``kernels/tile_map.py``: uint8 [T, ceil(tile_q /
+64), ceil(chunk / 64)], ``paged_tile_map``; the plan builds the same on the
+host) classes each (item, 64-row block, 64-key tile). The kernel skips the
+key tiles a CTA's rows keep nothing of and runs the tiles the mask keeps
+whole without reading it; the plain version, given the map, drops and
+keeps the same (so a map that misclassed a tile would show).
 """
 
 from __future__ import annotations
@@ -47,10 +54,17 @@ from flashinfer_tpu_torch.jit.variant import (
     compile_variant,
     needs_jit,
 )
+from flashinfer_tpu_torch.ops.attention.kernels.tile_map import (
+    MAP_TILE,
+    map_classes,
+    mapped_keep,
+    tile_classes,
+)
 from flashinfer_tpu_torch.ops.attention.variants import AttentionVariant
 from flashinfer_tpu_torch.utils import TensorLayout
 
-__all__ = ["batch_paged_attention_run", "paged_attention_plain"]
+__all__ = ["batch_paged_attention_run", "paged_attention_plain",
+           "paged_tile_map"]
 
 # rows of the plan that the kernels read (AttentionPlan.prefetch_arrays)
 _REQ, _QO_TILE, _QO_START, _KV_START, _KV_END, _KV_PAGE_START, _Q_POS_BASE = (
@@ -62,6 +76,55 @@ _KV_E4M3, _KV_I8 = 2, 3
 _LOG2E = 1.4426950408889634
 _LN2 = 0.6931471805599453
 NON_SOFTMAX = "non-softmax variants: use the dense kernel"
+
+
+def paged_tile_map(plan: torch.Tensor, work_mask: torch.Tensor, *,
+                   tile_q: int, group: int, causal: bool,
+                   window_left: int = -1, q_rows: int,
+                   row_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A work mask's tile map on its own device, in plain torch (no host
+    sync): uint8 [T, ceil(tile_q / 64), ceil(chunk / 64)]. The plan builds
+    it on the host beside the work mask; the wrapper, handed a work mask
+    alone, on the mask's device. A row is real as the kernel's ``row_ok``
+    says (inside the q rows and, with ``row_valid``, marked valid); a key
+    is in reach inside the item's span and under causal and the window."""
+    p = plan.reshape(12, -1).long()
+    T, chunk = p.shape[1], work_mask.shape[2]
+    dev = work_mask.device
+    if tuple(work_mask.shape[:2]) != (T, tile_q):
+        raise ValueError(f"work_mask {tuple(work_mask.shape)} is not "
+                         f"[{T}, {tile_q}, chunk]")
+    span = torch.where(p[_REQ] >= 0,
+                       (p[_KV_END] - p[_KV_START]).clamp(min=0), 0)
+    r = torch.arange(tile_q, device=dev)
+    rows = p[_QO_START][:, None] + r[None, :]  # [T, tile_q]
+    real = rows < q_rows
+    if row_valid is not None:
+        real = real & (row_valid.reshape(-1)[rows.clamp(0, q_rows - 1)] != 0)
+    tok = (p[_Q_POS_BASE][:, None]
+           + (p[_QO_TILE][:, None] * tile_q + r[None, :]) // group)
+    col = torch.arange(chunk, device=dev)
+    pos = p[_KV_START][:, None] + col[None, :]  # [T, chunk]
+    reach = real[:, :, None] & (col[None, :] < span[:, None])[:, None, :]
+    if causal:
+        reach = reach & (pos[:, None, :] <= tok[:, :, None])
+    if window_left >= 0:
+        reach = reach & (pos[:, None, :] >= tok[:, :, None] - window_left)
+    return map_classes(reach, work_mask != 0)
+
+
+def _mapped_mask(work_mask: Optional[torch.Tensor], tile_map: torch.Tensor,
+                 tile_q: int, C: int) -> torch.Tensor:
+    """bool [T, tile_q, C]: the work mask as the kernel reads it under the
+    tile map."""
+    T, dev = tile_map.shape[0], tile_map.device
+    wm = torch.ones(T, tile_q, C, dtype=torch.bool, device=dev)
+    if work_mask is not None:
+        n = min(C, work_mask.shape[2])
+        wm[:, :, :n] = work_mask[:, :, :n] != 0
+    return mapped_keep(wm, tile_classes(
+        tile_map, torch.arange(tile_q, device=dev),
+        torch.arange(C, device=dev)))
 
 
 def _kv_format(k: torch.Tensor) -> str:
@@ -112,6 +175,7 @@ def paged_attention_plain(
     work_mask: Optional[torch.Tensor] = None,
     variant: Optional[AttentionVariant] = None,
     variant_params: Any = None,
+    tile_map: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The work list in plain PyTorch, all items at once: each item's KV
     chunk is gathered page by page into [T, kvh, C, d] and attended in one
@@ -125,7 +189,10 @@ def paged_attention_plain(
     transforms, logit mask) see the positions the kernel gives them: keys
     past an item's span take its last key's, rows past its last real row
     that row's token (only masked or dropped values change), so a table a
-    hook reads at ``q_pos`` / ``kv_pos`` is read at real positions."""
+    hook reads at ``q_pos`` / ``kv_pos`` is read at real positions.
+    ``tile_map`` (a work mask's) drops the keys of the tiles it says keep
+    nothing and keeps every key of those it says the mask keeps whole, as
+    the kernel does."""
     cap, alibi, hooks = _resolve_variant(variant, variant_params,
                                          logits_soft_cap)
     fmt = _kv_format(k_cache)
@@ -209,7 +276,9 @@ def paged_attention_plain(
         mask = mask & (kv_pos <= q_tok)
     if window_left >= 0:
         mask = mask & (kv_pos > q_tok - window_left - 1)
-    if work_mask is not None:
+    if tile_map is not None:
+        mask = mask & _mapped_mask(work_mask, tile_map, tile_q, C)[:, None]
+    elif work_mask is not None:
         mask = mask & (work_mask[:, None, :, :C] != 0)
     if hooks is not None and hooks.logits_mask is not None:
         mask = mask & hooks.logits_mask(variant_params, q_hook, kv_hook,
@@ -243,7 +312,8 @@ def _lib(user: Optional[CompiledVariant] = None, gather: bool = False):
     if fn.argtypes is None:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = [P, P, P, P, P, P,  # q k v plan idx valid
-                       P, P, P, P,  # work_mask alibi o lse
+                       P, P, P, ctypes.c_longlong,  # work_mask map walks
+                       P, P, P,  # alibi o lse
                        # T kvh rows tq d dv ps pages hnd off grp chunk
                        I, I, I, I, I, I, I, I, I, I, I, I,
                        # scales causal window cap dtypes stream
@@ -289,6 +359,7 @@ def batch_paged_attention_run(
     work_mask: Optional[torch.Tensor] = None,
     variant: Optional[AttentionVariant] = None,
     variant_params: Any = None,
+    tile_map: Any = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run the planned work list. q_packed [kvh, rows, d] (GQA-packed, per
     request tile_q-aligned); k caches NHD [P, ps, kvh, d] or HND
@@ -297,7 +368,10 @@ def batch_paged_attention_run(
     row real): a 64-row block of padding rows is skipped. ``work_mask``
     uint8 [T, tile_q, chunk] or None; ``variant`` (with ``variant_params``:
     ALiBi's f32 [kvh * group] "alibi_slopes") replaces ``logits_soft_cap``
-    where given.
+    where given. ``tile_map``: the work mask's map (the plan's
+    ``DevicePlan.tile_map``); None derives it on the mask's device
+    (``paged_tile_map``); False runs without one (every tile of a masked
+    plan tested key by key: the kernels' path before the map).
 
     A CUDA tensor launches the kernel (or raises); a CPU tensor takes
     ``paged_attention_plain``. bf16 numerics (bf16 q, or an e4m3 cache) run
@@ -309,12 +383,28 @@ def batch_paged_attention_run(
     kernel's build for that variant (``jit.variant``; a hook outside the
     traced subset raises ``NotImplementedError`` before any build); a
     non-softmax variant runs in neither version."""
+    if work_mask is not None and work_mask.dtype in (torch.int8, torch.bool):
+        work_mask = work_mask.view(torch.uint8)
+    if tile_map is None and work_mask is not None:
+        tile_map = paged_tile_map(
+            plan, work_mask, tile_q=tile_q, group=group, causal=causal,
+            window_left=window_left, q_rows=q_packed.shape[1],
+            row_valid=row_valid)
+    if tile_map is False or work_mask is None:
+        tile_map = None
+    if tile_map is not None:
+        want = (plan.numel() // 12, -(-tile_q // MAP_TILE),
+                -(-work_mask.shape[2] // MAP_TILE))
+        if tuple(tile_map.shape) != want or tile_map.dtype != torch.uint8:
+            raise ValueError(f"tile_map {tile_map.dtype} "
+                             f"{tuple(tile_map.shape)} does not cover the "
+                             f"plan's uint8 {list(want)} tiles")
     kw = dict(tile_q=tile_q, group=group, causal=causal, sm_scale=sm_scale,
               k_scale=k_scale, v_scale=v_scale, window_left=window_left,
               logits_soft_cap=logits_soft_cap, kv_layout=kv_layout,
               kv_indices_offset=kv_indices_offset, row_valid=row_valid,
               work_mask=work_mask, variant=variant,
-              variant_params=variant_params)
+              variant_params=variant_params, tile_map=tile_map)
     cap, alibi, hooks = _resolve_variant(variant, variant_params,
                                          logits_soft_cap)
     if not q_packed.is_cuda:
@@ -356,13 +446,19 @@ def batch_paged_attention_run(
     row_valid = _device_arg(row_valid, "row_valid", torch.int32, q_rows)
     chunk = 0
     if work_mask is not None:
-        if work_mask.dtype in (torch.int8, torch.bool):
-            work_mask = work_mask.view(torch.uint8)
         if work_mask.dim() != 3 or tuple(work_mask.shape[:2]) != (T, tile_q):
             raise ValueError(f"work_mask {tuple(work_mask.shape)} is not "
                              f"[{T}, {tile_q}, chunk]")
         chunk = work_mask.shape[2]
         work_mask = _device_arg(work_mask, "work_mask", torch.uint8, 0)
+    walks = None
+    if tile_map is not None:
+        tile_map = _device_arg(tile_map, "tile_map", torch.uint8, 0)
+        # the kernel's scratch for its CTAs' walks of the map: a count and a
+        # list of up to map_nt tiles a CTA (an item's 64-row blocks bound
+        # its CTAs)
+        walks = torch.empty(T * tile_map.shape[1] * (1 + tile_map.shape[2]),
+                            dtype=torch.int32, device=q_packed.device)
     if alibi is not None:
         alibi = _device_arg(alibi.reshape(-1), "alibi_slopes", torch.float32,
                             kvh * group)
@@ -388,7 +484,9 @@ def batch_paged_attention_run(
     err = fn(
         q_packed.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         plan.data_ptr(), kv_indices.data_ptr(), ptr(row_valid),
-        ptr(work_mask), ptr(alibi), o.data_ptr(), lse.data_ptr(), T, kvh,
+        ptr(work_mask), ptr(tile_map), ptr(walks),
+        0 if walks is None else walks.numel(), ptr(alibi), o.data_ptr(),
+        lse.data_ptr(), T, kvh,
         q_rows, tile_q, d, dv, ps, k_cache.shape[0], int(hnd),
         int(kv_indices_offset), group, chunk, float(sm_scale * k_scale),
         float(v_scale), int(causal), int(window_left), cap,

@@ -634,6 +634,231 @@ def test_paged_kernel_runs_a_callers_variant(dev, jit_built, path, name):
                  variant=variant, variant_params=params)
 
 
+# ------------------------------------------------- mask-aware key tiles
+
+def _masked_requests(kind, rng):
+    """(qo_lens, kv_lens, plan keywords) of a small masked prefill batch:
+    a random custom mask; causal documents of 37 tokens (as a custom
+    mask); a draft tree of 32 nodes after its context (ancestors only, no
+    causal); multi-item scoring (a 130-token prefix, items of 13)."""
+    if kind == "multi_item":
+        prefix, items, n_item = 130, 10, 13
+        n = prefix + items * n_item
+        tpos = np.tile(np.arange(n_item), 2 * items)
+        return [n, n], [n, n], dict(
+            causal=True, prefix_len_ptr=np.asarray([prefix, prefix]),
+            token_pos_in_items_ptr=tpos,
+            token_pos_in_items_len=items * n_item)
+    if kind == "tree":
+        ctx, draft = rng.integers(150, 300, 3), 32
+        masks = []
+        for c in ctx:
+            anc = np.eye(draft, dtype=bool)
+            for i in range(1, draft):
+                anc[i] |= anc[rng.integers(0, i)]
+            masks.append(np.concatenate([np.ones((draft, c), bool), anc], 1))
+        return ([draft] * 3, list(ctx + draft), dict(
+            causal=False,
+            custom_mask=np.concatenate([m.ravel() for m in masks])))
+    qo = rng.integers(150, 260, 2)
+    kv = qo + rng.integers(0, 90, 2)
+    if kind == "document":
+        masks = [((np.arange(b - a, b)[:, None] // 37)
+                  == (np.arange(b)[None, :] // 37)) for a, b in zip(qo, kv)]
+    else:
+        masks = [rng.random((a, b)) > 0.5 for a, b in zip(qo, kv)]
+    return list(qo), list(kv), dict(
+        causal=True, custom_mask=np.concatenate([m.ravel() for m in masks]))
+
+
+def _masked_plan(kind, tile_q, ps, chunk, hq, hkv, d, rng):
+    qo, kv, kw = _masked_requests(kind, rng)
+    kv = np.asarray(kv)
+    npages = -(-kv // ps)
+    indptr = np.concatenate([[0], np.cumsum(npages)])
+    pages = int(indptr[-1]) + 3
+    w = attn_batch.BatchPrefillWithPagedKVCacheWrapper(
+        kv_layout="NHD", device="cuda", tile_q=tile_q)
+    w.plan(np.concatenate([[0], np.cumsum(qo)]), indptr,
+           np.random.default_rng(5).permutation(pages)[: indptr[-1]],
+           ((kv - 1) % ps) + 1, hq, hkv, d, ps, kv_chunk_size=chunk, **kw)
+    return w.device_plan, pages
+
+
+# (tile_q, q dtype, cache, page, chunk): the wgmma row-block tiles (64 and
+# 128 rows), the swap-AB decode tiles (16 rows; split KV at chunk 64), the
+# gather build (page 12), the f32 CUDA-core kernel
+MAP_PATHS = {
+    "tc64_bf16": (64, torch.bfloat16, "model", 16, 512),
+    "tc128_e4m3": (128, torch.bfloat16, "e4m3", 16, 256),
+    "tc64_int8_split": (64, torch.bfloat16, "int8", 16, 64),
+    "dec16_bf16_split": (16, torch.bfloat16, "model", 16, 64),
+    "dec16_int8": (16, torch.bfloat16, "int8", 16, 512),
+    "gather12_bf16": (64, torch.bfloat16, "model", 12, 192),
+    "gather12_e4m3_dec": (16, torch.bfloat16, "e4m3", 12, 96),
+    "f32": (64, torch.float32, "model", 16, 512),
+    "f32_int8_split": (16, torch.float32, "int8", 16, 64),
+}
+
+
+@pytest.mark.parametrize("path", list(MAP_PATHS))
+@pytest.mark.parametrize("kind", ["random", "document", "tree",
+                                  "multi_item"])
+def test_paged_tile_map_is_bit_identical(dev, kind, path):
+    """A masked plan with its tile map and without it: o and lse bit for
+    bit (a skipped tile adds nothing, a tile the mask keeps whole gives the
+    same S unmasked), on every kernel, container and build, split KV too;
+    both against the plain version (without the map); the map built on the
+    device equals the plan's host-built one."""
+    from flashinfer_tpu_torch.ops.attention.kernels.paged import (
+        paged_tile_map,
+    )
+
+    tile_q, qdt, kv, ps, chunk = MAP_PATHS[path]
+    rng = np.random.default_rng(len(kind) + 7 * len(path))
+    gen = torch.Generator(device=dev).manual_seed(len(kind))
+    hq, hkv, d = 4, 2, 64
+    dp, pages = _masked_plan(kind, tile_q, ps, chunk, hq, hkv, d, rng)
+    m = dp.meta
+    assert dp.tile_map is not None and m.page_size == ps
+    kc, vc = _paged_caches(dev, gen, "NHD", kv, qdt, pages, ps, hkv, d, d)
+    q = torch.randn(hkv, m.bucket_rows, d, device=dev, generator=gen).to(qdt)
+    unit = INT8_UNIT if kv == "int8" else 1.0
+    kw = dict(tile_q=m.tile_q, group=hq // hkv, causal=m.causal,
+              sm_scale=d ** -0.5, row_valid=dp.segment("row_valid"),
+              k_scale=0.7 * unit, v_scale=1.3 * unit,
+              kv_layout=TensorLayout.NHD, work_mask=dp.work_mask)
+    args = (q, kc, vc, dp.segment("kv_indices"), dp.segment("plan"))
+    derived = paged_tile_map(dp.segment("plan"), dp.work_mask,
+                             tile_q=m.tile_q, group=hq // hkv,
+                             causal=m.causal, q_rows=m.bucket_rows,
+                             row_valid=dp.segment("row_valid"))
+    assert torch.equal(derived, dp.tile_map)
+    o1, l1 = batch_paged_attention_run(*args, tile_map=dp.tile_map, **kw)
+    o0, l0 = batch_paged_attention_run(*args, tile_map=False, **kw)
+    ref_o, ref_lse = paged_attention_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(o1, o0) and torch.equal(l1, l0)
+    f32 = qdt == torch.float32 and kv != "e4m3"
+    tol = 1e-4 if f32 else 2e-2
+    torch.testing.assert_close(o1.float(), ref_o.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(l1, ref_lse, atol=1e-3, rtol=1e-4)
+
+
+def _head_doc_variant(dev, kv_len):
+    """A mask hook that reads the head: even heads see their document of 37
+    tokens, odd heads of 53."""
+    from flashinfer_tpu_torch.ops.attention.variants import AttentionVariant
+
+    pos = torch.arange(kv_len + 256, device=dev)
+    return (AttentionVariant(
+        name="head_doc",
+        logits_mask=lambda p, qp, kp, h: torch.where(
+            h % 2 == 0, p["a"][qp] == p["a"][kp],
+            p["b"][qp] == p["b"][kp])),
+        {"a": (pos // 37).int(), "b": (pos // 53).int()})
+
+
+# (qo, kv, q heads, kv heads): a prefill, chunked prefill, and a few rows
+# over many keys (the keys split across CTAs)
+MAP_FLASH_SHAPES = {"prefill": (700, 700, 8, 2), "chunk": (300, 900, 8, 2),
+                    "split": (3, 3000, 32, 8)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", list(MAP_FLASH_SHAPES))
+@pytest.mark.parametrize("mask", ["doc_bits", "random_bits", "doc_hook",
+                                  "head_hook"])
+def test_flash_tile_map_is_bit_identical(dev, request, dtype, shape, mask):
+    """The flash kernel under a packed mask or a caller's mask hook, with
+    the tile map its first launch writes and without: o and lse bit for
+    bit, both within the limits of the plain version (without the map);
+    the first launch's map equals the plain one (a head each kv head for a
+    hook that reads the head)."""
+    from flashinfer_tpu_torch.ops.attention.kernels.flash import (
+        flash_attention_dense,
+        flash_attention_plain,
+        flash_tile_map,
+        flash_tile_map_plain,
+    )
+    from flashinfer_tpu_torch.ops.quantization import packbits
+
+    qo, kv, hq, hkv = MAP_FLASH_SHAPES[shape]
+    gen = torch.Generator(device=dev).manual_seed(41)
+    q, k, v = (torch.randn(n, h, 64, device=dev, generator=gen).to(dtype)
+               for n, h in ((qo, hq), (kv, hkv), (kv, hkv)))
+    kw = dict(causal=True)
+    if mask.endswith("bits"):
+        q_pos = torch.arange(kv - qo, kv, device=dev)[:, None]
+        k_pos = torch.arange(kv, device=dev)[None, :]
+        keep = (q_pos // 37 == k_pos // 37 if mask == "doc_bits"
+                else torch.rand(qo, kv, device=dev, generator=gen) < 0.5)
+        kw["custom_mask"] = packbits(keep.reshape(-1))
+    elif mask == "doc_hook":
+        request.getfixturevalue("jit_built")
+        kw["variant"], kw["variant_params"], _ = _jit_variant(
+            "doc_mask", hq, kv, dev)
+    else:
+        kw["variant"], kw["variant_params"] = _head_doc_variant(dev, kv)
+    before = (flash_attention_dense.launches,
+              flash_attention_dense.map_launches)
+    o1, l1 = flash_attention_dense(q, k, v, **kw)
+    assert (flash_attention_dense.launches,
+            flash_attention_dense.map_launches) == (before[0] + 1,
+                                                    before[1] + 1)
+    o0, l0 = flash_attention_dense(q, k, v, tile_map=False, **kw)
+    ref_o, ref_lse = flash_attention_plain(q, k, v, **kw)
+    tmap = flash_tile_map(qo, kv, hq, hkv, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(o1, o0) and torch.equal(l1, l0)
+    _check_flash(o1, l1, ref_o, ref_lse, dtype)
+    assert tmap.shape[0] == (hkv if mask == "head_hook" else 1)
+    want = flash_tile_map_plain(qo, kv, hq, hkv, map_heads=tmap.shape[0],
+                                device=dev, **kw)
+    assert torch.equal(tmap, want)
+
+
+def test_masked_plans_in_a_cuda_graph(dev):
+    """A multi-item paged plan (its tile map on the plan) and a flash call
+    under a packed document mask (its map's first launch inside the
+    capture), captured in CUDA graphs and replayed: the eager results."""
+    from flashinfer_tpu_torch.ops.attention.kernels.flash import (
+        flash_attention_dense,
+    )
+    from flashinfer_tpu_torch.ops.quantization import packbits
+
+    rng = np.random.default_rng(9)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    hq, hkv, d = 4, 2, 64
+    dp, pages = _masked_plan("multi_item", 64, 16, 512, hq, hkv, d, rng)
+    kc, vc = _paged_caches(dev, gen, "NHD", "model", torch.bfloat16, pages,
+                           16, hkv, d, d)
+    q = torch.randn(dp.meta.nnz, hq, d, device=dev,
+                    generator=gen).to(torch.bfloat16)
+    qf = torch.randn(500, 8, 64, device=dev, generator=gen).to(torch.bfloat16)
+    kf, vf = (torch.randn(500, 2, 64, device=dev,
+                          generator=gen).to(torch.bfloat16) for _ in "kv")
+    pos = torch.arange(500, device=dev)
+    bits = packbits((pos[:, None] // 37 == pos[None, :] // 37).reshape(-1))
+
+    def step():
+        return (attn_batch.run_device_plan(dp, q, kc, vc,
+                                           kv_layout=TensorLayout.NHD,
+                                           return_lse=True),
+                flash_attention_dense(qf, kf, vf, causal=True,
+                                      custom_mask=bits))
+
+    eager = step()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        graphed = step()
+    g.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(eager, graphed):
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
 def test_jit_builds_once(dev, monkeypatch):
     """A second call with the same variant loads no library and runs no
     nvcc; a variant differing in a closure constant has its own build."""
