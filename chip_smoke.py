@@ -2134,17 +2134,29 @@ def _serve(torch, eng, prompts, n_new):
     """Serve the prompts to completion. Returns (requests, wall s, the wall
     ms of each step that admitted nothing, per device step (a window's over
     its decode steps; a verify step is one), whether each of those ran a
-    full batch, the wall ms of the steps that admitted)."""
+    full batch, the wall ms of the steps that admitted, the CUDA graph
+    captures). A step's wall leaves out the graphs it captured: each
+    capture, its eager warm-up included, is a row (step, kinds, ms) of its
+    own (the total wall keeps them)."""
     reqs = [eng.add_request(p, n_new) for p in prompts]
-    decode_ms, full, prefill_ms = [], [], []
+    decode_ms, full, prefill_ms, captures = [], [], [], []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     while eng.has_work():
         pending, running = len(eng._pending), eng.num_running
         ran = eng.decode_steps + eng.spec_stats["steps"]
+        before = {k: v["captures"] for k, v in eng.graphs.stats.items()}
+        cap0 = eng.graphs.capture_seconds
         ts = time.perf_counter()
         eng.step()
         dt = (time.perf_counter() - ts) * 1e3
+        cap = (eng.graphs.capture_seconds - cap0) * 1e3
+        if cap:
+            captures.append(dict(
+                step=eng.steps - 1, ms=cap,
+                kinds=[k for k, v in eng.graphs.stats.items()
+                       if v["captures"] > before.get(k, 0)]))
+            dt -= cap
         if len(eng._pending) < pending:
             prefill_ms.append(dt)
         else:
@@ -2154,7 +2166,79 @@ def _serve(torch, eng, prompts, n_new):
         if eng.steps > 10000:
             raise RuntimeError("engine did not finish")
     torch.cuda.synchronize()
-    return reqs, time.perf_counter() - t0, decode_ms, full, prefill_ms
+    return (reqs, time.perf_counter() - t0, decode_ms, full, prefill_ms,
+            captures)
+
+
+def _admission_device(torch, eng):
+    """The device time of the engine's largest admission step (the prefill
+    of its largest row bucket, rerun on its input buffer as it stands,
+    rewriting the same cache entries): for a graphed engine the ms of one
+    replay from CUDA events over back-to-back replays, else the
+    profiler's device ms and wall over 3 eager runs."""
+    from flashinfer_tpu_torch.serving.graphs import kind_of
+
+    keys = [k for k in eng.graphs._bufs if kind_of(k) == "prefill"]
+    if not keys:
+        return None
+    key = max(keys, key=lambda k: k[1].nnz)
+    if eng.graphs.enabled:
+        ms = cuda_ms(torch, lambda: eng.graphs.replay(key), 5)
+        return dict(bucket_rows=key[1].nnz, replay_ms=ms, device_ms=ms)
+    prof = _profile_steps(torch, lambda: eng.graphs.run(
+        key, eng._prefill_body), 3) or {}
+    return dict(bucket_rows=key[1].nnz, replay_ms=None,
+                device_ms=prof.get("device_ms_per_step"),
+                device_ops=prof.get("device_ops_per_step"),
+                profiled_wall_ms=prof.get("profiled_wall_ms_per_step"),
+                ms_by_family=prof.get("ms_per_step"))
+
+
+LATE_TOKENS = 128  # the late request's prompt
+
+
+def _late_request(torch, np, eng, prompts, vocab):
+    """Time to first token of a late request of LATE_TOKENS tokens admitted
+    into a running batch of max_batch - 1: a first late request (which may
+    capture its bucket's graph) runs to its end, then the measured one. Its
+    first token is on the host when ``_prefill`` returns; the step goes on
+    to decode the batch. Returns the ms from the step's start to the first
+    token, the step's ms, and the capture ms inside the measured step.
+    Leaves the engine idle."""
+    rng = np.random.default_rng(1)
+    marks = []
+    prefill = eng._prefill
+
+    def timed(reqs, emitted):
+        prefill(reqs, emitted)
+        marks.append(time.perf_counter())
+
+    eng._prefill = timed
+    # enough tokens to run through the four steps below, each emitting up
+    # to a window's or a verify step's tokens
+    n_new = 4 + 4 * max(eng.cfg.decode_window, eng.cfg.spec_tokens + 1)
+    try:
+        for p in prompts[: eng.cfg.max_batch - 1]:
+            eng.add_request(p, n_new)
+        eng.step()
+        eng.step()
+        res = {}
+        for label in ("first", "measured"):
+            eng.add_request(rng.integers(0, vocab, LATE_TOKENS).tolist(), 2)
+            cap0 = eng.graphs.capture_seconds
+            torch.cuda.synchronize()
+            marks.clear()
+            ts = time.perf_counter()
+            eng.step()
+            torch.cuda.synchronize()
+            res[label] = dict(
+                ttft_ms=(marks[0] - ts) * 1e3,
+                step_ms=(time.perf_counter() - ts) * 1e3,
+                capture_ms=(eng.graphs.capture_seconds - cap0) * 1e3)
+        eng.run_to_completion()
+    finally:
+        eng._prefill = prefill
+    return res
 
 
 # the engine's decode step three ways: eager, replayed from CUDA graphs,
@@ -2168,26 +2252,35 @@ ENGINE_MODES = (("eager", dict(cuda_graphs=False)), ("graphed", {}),
 
 
 def _engine_mode(torch, np, mc, params, prompts, n_new, card, label,
-                 path, **cfg_kw):
+                 path, *, admission=True, **cfg_kw):
     """Serve the prompts on one engine configuration (``cfg_kw`` over 8
     slots), its launch counts of ``path`` zeroed just before, then profile
-    a few full-batch steps. Returns (results, outputs, the engine's
-    params)."""
+    a few full-batch steps; with ``admission``, also time the largest
+    admission's device work and a late request's first token. Returns
+    (results, outputs, the engine's params)."""
     from flashinfer_tpu_torch import EngineConfig, LlamaServingEngine
 
     cfg = EngineConfig(model=mc, max_batch=8, device=DEVICE, **cfg_kw)
     torch.cuda.reset_peak_memory_stats()
     eng = LlamaServingEngine(cfg, params=params, seed=0)
     counters = _reset_counts()
-    reqs, wall, dec, full_at, pre = _serve(torch, eng, prompts, n_new)
+    reqs, wall, dec, full_at, pre, caps = _serve(torch, eng, prompts, n_new)
     counts = {k: counters[k].launches for k in path}
     steps, decode_steps = eng.steps, eng.decode_steps
     spec = dict(eng.spec_stats)
     plan_ms = eng.plan_seconds * 1e3 / (decode_steps + spec["steps"])
     graphs = dict(captured=eng.graphs.captures,
                   capture_s=eng.graphs.capture_seconds,
-                  pool_bytes=eng.graphs.pool_bytes)
+                  pool_bytes=eng.graphs.pool_bytes,
+                  output_bytes=eng.graphs.output_bytes,
+                  by_kind={k: dict(v) for k, v in eng.graphs.stats.items()})
+    report = dict(steps_ms=pre, captures=caps)
+    if admission:
+        report["device"] = _admission_device(torch, eng)
     prof, replay_ms = _profile_decode(torch, eng, prompts)
+    if admission:
+        report["late"] = _late_request(torch, np, eng, prompts,
+                                       mc.vocab_size)
     outs = [r.output for r in reqs]
     assert all(r.done for r in reqs)
     assert all(len(o) == n_new for o in outs), [len(o) for o in outs]
@@ -2213,6 +2306,7 @@ def _engine_mode(torch, np, mc, params, prompts, n_new, card, label,
             float(np.percentile(full, tail_pct(full))) if full else None),
         prefill_steps=len(pre),
         prefill_step_ms_mean=float(np.mean(pre)) if pre else None,
+        admission=report,
         plan_ms_per_decode_step=plan_ms, graphs=graphs,
         replay_device_ms=replay_ms, launches=counts, profile=prof,
         first_tokens=[o[:4] for o in outs[:3]], weight_gb=weight_gb,
@@ -2239,9 +2333,26 @@ def _engine_mode(torch, np, mc, params, prompts, n_new, card, label,
         f"({res['planner']}, pool {pool}) {plan_ms:.3f} ms a decode step; "
         f"graphs {json.dumps(graphs)}; "
         f"{len(pre)} prefill steps, mean {res['prefill_step_ms_mean']:.1f} "
-        f"ms; preemptions {eng.preemptions}; weights {weight_gb:.2f} GB, "
-        f"peak memory {res['peak_mem_gb']:.2f} GB; launches {counts} "
-        f"[{card}]")
+        f"ms (captures left out); preemptions {eng.preemptions}; weights "
+        f"{weight_gb:.2f} GB, peak memory {res['peak_mem_gb']:.2f} GB; "
+        f"launches {counts} [{card}]")
+    log(f"engine {label} admission: steps {[round(x, 2) for x in pre]} ms "
+        f"without captures; captures "
+        f"{[(c['step'], c['kinds'], round(c['ms'], 1)) for c in caps]} "
+        f"(step, kinds, ms); prefill graphs "
+        f"{graphs['by_kind'].get('prefill')} [{card}]")
+    if admission:
+        adm, late = report["device"] or {}, report["late"]["measured"]
+        log(f"engine {label} admission device: bucket "
+            f"{adm.get('bucket_rows')} rows, {adm.get('device_ms')} ms in "
+            f"{adm.get('device_ops')} ops (profiled wall "
+            f"{adm.get('profiled_wall_ms')} ms; {adm.get('ms_by_family')}), "
+            f"a replay {adm.get('replay_ms')} ms from CUDA events; late "
+            f"{LATE_TOKENS}-token request into {cfg.max_batch - 1} running: "
+            f"first token {late['ttft_ms']:.2f} ms, step "
+            f"{late['step_ms']:.2f} ms, captures {late['capture_ms']:.1f} ms "
+            f"(first late request: {json.dumps(report['late']['first'])}) "
+            f"[{card}]")
     if spec["steps"]:
         log(f"engine {label}: {spec['steps']} verify steps over "
             f"{spec['seqs']} sequence-steps emitted "
@@ -2319,6 +2430,7 @@ def phase_engine(torch, np, card, shared):
         f"{match:.3f}")
     if not all(same.values()):
         raise AssertionError(f"the modes' tokens differ: {same}")
+    results["score"] = _score_modes(torch, np, mc, params, prompts[0], card)
     results["planner_numpy"] = _engine_numpy_planner(
         torch, np, mc, params, prompts, n_new, card, results,
         outs_by["graphed", "greedy"])
@@ -2330,6 +2442,41 @@ def phase_engine(torch, np, card, shared):
     # the distributed phase serves these weights next
     shared["llama"] = (mc, params, prompts)
     return results
+
+
+def _score_modes(torch, np, mc, params, prompt, card):
+    """``score()`` of one prompt, eager and replayed from its bucket's
+    graph (``("score", PlanMeta)``): the f32 logits bit for bit, the wall
+    of each call, the graph's capture and its shared output's bytes."""
+    from flashinfer_tpu_torch import EngineConfig, LlamaServingEngine
+
+    out, logits = {}, {}
+    for mode, graphed in (("eager", False), ("graphed", True)):
+        eng = LlamaServingEngine(EngineConfig(
+            model=mc, max_batch=8, cuda_graphs=graphed, device=DEVICE),
+            params=params)
+        walls = []
+        for _ in range(3):  # the first call captures (graphed)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits[mode] = eng.score(prompt)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        out[mode] = dict(call_ms=walls, graphs={
+            k: dict(v) for k, v in eng.graphs.stats.items()},
+            output_bytes=eng.graphs.output_bytes)
+        del eng
+        torch.cuda.empty_cache()
+    got, want = logits["graphed"], logits["eager"]
+    out["identical"] = bool(np.array_equal(got, want))
+    log(f"score() of a {len(prompt)}-token prompt: eager "
+        f"{[round(x, 1) for x in out['eager']['call_ms']]} ms, graphed "
+        f"{[round(x, 1) for x in out['graphed']['call_ms']]} ms (graphs "
+        f"{out['graphed']['graphs']}, output {out['graphed']['output_bytes']}"
+        f" bytes); logits {got.shape} finite {bool(np.isfinite(got).all())}"
+        f", identical {out['identical']} [{card}]")
+    if not out["identical"] or got.shape != (len(prompt), mc.vocab_size):
+        raise AssertionError("score(): graphed logits differ from eager")
+    return out
 
 
 # pages that are not a multiple of 8 tokens: the paged kernel's gather build
@@ -2462,7 +2609,7 @@ def phase_pages(torch, np, card, shared, lens_decode, lens_prefill):
                          ("page16 graphed", dict(page_size=16))):
         res, outs[label], params = _engine_mode(
             torch, np, mc, params, prompts, PAGES_NEW, card, label,
-            PAGES_PATH, greedy=True, **extra)
+            PAGES_PATH, admission=False, greedy=True, **extra)
         engine[label] = res
     shared["llama"] = (shared["llama"][0], params, shared["llama"][2])
     same = outs["page12 eager"] == outs["page12 graphed"]
@@ -2501,7 +2648,7 @@ def _engine_numpy_planner(torch, np, mc, params, prompts, n_new, card,
     try:
         res, outs, _ = _engine_mode(torch, np, mc, params, prompts, n_new,
                                     card, "graphed greedy, NumPy planner",
-                                    LLAMA_PATH, greedy=True)
+                                    LLAMA_PATH, admission=False, greedy=True)
     finally:
         if prev is None:
             del os.environ["FLASHINFER_TPU_PLANNER"]
@@ -2619,8 +2766,8 @@ def _engine_w8(torch, np, mc, params, prompts, n_new, card, bf16_greedy):
                 f"quantized in {time.perf_counter() - t0:.1f} s")
         res, outs = _engine_mode(
             torch, np, mc, w8_params[wdt], prompts, n_new, card,
-            f"w8 {label}", LLAMA_W8_PATH, greedy=not sampled,
-            weight_dtype=wdt, **extra)[:2]
+            f"w8 {label}", LLAMA_W8_PATH, admission=False,
+            greedy=not sampled, weight_dtype=wdt, **extra)[:2]
         if not sampled:
             got, want = np.asarray(outs), np.asarray(bf16_greedy)
             res["agreement_with_bf16_greedy"] = float(np.mean(got == want))
@@ -2663,7 +2810,7 @@ def _engine_variants(torch, np, mc, params, prompts, greedy_outs, n_new=8):
                            kv_layout=layout, kv_dtype=kv_dtype,
                            device=DEVICE)
         eng = LlamaServingEngine(cfg, params=params)
-        reqs, wall, dec, _, _ = _serve(torch, eng, prompts, n_new)
+        reqs, wall, dec, _, _, _ = _serve(torch, eng, prompts, n_new)
         got = np.asarray([r.output for r in reqs])
         want = np.asarray([o[:n_new] for o in greedy_outs[: len(prompts)]])
         agree = float(np.mean(got == want))
@@ -4785,6 +4932,8 @@ DIST_ROWS = 512  # max_tokens_per_step: the longest prompt fits one step
 # few tokens in (0.672 on the H100 in bf16, 1.000 in f32: PERF.md)
 DIST_MIN_AGREEMENT = 0.9
 DIST_PATH = ("paged_attention", "sampler_family", "rmsnorm")
+# the dp x tp step eager, then replayed from a CUDA graph per PlanMeta
+DIST_MODES = (("eager", False), ("graphed", True))
 RING_TOKENS = 8192  # the single-request phase's prompt
 DIST_MOE_TOKENS = 8
 DIST_MOE_LAYER = (8, 4096, 14336)  # Mixtral-8x7B: experts, hidden, inter
@@ -5174,7 +5323,7 @@ def _dist_kernel_gate(torch, np, mesh, mc, params, prompts, card):
     )
 
     cfg = EngineConfig(model=mc, max_batch=DIST_REQUESTS, page_size=16,
-                       greedy=True, device=DEVICE)
+                       greedy=True, cuda_graphs=False, device=DEVICE)
     eng = DistributedServingEngine(cfg, mesh, params=params,
                                    max_tokens_per_step=DIST_ROWS)
     B = cfg.max_batch
@@ -5238,9 +5387,10 @@ def _dist_kernel_gate(torch, np, mesh, mc, params, prompts, card):
 def _dist_llama(torch, np, mesh, mc, params, prompts, card, counters):
     """The main path: Llama-3-8B at full width through
     ``DistributedServingEngine`` at dp = tp = 1 (the engine phase's
-    weights, shared), greedy then sampled, beside ``LlamaServingEngine``'s
-    graphed greedy run on the same traffic; greedy token agreement at
-    least DIST_MIN_AGREEMENT."""
+    weights, shared), its step eager and then replayed from a CUDA graph,
+    greedy and sampled (the tokens of the two modes identical), beside
+    ``LlamaServingEngine``'s graphed greedy run on the same traffic; f32
+    greedy token agreement at least DIST_MIN_AGREEMENT."""
     from flashinfer_tpu_torch import EngineConfig, LlamaServingEngine
     from flashinfer_tpu_torch.serving.distributed import (
         DistributedServingEngine,
@@ -5249,50 +5399,74 @@ def _dist_llama(torch, np, mesh, mc, params, prompts, card, counters):
     res = {"kernel_gate": _dist_kernel_gate(torch, np, mesh, mc, params,
                                             prompts, card)}
     outs = {}
-    for sampling in ("greedy", "sampled"):
-        cfg = EngineConfig(model=mc, max_batch=DIST_REQUESTS, page_size=16,
-                           greedy=sampling == "greedy", device=DEVICE)
-        eng = DistributedServingEngine(cfg, mesh, params=params,
-                                       max_tokens_per_step=DIST_ROWS)
-        for k in DIST_PATH:
-            counters[k].launches = 0
-        # the greedy run is profiled (3 steps, left out of its tokens/s)
-        out, tokens_per_s, decode_ms, admit_ms, prof = _dist_serve(
-            torch, eng, prompts, DIST_NEW,
-            profile_steps=3 if sampling == "greedy" else 0)
-        counts = {k: counters[k].launches for k in DIST_PATH}
-        outs[sampling] = out
-        res[sampling] = dict(
-            tokens_per_s=tokens_per_s, steps=eng.steps,
-            step_ms_median=float(np.median(decode_ms)),
-            step_ms_p90=float(np.percentile(decode_ms, 90)),
-            decode_steps_timed=len(decode_ms), admit_step_ms=admit_ms,
-            device_ms_per_step=(prof or {}).get("device_ms_per_step"),
-            device_ops_per_step=(prof or {}).get("device_ops_per_step"),
-            ms_per_step=(prof or {}).get("ms_per_step"),
-            top_kernels=(prof or {}).get("top_kernels"),
-            planner_ms_per_step=eng.plan_seconds * 1e3 / eng.steps,
-            launches=counts, peak_mem_gb=torch.cuda.max_memory_allocated()
-            / 1e9)
-        log(f"DistributedServingEngine dp=tp=1 Llama-3-8B {sampling}: "
-            f"{res[sampling]['tokens_per_s']:.1f} tokens/s, {eng.steps} "
-            f"steps of {DIST_ROWS} rows, decode step median "
-            f"{res[sampling]['step_ms_median']:.2f} ms (n "
-            f"{len(decode_ms)}), device "
-            f"{res[sampling]['device_ms_per_step']} ms a step "
-            f"{res[sampling]['ms_per_step']} (top kernels "
-            f"{(res[sampling]['top_kernels'] or [])[:6]}), steps that could "
-            f"admit "
-            f"{[round(x, 1) for x in admit_ms]} ms, planner "
-            f"{res[sampling]['planner_ms_per_step']:.3f} ms; launches "
-            f"{counts} [{card}]")
-        del eng
-        torch.cuda.empty_cache()
+    for mode, graphed in DIST_MODES:
+        for sampling in ("greedy", "sampled"):
+            label = f"{mode} {sampling}"
+            cfg = EngineConfig(model=mc, max_batch=DIST_REQUESTS,
+                               page_size=16, greedy=sampling == "greedy",
+                               cuda_graphs=graphed, device=DEVICE)
+            eng = DistributedServingEngine(cfg, mesh, params=params,
+                                           max_tokens_per_step=DIST_ROWS)
+            for k in DIST_PATH:
+                counters[k].launches = 0
+            # 3 steps profiled, left out of the tokens/s
+            out, tokens_per_s, decode_ms, admit_ms, prof = _dist_serve(
+                torch, eng, prompts, DIST_NEW, profile_steps=3)
+            counts = {k: counters[k].launches for k in DIST_PATH}
+            outs[label] = out
+            replay_ms = None
+            if eng.graphs.enabled:
+                key = eng.graphs.last_key
+                replay_ms = cuda_ms(torch, lambda: eng.graphs.replay(key),
+                                    10)
+            step_ms = float(np.median(decode_ms))
+            dev_ms = replay_ms or (prof or {}).get("device_ms_per_step")
+            r = res[label] = dict(
+                tokens_per_s=tokens_per_s, steps=eng.steps,
+                step_ms_median=step_ms,
+                step_ms_p90=float(np.percentile(decode_ms, 90)),
+                decode_steps_timed=len(decode_ms), admit_step_ms=admit_ms,
+                replay_device_ms=replay_ms, device_ms_per_step=dev_ms,
+                busy_share=dev_ms / step_ms if dev_ms else None,
+                profiled_device_ms_per_step=(prof or {}).get(
+                    "device_ms_per_step"),
+                device_ops_per_step=(prof or {}).get("device_ops_per_step"),
+                ms_per_step=(prof or {}).get("ms_per_step"),
+                top_kernels=(prof or {}).get("top_kernels"),
+                planner_ms_per_step=eng.plan_seconds * 1e3 / eng.steps,
+                graphs=dict(captured=eng.graphs.captures,
+                            capture_s=eng.graphs.capture_seconds,
+                            pool_bytes=eng.graphs.pool_bytes),
+                launches=counts, peak_mem_gb=torch.cuda.max_memory_allocated()
+                / 1e9)
+            log(f"DistributedServingEngine dp=tp=1 Llama-3-8B {label}: "
+                f"{r['tokens_per_s']:.1f} tokens/s, {eng.steps} "
+                f"steps of {DIST_ROWS} rows, decode step median "
+                f"{step_ms:.2f} ms (n {len(decode_ms)}), device {dev_ms} ms "
+                f"a step (a replay {replay_ms} ms from CUDA events; "
+                f"profiled {r['profiled_device_ms_per_step']} ms "
+                f"{r['ms_per_step']}), busy share {r['busy_share']}; top "
+                f"kernels {(r['top_kernels'] or [])[:6]}; steps that could "
+                f"admit {[round(x, 1) for x in admit_ms]} ms (captures "
+                f"included), planner {r['planner_ms_per_step']:.3f} ms; "
+                f"graphs {json.dumps(r['graphs'])}; launches {counts} "
+                f"[{card}]")
+            del eng
+            torch.cuda.empty_cache()
+    same = {sampling: outs[f"eager {sampling}"] == outs[f"graphed {sampling}"]
+            for sampling in ("greedy", "sampled")}
+    res["eager_graphed_identical"] = same
+    log(f"DistributedServingEngine tokens identical, eager and graphed: "
+        f"{same}")
+    if not all(same.values()):
+        raise AssertionError(f"the dp x tp engine's eager and graphed "
+                             f"tokens differ: {same}")
+    greedy = outs["graphed greedy"]
     # LlamaServingEngine, graphed greedy, on the same weights and traffic
     cfg = EngineConfig(model=mc, max_batch=DIST_REQUESTS, page_size=16,
                        greedy=True, device=DEVICE)
     eng = LlamaServingEngine(cfg, params=params)
-    reqs, wall, decode_ms, _, _ = _serve(torch, eng, prompts, DIST_NEW)
+    reqs, wall, decode_ms, _, _, _ = _serve(torch, eng, prompts, DIST_NEW)
     replay_ms = None
     if eng.graphs.enabled:
         replay_ms = cuda_ms(torch, lambda: eng.graphs.replay(
@@ -5304,15 +5478,15 @@ def _dist_llama(torch, np, mesh, mc, params, prompts, card, counters):
         replay_device_ms=replay_ms)
     del eng
     torch.cuda.empty_cache()
-    agree = float(np.mean(np.asarray(outs["greedy"]) == np.asarray(single)))
+    agree = float(np.mean(np.asarray(greedy) == np.asarray(single)))
     res["greedy_agreement"] = agree
-    res["first_divergence"] = _first_divergence(outs["greedy"], single)
-    res["requests_equal"] = sum(a == b for a, b in zip(outs["greedy"],
+    res["first_divergence"] = _first_divergence(greedy, single)
+    res["requests_equal"] = sum(a == b for a, b in zip(greedy,
                                                        single))
-    g, s = res["greedy"], res["llama_engine_graphed_greedy"]
+    g, s = res["graphed greedy"], res["llama_engine_graphed_greedy"]
     log(f"Llama-3-8B greedy step: DistributedServingEngine "
         f"{g['step_ms_median']:.2f} ms wall / {g['device_ms_per_step']} ms "
-        f"device (eager, {DIST_ROWS} rows) vs LlamaServingEngine graphed "
+        f"device (graphed, {DIST_ROWS} rows) vs LlamaServingEngine graphed "
         f"{s['step_ms_median']:.2f} ms wall / {replay_ms} ms device "
         f"(a replay, 8 rows); token agreement {agree:.3f} "
         f"({res['requests_equal']} of {len(single)} requests identical; "
@@ -5332,7 +5506,8 @@ def _dist_llama(torch, np, mesh, mc, params, prompts, card, counters):
     res["f32_first_divergence"] = _first_divergence(*outs32)
     log(f"Llama-3-8B in f32: token agreement {agree32:.3f}, first differing "
         f"token of each request {res['f32_first_divergence']} [{card}]")
-    missing = [k for k, n in res["sampled"]["launches"].items() if n == 0]
+    missing = [k for k, n in res["graphed sampled"]["launches"].items()
+               if n == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the distributed "
                              f"path: {missing}")
@@ -5392,7 +5567,7 @@ def phase_distributed(torch, np, card, shared):
                                    prompts[:DIST_REQUESTS], card, counters)
         del params
         res["launches"] = dict(
-            distributed=res["llama"]["sampled"]["launches"],
+            distributed=res["llama"]["graphed sampled"]["launches"],
             parallel_attention={"flash_attention": attn_n},
             parallel_moe={"grouped_gemm": moe_n},
             pipeline={"rmsnorm": pipe_n}, tp_step=tp_n)

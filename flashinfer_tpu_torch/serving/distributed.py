@@ -23,14 +23,20 @@ MLP columns over its tp ranks.
   * Sampling: greedy takes each tp rank's (max, index) of its vocabulary
     shard and all-gathers them over tp (a tie goes to the lowest tp rank,
     as in JAX); sampled all-gathers the full rows and runs the sampler
-    kernel. Sampled steps draw one host seed a replica (JAX splits a key).
+    kernel. Sampled steps draw one host seed a replica (JAX splits a key),
+    which rides the step's input buffer and is read from device memory.
   * The tokens of every replica are all-gathered over dp, so every rank
     emits them all.
 
-The step runs eagerly, every one of its ``max_tokens_per_step`` rows (the
-padding rows too), as JAX's fixed-shape step does. Start the processes
-with torchrun (or ``bootstrap_distributed``'s arguments) and build the
-mesh on every rank.
+The step runs every one of its ``max_tokens_per_step`` rows (the padding
+rows too), as JAX's fixed-shape ``_dist_step`` does, on one int32 input
+buffer [plan blob | JAX's step blob | seed] uploaded in one copy. Its plan
+is pinned to one ``PlanMeta``, and on the card the step (its tp
+collectives included) replays from a CUDA graph per ``PlanMeta``
+(``serving/graphs.py``); ``cuda_graphs=False`` runs it eagerly with the
+same tokens, as the CPU (gloo) does. The dp all-gather of the tokens and
+their read-back follow the replay. Start the processes with torchrun (or
+``bootstrap_distributed``'s arguments) and build the mesh on every rank.
 """
 
 from __future__ import annotations
@@ -72,6 +78,7 @@ from flashinfer_tpu_torch.serving.engine import (
     _upload,
     fuse_qkv_weights,
 )
+from flashinfer_tpu_torch.serving.graphs import StepGraphs
 from flashinfer_tpu_torch.utils import next_power_of_2, resolve_device
 
 __all__ = ["bootstrap_distributed", "DistributedServingEngine"]
@@ -226,6 +233,7 @@ class DistributedServingEngine(_LayerStack):
         self._min_bucket_rows = next_power_of_2(
             self._rows * group + (B + 2) * self._tile_q)
         self._min_splits = next_power_of_2(chunks)
+        self.graphs = StepGraphs(self.device, config.cuda_graphs)
         self.steps = 0
         self.generated_tokens = 0
         self.plan_seconds = 0.0
@@ -281,7 +289,10 @@ class DistributedServingEngine(_LayerStack):
         t0 = time.perf_counter()
         dplan = self._plan(*kv)
         self.plan_seconds += time.perf_counter() - t0
-        toks = self._device_step(blob, dplan, seeds[self._dp_rank])
+        row = np.concatenate([dplan.blob.numpy(), blob,
+                              [seeds[self._dp_rank]]]).astype(np.int32)
+        _upload(self.graphs.inputs(dplan.meta, len(row)), row)
+        toks = self.graphs.run(dplan.meta, self._step_body)
         toks = all_gather(toks, "dp", mesh=self.mesh).cpu().numpy()
 
         emitted: List[Tuple[int, int]] = []
@@ -388,18 +399,16 @@ class DistributedServingEngine(_LayerStack):
             defer_upload=True)
         return self._attn.device_plan
 
-    def _device_step(self, blob: np.ndarray, dplan: DevicePlan,
-                     seed: int) -> torch.Tensor:
-        """This rank's shard of its replica's step; the replica's tokens
-        [max_batch] int32 (the same on its tp ranks). The plan blob and the
-        step blob go up in one copy."""
+    def _step_body(self, buf: torch.Tensor, meta) -> torch.Tensor:
+        """This rank's shard of its replica's step on the step's input
+        buffer ([plan blob | JAX's step blob | seed], ``step``'s layout),
+        counterpart of JAX's ``_dist_step``: the replica's tokens
+        [max_batch] int32 (the same on its tp ranks). No host read: on the
+        card it is captured whole, collectives included."""
         mc, cfg = self.cfg.model, self.cfg
         B, R, pb = cfg.max_batch, self._rows, self._page_bucket
-        n = _blob_size(dplan.meta)
-        row = np.concatenate([dplan.blob.numpy(), blob]).astype(np.int32)
-        buf = torch.empty(len(row), dtype=torch.int32, device=self.device)
-        _upload(buf, row)
-        dplan = DevicePlan(buf[:n], dplan.meta)
+        n = _blob_size(meta)
+        dplan = DevicePlan(buf[:n], meta)
         step = buf[n:]
         tokens, positions = step[:R], step[R: 2 * R]
         slot_idx = step[2 * R: 3 * R]
@@ -408,6 +417,7 @@ class DistributedServingEngine(_LayerStack):
         o = 4 * R + 2 * B
         kv_indices = step[o: o + pb]
         kv_indptr = step[o + pb: o + pb + B + 2]
+        seed = step[-1:]
         page_ids = kv_indices[(kv_indptr[slot_idx]
                                + positions // cfg.page_size).clamp(max=pb - 1)]
         layer_rows = torch.arange(0, self._scratch_row, cfg.num_pages,
@@ -432,11 +442,12 @@ class DistributedServingEngine(_LayerStack):
         return all_reduce(part.float(), "tp", mesh=self.mesh).to(x.dtype)
 
     def _tp_sample(self, logits_local: torch.Tensor,
-                   seed: int) -> torch.Tensor:
+                   seed: torch.Tensor) -> torch.Tensor:
         """Tokens [B] int32 from this rank's vocabulary shard [B, vocab /
         tp]. Greedy: one all-gather of each shard's (max, global index), the
         first maximum over the shards (a tie goes to the lowest tp rank);
-        sampled: the full rows gathered, then the sampler."""
+        sampled: the full rows gathered, then the sampler with ``seed`` (a
+        one-element int32 tensor, read by the sampler kernel)."""
         v_l = logits_local.shape[1]
         if self.cfg.greedy:
             li = logits_local.argmax(dim=-1)

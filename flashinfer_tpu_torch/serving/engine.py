@@ -18,8 +18,13 @@ The decode step has fixed shapes, as JAX's jitted ``_decode_step``: all
 int32 input buffer holds the plan blob, the step's rows and the sampling
 seed, which go up in one copy. On a CUDA device the step runs as a CUDA
 graph, one per ``PlanMeta`` (``serving/graphs.py``); ``cuda_graphs=False``
-runs it eagerly, with the same tokens. Prefill, ``score()`` and
-``calibrate_kv_scales`` run eagerly.
+runs it eagerly, with the same tokens. Prefill and ``score()`` have fixed
+shapes too, as JAX's ``_prefill_step`` and ``_score_step``: the rows pad
+to a power-of-two bucket (padding rows write their K/V to the scratch
+row), the plan's padded rows and work items are pinned for the bucket,
+and each replays from a graph per ``("prefill", PlanMeta)`` or
+``("score", PlanMeta)`` (a bucket keys one graph for each count of key
+chunks its longest prompt spans).
 
 Speculative decoding (``spec_tokens`` G > 0) proposes G drafts a sequence
 from its own context (``propose_ngram``) and verifies the G + 1 rows in one
@@ -88,6 +93,9 @@ from flashinfer_tpu_torch.utils import (
     resolve_device,
 )
 
+# the prefill plans' query tile (rows of packed query heads)
+_PREFILL_TILE_Q = 256
+
 __all__ = ["EngineConfig", "GenerationRequest", "LlamaServingEngine",
            "calibrate_kv_scales", "fuse_qkv_weights", "propose_ngram"]
 
@@ -124,8 +132,9 @@ class EngineConfig:
     # device; tokens after an eos are dropped and their KV rolled back
     decode_window: int = 1
     device: str = "cuda"
-    # replay the decode step as a CUDA graph; False runs it eagerly (same
-    # tokens). Ignored on the CPU, where there is nothing to capture.
+    # replay the decode, prefill, score and verify steps as CUDA graphs;
+    # False runs them eagerly (same tokens). Ignored on the CPU, where
+    # there is nothing to capture.
     cuda_graphs: bool = True
 
 
@@ -346,7 +355,8 @@ class LlamaServingEngine(_LayerStack):
         self._decode_wrapper = BatchDecodeWithPagedKVCacheWrapper(
             kv_layout=config.kv_layout, device=self.device)
         self._prefill_wrapper = BatchPrefillWithPagedKVCacheWrapper(
-            kv_layout=config.kv_layout, tile_q=256, device=self.device)
+            kv_layout=config.kv_layout, tile_q=_PREFILL_TILE_Q,
+            device=self.device)
         # the verify step's G + 1 rows a slot: tile_q auto-sizes to the
         # packed draft rows
         self._spec_wrapper = BatchPrefillWithPagedKVCacheWrapper(
@@ -403,9 +413,11 @@ class LlamaServingEngine(_LayerStack):
             self.pool.release(seq)
             raise RuntimeError("KV page pool exhausted")
         try:
-            logits = self._prefill_logits(
-                [list(prompt)], *self._batch_tables([seq]), last_rows=None)
-            return logits.cpu().numpy()
+            key, row = self._prefill_inputs(
+                "score", [list(prompt)], *self._batch_tables([seq]))
+            _upload(self.graphs.inputs(key, len(row)), row)
+            logits = self.graphs.run(key, self._score_body)
+            return logits[:P].cpu().numpy()
         finally:
             self.pool.release(seq)
 
@@ -503,45 +515,105 @@ class LlamaServingEngine(_LayerStack):
         return indptr, padded, last
 
     def _prefill(self, reqs: List[GenerationRequest], emitted) -> None:
+        """Prefill the admitted requests as one step of fixed shape (JAX's
+        ``_prefill_step``), replayed from a CUDA graph per ``("prefill",
+        PlanMeta)`` on the card; each request's first token."""
         tables = self._batch_tables([r._seq for r in reqs])
         prompts = [r.prompt + r.output for r in reqs]
-        last_rows = np.cumsum([len(p) for p in prompts]) - 1
-        logits = self._prefill_logits(prompts, *tables, last_rows)
-        seed = None if self.cfg.greedy else draw_seed(self.generator)
-        toks = self._sample_tokens(logits, seed).cpu().numpy()
+        key, row = self._prefill_inputs("prefill", prompts, *tables)
+        _upload(self.graphs.inputs(key, len(row)), row)
+        toks = self.graphs.run(key, self._prefill_body).cpu().numpy()
         for r, t in zip(reqs, toks):
             self._emit(r, int(t), emitted)
 
-    def _prefill_logits(self, prompts: Sequence[List[int]], indptr, indices,
-                        last, last_rows) -> torch.Tensor:
-        """Causal prefill of the prompts into their pages (``_batch_tables``
-        of their sequences); the f32 logits of ``last_rows`` (every row when
-        None)."""
+    def _prefill_pins(self, bucket: int, requests: int) -> dict:
+        """The plan floors that give every prefill of ``bucket`` rows over
+        at most ``requests`` requests one padded-row bucket (each request,
+        and the trailing dummy, rounds its packed rows up to the query
+        tile) and one work-item count (every query tile of those rows
+        times the key chunks of a prefill, whose keys are its rows).
+        Unpinned, they change with every batch, and so would the CUDA
+        graph their PlanMeta keys. The merge's splits are left to the
+        batch (a power of two, at most ``bucket`` / the key chunk): pinned
+        to that most, every admission runs the split merge, which made a
+        2048-row Llama-3-8B prefill 115.4 ms of device time against 75.4
+        on an H100 (``tools/prefill_profile.py``)."""
         mc = self.cfg.model
+        group = mc.num_qo_heads // mc.num_kv_heads
+        tile_q = max(_PREFILL_TILE_Q, next_power_of_2(group), 8)
+        rows = next_power_of_2(max(
+            bucket * group + (requests + 1) * (tile_q - group), tile_q))
+        splits = cdiv(bucket, self._kv_chunk())
+        return dict(min_bucket_rows=rows,
+                    work_capacity=next_power_of_2(max(
+                        8, rows // tile_q * splits)))
+
+    def _prefill_inputs(self, kind: str, prompts: Sequence[List[int]],
+                        indptr, indices, last) -> Tuple[tuple, np.ndarray]:
+        """The graph key ``(kind, PlanMeta)`` and the int32 input buffer of
+        a causal prefill of the prompts into their pages (``_batch_tables``
+        of their sequences): [plan blob | tokens, positions, page ids and
+        valid, ``bucket`` rows each | the rows to sample, ``max_batch`` |
+        seed]. As JAX's, the rows pad to a power of two ``bucket`` and a
+        trailing dummy request (no pages) takes the padding rows, whose
+        K/V go to the scratch row. ``kind`` "prefill" samples each
+        prompt's last row (the padding entries repeat row 0) with a fresh
+        seed; "score" samples nothing."""
+        mc, B = self.cfg.model, self.cfg.max_batch
         lens = np.asarray([len(p) for p in prompts])
         nnz = int(lens.sum())
-        # the plan is the reference's: a trailing dummy request (no pages)
-        # pads the rows to a power of two
         bucket = next_power_of_2(max(nnz, 8))
         self._prefill_wrapper.plan(
             np.concatenate([[0], np.cumsum(lens), [bucket]]),
             np.concatenate([indptr, [indptr[-1]]]), indices,
             np.concatenate([last, [0]]),
             mc.num_qo_heads, mc.num_kv_heads, mc.head_dim, self.cfg.page_size,
-            causal=True, kv_chunk_size=self._kv_chunk(),
-        )
-        tokens = np.concatenate(prompts)
-        positions = np.concatenate([np.arange(len(p)) for p in prompts])
+            causal=True, kv_chunk_size=self._kv_chunk(), force_kv_major=True,
+            defer_upload=True,
+            **self._prefill_pins(bucket, B if kind == "prefill" else 1))
+        dplan = self._prefill_wrapper.device_plan
+        step = np.zeros((4, bucket), np.int64)
+        tokens, positions, page_ids, valid = step
+        tokens[:nnz] = np.concatenate(prompts)
+        positions[:nnz] = np.concatenate([np.arange(n) for n in lens])
         batch_idx = np.repeat(np.arange(len(prompts)), lens)
-        page_ids = indices[indptr[batch_idx] + positions // self.cfg.page_size]
-        sel = np.zeros(0, np.int64) if last_rows is None else last_rows
-        host = np.concatenate([tokens, positions, page_ids, sel]).astype(
-            np.int64)
-        dev = torch.from_numpy(host).to(self.device)
-        tok, pos, pages = dev[:nnz], dev[nnz: 2 * nnz], dev[2 * nnz: 3 * nnz]
-        return self._logits(tok, pos, pages, None,
-                            self._prefill_wrapper.device_plan,
-                            None if last_rows is None else dev[3 * nnz:])
+        page_ids[:nnz] = indices[indptr[batch_idx]
+                                 + positions[:nnz] // self.cfg.page_size]
+        valid[:nnz] = 1
+        sel = np.zeros(B if kind == "prefill" else 0, np.int64)
+        if kind == "prefill":
+            sel[: len(prompts)] = np.cumsum(lens) - 1
+        seed = self._draw_seed() if kind == "prefill" else 0
+        row = np.concatenate([dplan.blob.numpy(), step.ravel(), sel,
+                              [seed]]).astype(np.int32)
+        return (kind, dplan.meta), row
+
+    def _prefill_rows(self, buf: torch.Tensor, key):
+        """The padded rows of a prefill input buffer: (tokens, positions,
+        page ids, valid, the plan, what follows the rows)."""
+        meta = key[1]
+        n, bucket = _blob_size(meta), meta.nnz
+        step = buf[n:]
+        return (step[:bucket], step[bucket: 2 * bucket],
+                step[2 * bucket: 3 * bucket],
+                step[3 * bucket: 4 * bucket] != 0,
+                DevicePlan(buf[:n], meta), step[4 * bucket:])
+
+    def _prefill_body(self, buf: torch.Tensor, key) -> torch.Tensor:
+        """The fixed-shape prefill step on its input buffer
+        (``_prefill_inputs``' layout), counterpart of JAX's
+        ``_prefill_step``: the tokens of the sampled rows, [max_batch]
+        int32."""
+        B = self.cfg.max_batch
+        tok, pos, pages, valid, dplan, rest = self._prefill_rows(buf, key)
+        logits = self._logits(tok, pos, pages, valid, dplan, rest[:B])
+        return self._sample_tokens(logits, rest[-1:])
+
+    def _score_body(self, buf: torch.Tensor, key) -> torch.Tensor:
+        """JAX's ``_score_step``: the f32 logits of every row of the bucket,
+        [bucket, vocab]."""
+        tok, pos, pages, valid, dplan, _ = self._prefill_rows(buf, key)
+        return self._logits(tok, pos, pages, valid, dplan)
 
     # --------------------------------------------------------------- decode
 

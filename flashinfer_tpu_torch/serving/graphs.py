@@ -1,13 +1,19 @@
 """CUDA graphs of a fixed-shape device step.
 
-PyTorch's counterpart of the JAX engine's jitted decode step: JAX compiles
-the step once per static shape, here the step is captured once per key
-(the engine's key is the step's ``PlanMeta``) into a ``torch.cuda.CUDAGraph``
-and replayed. Every graph reads one static input buffer of its own, which
-the caller fills before each replay, and writes one static output buffer;
-all graphs share one memory pool for their intermediates, which is safe
-because replays run one at a time on one stream and nothing inside the
-pool outlives a replay.
+PyTorch's counterpart of the JAX engines' jitted steps: JAX compiles a step
+once per static shape, here a step is captured once per key into a
+``torch.cuda.CUDAGraph`` and replayed. A key is any hashable; a tuple whose
+first item is a string names the step's kind (the Llama engine's
+``("prefill", PlanMeta)``, ``("score", PlanMeta)``, ``("verify",
+PlanMeta)``), any other key is of kind "step" (its decode step's and the
+dp x tp engine's ``PlanMeta``). Every graph reads one static input buffer
+of its own, which the caller fills before each replay. Graphs whose
+outputs have one shape and dtype write one shared output tensor (a
+``score()`` bucket's f32 logits are 0.5 GB at 1024 rows), so an output
+is valid until the next replay: callers read it at once. All graphs
+share one memory pool for their intermediates, which is safe because
+replays run one at a time on one stream and nothing inside the pool
+outlives a replay.
 
 A capture warms the step up eagerly on a side stream first: the kernels
 build at their first call (``flashinfer_tpu_torch.jit``), and a build must
@@ -20,7 +26,12 @@ Launch counts: a capture records launches without running them, and each
 replay runs them all. So a capture takes back the counts its wrappers added,
 and every replay adds them again (``batch_paged_attention_run.launches``, its
 ``gather_launches`` and the other wrappers' counts then say how many
-kernels ran).
+kernels ran). ``stats`` keeps, for each kind, the captures, their seconds
+and the replays.
+
+A step may run collectives of ``torch.distributed`` (NCCL captures them
+on the capturing stream); its communicator must exist before the
+capture, which the eager warm-up's collectives see to.
 """
 
 from __future__ import annotations
@@ -42,7 +53,7 @@ from flashinfer_tpu_torch.ops.gemm_grouped import grouped_gemm_padded
 from flashinfer_tpu_torch.ops.norm import rmsnorm
 from flashinfer_tpu_torch.ops.sampling import family_call
 
-__all__ = ["StepGraphs"]
+__all__ = ["StepGraphs", "kind_of"]
 
 # every launch count of the kernel wrappers: (wrapper, attribute)
 _COUNTED = tuple((f, "launches") for f in (
@@ -63,6 +74,13 @@ def _add(counts: List[int], sign: int) -> None:
 Step = Callable[[torch.Tensor, Hashable], torch.Tensor]
 
 
+def kind_of(key: Hashable) -> str:
+    """The kind a key names: its first item where that is a string."""
+    if isinstance(key, tuple) and key and isinstance(key[0], str):
+        return key[0]
+    return "step"
+
+
 class StepGraphs:
     """One CUDA graph per key over a step ``step(buf, key) -> tensor``.
 
@@ -78,15 +96,31 @@ class StepGraphs:
         self._bufs: Dict[Hashable, torch.Tensor] = {}
         self._graphs: Dict[Hashable, Tuple[torch.cuda.CUDAGraph,
                                            torch.Tensor, List[int]]] = {}
+        # the outputs, one a (shape, dtype)
+        self._outs: Dict[tuple, torch.Tensor] = {}
         self._pool = torch.cuda.graph_pool_handle() if self.enabled else None
-        self.capture_seconds = 0.0
         # growth of the reserved device memory over the captures
         self.pool_bytes = 0
         self.last_key = None  # the key of the last step run
+        # kind -> captures, capture seconds, replays
+        self.stats: Dict[str, Dict[str, float]] = {}
 
     @property
     def captures(self) -> int:
         return len(self._graphs)
+
+    @property
+    def capture_seconds(self) -> float:
+        return sum(v["capture_s"] for v in self.stats.values())
+
+    @property
+    def output_bytes(self) -> int:
+        """Bytes of the shared output tensors (outside the pool)."""
+        return sum(t.numel() * t.element_size() for t in self._outs.values())
+
+    def _stat(self, key: Hashable) -> Dict[str, float]:
+        return self.stats.setdefault(
+            kind_of(key), dict(captures=0, capture_s=0.0, replays=0))
 
     def inputs(self, key: Hashable, n: int) -> torch.Tensor:
         if key not in self._bufs:
@@ -108,6 +142,7 @@ class StepGraphs:
         graph, out, launched = self._graphs[key]
         graph.replay()
         _add(launched, 1)
+        self._stat(key)["replays"] += 1
         return out
 
     def _capture(self, buf, key, step: Step):
@@ -116,16 +151,22 @@ class StepGraphs:
         side = torch.cuda.Stream(self.device)
         side.wait_stream(stream)
         with torch.cuda.stream(side):
-            # warm-up: builds the kernels and sets up cuBLAS; the step
-            # rewrites the same cache entries when the graph replays
-            out = step(buf, key).clone()
+            # warm-up: builds the kernels, sets up cuBLAS and the
+            # communicators; the step rewrites the same cache entries when
+            # the graph replays
+            res = step(buf, key)
+            spec = (tuple(res.shape), res.dtype)
+            if spec not in self._outs:
+                self._outs[spec] = res.clone()
+            out = self._outs[spec]
+            del res
         stream.wait_stream(side)
         torch.cuda.synchronize(self.device)
+        gc.collect()  # before the reading: the capture empties the cache
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(self.device)
         before = _counts()
         graph = torch.cuda.CUDAGraph()
-        gc.collect()
         gc.disable()
         try:
             with torch.cuda.graph(graph, pool=self._pool):
@@ -135,5 +176,7 @@ class StepGraphs:
         launched = [a - b for a, b in zip(_counts(), before)]
         _add(launched, -1)  # recorded, not run
         self.pool_bytes += torch.cuda.memory_reserved(self.device) - reserved
-        self.capture_seconds += time.perf_counter() - t0
+        stat = self._stat(key)
+        stat["captures"] += 1
+        stat["capture_s"] += time.perf_counter() - t0
         return graph, out, launched

@@ -1831,7 +1831,186 @@ def test_failed_capture_raises(dev):
     with pytest.raises(RuntimeError, match="refused under capture"):
         eng.step()
     assert calls == [False, True]  # the warm-up, then the capture
-    assert eng.graphs.captures == 0 and req.output and len(req.output) == 1
+    # the prefill's graph was captured; no decode graph was
+    assert "step" not in eng.graphs.stats and eng.graphs.captures == 1
+    assert req.output and len(req.output) == 1
+
+
+def _caches(eng):
+    """The engine's K and V pages (the scratch row left out) as bytes."""
+    return [c.view(torch.uint8).cpu() for c in (eng.k_cache, eng.v_cache)]
+
+
+PREFILL_PROMPT_LENS = (9, 30, 4, 17, 12, 45, 3)
+
+
+@pytest.mark.parametrize("greedy", [True, False])
+@pytest.mark.parametrize("kv_dtype", ["model", "fp8_e4m3", "int8"])
+@pytest.mark.parametrize("layout", ["NHD", "HND"])
+def test_graphed_prefill_matches_eager(dev, greedy, kv_dtype, layout):
+    """Seven requests on four slots, admitted in two batches of other
+    lengths in one row bucket (60 rows each, padded to 64): the prefill
+    replayed from a CUDA graph per ``("prefill", PlanMeta)`` (one capture,
+    two replays) emits the eager padded prefill's tokens, the first ones
+    too, and leaves the same bytes in every page."""
+    rng = np.random.default_rng(40)
+    prompts = [rng.integers(0, 256, n).tolist() for n in PREFILL_PROMPT_LENS]
+    kw = dict(greedy=greedy, kv_dtype=kv_dtype, kv_scale=0.3,
+              kv_layout=layout)
+    want, eager, _ = _bf16_engine_run(prompts, 6, cuda_graphs=False, **kw)
+    got, eng, _ = _bf16_engine_run(prompts, 6, **kw)
+    assert got == want
+    st = eng.graphs.stats["prefill"]
+    assert st["captures"] == 1 and st["replays"] == 2
+    assert eager.graphs.stats == {}
+    for a, b in zip(_caches(eng), _caches(eager)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("wdt", ["fp8_e4m3", "int8"])
+@pytest.mark.parametrize("greedy", [True, False])
+def test_graphed_8bit_prefill_matches_eager(dev, wdt, greedy):
+    """8-bit weights: every matmul of the graphed prefill is a grouped-GEMM
+    launch; tokens and pages equal the eager prefill's."""
+    rng = np.random.default_rng(41)
+    prompts = [rng.integers(0, 256, n).tolist() for n in PREFILL_PROMPT_LENS]
+    runs = [_bf16_engine_run(prompts, 4, greedy=greedy, weight_dtype=wdt,
+                             cuda_graphs=graphs) for graphs in (False, True)]
+    (want, eager, _), (got, eng, _) = runs
+    assert got == want
+    assert eng.graphs.stats["prefill"]["captures"] >= 1
+    for a, b in zip(_caches(eng), _caches(eager)):
+        assert torch.equal(a, b)
+
+
+def test_prefill_graph_captured_once_a_bucket(dev):
+    """Admissions of other request counts and lengths within one row
+    bucket share one PlanMeta and replay one graph; a larger bucket
+    captures once more."""
+    from flashinfer_tpu_torch import EngineConfig, LlamaConfig, \
+        LlamaServingEngine
+
+    eng = LlamaServingEngine(EngineConfig(
+        model=LlamaConfig.tiny(torch.bfloat16), max_batch=4, num_pages=256,
+        page_size=8, max_seq_len=256, greedy=True), seed=0)
+    rng = np.random.default_rng(42)
+
+    def admit(lens):
+        for n in lens:
+            eng.add_request(rng.integers(0, 256, n).tolist(), 1)
+        eng.step()  # prefill only: one token a request
+        assert not eng.has_work()
+        return dict(eng.graphs.stats["prefill"])
+
+    first = admit((20, 9, 30))  # 59 rows: the 64-row bucket
+    assert first["captures"] == 1
+    for lens in ((64,), (33, 2), (5, 6, 7, 20)):
+        st = admit(lens)
+        assert st["captures"] == 1, lens
+    assert st["replays"] == 4
+    st = admit((70, 40))  # 110 rows: the 128-row bucket
+    assert st["captures"] == 2 and st["replays"] == 5
+    assert len({k[1].nnz for k in eng.graphs._graphs}) == 2
+
+
+def test_graphed_score_matches_eager(dev):
+    """``score()`` replayed from a graph per ``("score", PlanMeta)``: the
+    eager padded step's f32 logits bit for bit; one capture a bucket, and
+    one output buffer a bucket shared by its graphs."""
+    from flashinfer_tpu_torch import EngineConfig, LlamaConfig, \
+        LlamaServingEngine
+
+    rng = np.random.default_rng(43)
+    prompts = [rng.integers(0, 256, n).tolist() for n in (40, 61, 100)]
+    outs = []
+    for graphs in (False, True):
+        eng = LlamaServingEngine(EngineConfig(
+            model=LlamaConfig.tiny(torch.bfloat16), max_batch=4,
+            num_pages=256, page_size=8, max_seq_len=256,
+            cuda_graphs=graphs), seed=0)
+        outs.append([eng.score(p) for p in prompts])
+    for want, got, p in zip(outs[0], outs[1], prompts):
+        assert got.shape == (len(p), 256) and np.isfinite(got).all()
+        np.testing.assert_array_equal(got, want)
+    st = eng.graphs.stats["score"]
+    assert st["captures"] == 2 and st["replays"] == 3
+    assert eng.graphs.output_bytes == (64 + 128) * 256 * 4
+
+
+def test_failed_prefill_capture_raises(dev):
+    """A prefill that fails while it is captured raises out of the step;
+    no token is emitted and nothing runs eagerly instead."""
+    from flashinfer_tpu_torch import EngineConfig, LlamaConfig, \
+        LlamaServingEngine
+
+    eng = LlamaServingEngine(EngineConfig(
+        model=LlamaConfig.tiny(torch.bfloat16), max_batch=2, num_pages=64,
+        page_size=8, max_seq_len=64, greedy=True), seed=0)
+    body, calls = eng._prefill_body, []
+
+    def failing(buf, key):
+        calls.append(torch.cuda.is_current_stream_capturing())
+        if calls[-1]:
+            raise RuntimeError("prefill refused under capture")
+        return body(buf, key)
+
+    eng._prefill_body = failing
+    req = eng.add_request([1, 2, 3], 4)
+    with pytest.raises(RuntimeError, match="refused under capture"):
+        eng.step()
+    assert calls == [False, True]
+    assert eng.graphs.captures == 0 and not req.output
+
+
+@pytest.fixture
+def nccl_world1(dev, tmp_path):
+    """A process group of one rank over NCCL, destroyed after the test;
+    yields the (dp, pp, cp, tp) mesh of one card."""
+    import torch.distributed as dist
+
+    from flashinfer_tpu_torch.parallel import Mapping, make_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        yield make_mesh(Mapping(world_size=1), "cuda").mesh
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("greedy", [True, False])
+def test_graphed_dist_step_matches_eager(nccl_world1, greedy):
+    """``DistributedServingEngine`` at dp = tp = 1 over NCCL: the step
+    replayed from a CUDA graph per PlanMeta (its all-reduces and
+    all-gathers captured, the seed read from device memory) emits the
+    eager step's tokens, sampled ones too; every step replays one
+    graph."""
+    from flashinfer_tpu_torch import EngineConfig, LlamaConfig
+    from flashinfer_tpu_torch.serving.distributed import (
+        DistributedServingEngine,
+    )
+
+    rng = np.random.default_rng(44)
+    prompts = [rng.integers(0, 256, n).tolist() for n in (9, 30, 4, 17, 12)]
+    outs, engines = [], []
+    for graphs in (False, True):
+        cfg = EngineConfig(model=LlamaConfig.tiny(torch.bfloat16),
+                           max_batch=4, num_pages=256, page_size=8,
+                           max_seq_len=128, greedy=greedy,
+                           cuda_graphs=graphs)
+        eng = DistributedServingEngine(cfg, nccl_world1, seed=0,
+                                       max_tokens_per_step=64)
+        reqs = [eng.add_request(p, 8) for p in prompts]
+        eng.run_to_completion(max_steps=200)
+        assert all(r.done for r in reqs)
+        outs.append([r.output for r in reqs])
+        engines.append(eng)
+    assert outs[1] == outs[0]
+    eager, eng = engines
+    assert eager.graphs.captures == 0
+    assert eng.graphs.captures == 1
+    assert eng.graphs.stats["step"]["replays"] == eng.steps
 
 
 def _verify_plan(dev, layout, kv_lens, spec_tokens=3, hq=32, hkv=8, d=128,
@@ -1903,13 +2082,17 @@ def test_graphed_verify_matches_eager(dev, greedy, kv_dtype):
     got, eng, (paged_g, norm_g, fam_g) = _spec_engine_run(prompts, 12, **kw)
     assert got == want
     assert eager.graphs.captures == 0 and eng.graphs.captures >= 1
-    assert all(k[0] == "verify" for k in eng.graphs._graphs)
+    # the verify step's graphs and the prefill's, no decode step's
+    assert {k[0] for k in eng.graphs._graphs} == {"verify", "prefill"}
     assert eng.spec_stats == eager.spec_stats
     layers = eng.cfg.model.num_layers
     assert paged_g == paged_e + layers * eng.graphs.captures
     assert norm_g == norm_e + (2 * layers + 1) * eng.graphs.captures
-    # sampled: two renorm launches and the draw a verify step
-    assert fam_g == fam_e + (0 if greedy else 3 * eng.graphs.captures)
+    # sampled: two renorm launches and the draw a verify step, one draw a
+    # prefill
+    verify = eng.graphs.stats["verify"]["captures"]
+    prefill = eng.graphs.stats["prefill"]["captures"]
+    assert fam_g == fam_e + (0 if greedy else 3 * verify + prefill)
     if greedy:
         assert eng.spec_stats["accepted"] > 0
 
