@@ -4,15 +4,17 @@ Counterpart of ``flashinfer_tpu/profiler/__init__.py``. ``profile_trace``
 records the enclosed region with ``torch.profiler`` (host ops, and on a
 machine with a card every kernel, memcpy and memset the card ran, those
 replayed from CUDA graphs too) and writes a Chrome-trace JSON that
-ui.perfetto.dev loads. ``annotate`` opens a named span (``record_function``,
-plus an NVTX range on the card). ``summarize_trace`` sums the device events
-of the newest trace by kernel name.
+ui.perfetto.dev loads. ``annotate`` opens a named span (an NVTX range on the
+card, a ``record_function`` range while a profiler session records) and can
+count its seconds into a caller's dict. ``summarize_trace`` sums the device
+events of the newest trace by kernel name.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import functools
 import glob
 import gzip
 import json
@@ -57,19 +59,56 @@ def profile_trace(log_dir: str = DEFAULT_TRACE_DIR) -> Iterator[str]:
     prof.export_chrome_trace(os.path.join(log_dir, name))
 
 
-@contextlib.contextmanager
-def annotate(name: str):
-    """A named span in the trace around the enclosed code: a
-    ``record_function`` range on the host and, on the card, an NVTX range."""
-    nvtx = torch.cuda.is_available()
-    if nvtx:
-        torch.cuda.nvtx.range_push(name)
-    try:
-        with torch.profiler.record_function(name):
-            yield
-    finally:
-        if nvtx:
+@functools.lru_cache(maxsize=None)
+def _nvtx() -> bool:
+    return torch.cuda.is_available()
+
+
+class annotate:
+    """A named span around the enclosed code (``with annotate(name):``).
+
+    On the card it is an NVTX range. While a profiler session records on
+    this thread it is also a ``record_function`` range, so it lands in the
+    session's trace beside the kernels; outside a session none is opened.
+    Given ``counters`` (a dict), it adds its seconds and a count to
+    ``counters[key]`` (``[seconds, count]``; ``key`` defaults to ``name``)
+    whether or not a session records: two ``perf_counter`` reads, the
+    range's own cost left out. One object may be entered again once it has
+    exited (not while it is open)."""
+
+    __slots__ = ("name", "counters", "key", "_range", "_t0", "_nv")
+
+    def __init__(self, name: str, counters: Optional[dict] = None,
+                 key: Optional[str] = None):
+        self.name = name
+        self.counters = counters
+        self.key = name if key is None else key
+
+    def __enter__(self) -> "annotate":
+        self._nv = _nvtx()
+        if self._nv:
+            torch.cuda.nvtx.range_push(self.name)
+        self._range = None
+        if torch.autograd._profiler_enabled():
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        seconds = time.perf_counter() - self._t0
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        if self._nv:
             torch.cuda.nvtx.range_pop()
+        c = self.counters
+        if c is not None:
+            stat = c.get(self.key)
+            if stat is None:
+                c[self.key] = [seconds, 1]
+            else:
+                stat[0] += seconds
+                stat[1] += 1
 
 
 def latest_trace_path(log_dir: str = DEFAULT_TRACE_DIR) -> Optional[str]:

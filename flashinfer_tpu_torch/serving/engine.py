@@ -44,6 +44,37 @@ applies its scales to the f32 accumulator, in every path (prefill, the
 graphed decode step, the window, the verify step, ``score()``,
 ``calibrate_kv_scales``). ``EngineConfig`` has no ``interpret`` field: the
 JAX engine's Pallas interpret switch has no meaning on the card.
+
+What an operator reads. Each phase of ``step()`` is a span
+(``flashinfer_tpu_torch.profiler.annotate``) that adds its host seconds
+and one entry to ``phases["<kind>.<phase>"]`` (``[seconds, entries]``),
+always, and under a profiler session is a range ``engine.<kind>.<phase>``
+in the trace beside the kernels. Kinds: ``prefill`` (admission), ``decode``
+(one step or a window), ``verify`` (speculative), ``score`` (``score()``).
+Phases, in order:
+
+- ``admit``: slot and page choice (prefill only; skipped with no request
+  pending);
+- ``reserve``: room for the step's tokens, preemption included;
+- ``plan``: the attention wrapper's ``plan()``;
+- ``inputs``: the step's host rows (slot tables, tokens, the input buffer;
+  the verify step's drafts);
+- ``upload``: the buffer's copy to the device;
+- ``replay``: the CUDA graph's replay (on the CPU, or with
+  ``cuda_graphs=False``, the eager step);
+- ``readback``: the tokens' copy to the host, where the host waits for the
+  device;
+- ``emit``: the tokens handed to their requests (a window's and a verify
+  step's acceptance too).
+
+``StepGraphs`` adds ``<graph kind>.capture`` (the decode graph's kind is
+``step``) for each capture, inside the ``replay`` that needed it. Every
+phase but ``replay``, ``readback`` and ``capture`` is the host preparing a
+step while the device may wait. ``plan_seconds`` is the decode and verify
+plans' seconds. Each request carries ``queue_wait``: the seconds from
+``add_request`` to the start of the step that first admitted it (kept
+through preemption); ``deferred`` counts the request-steps spent pending for
+want of a slot and for want of pages.
 """
 
 from __future__ import annotations
@@ -84,6 +115,7 @@ from flashinfer_tpu_torch.ops.sampling import (
     top_k_top_p_sampling_from_probs,
     top_p_renorm_probs,
 )
+from flashinfer_tpu_torch.profiler import annotate
 from flashinfer_tpu_torch.scheduler.native import PagePool
 from flashinfer_tpu_torch.serving.graphs import StepGraphs
 from flashinfer_tpu_torch.utils import (
@@ -146,6 +178,11 @@ class GenerationRequest:
     request_id: int = -1
     output: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
+    # perf_counter() at add_request, and the seconds from there to the
+    # start of the step that first admitted it (None until then; kept
+    # through preemption)
+    queued_at: float = 0.0
+    queue_wait: Optional[float] = None
     _seq: int = -1
     _slot: int = -1
 
@@ -362,20 +399,42 @@ class LlamaServingEngine(_LayerStack):
         self._spec_wrapper = BatchPrefillWithPagedKVCacheWrapper(
             kv_layout=config.kv_layout, device=self.device)
         self._page_bucket = next_power_of_2(config.num_pages)
-        self.graphs = StepGraphs(self.device, config.cuda_graphs)
+        # "<kind>.<phase>" -> [host seconds, entries] of each span of
+        # step() (the module docstring lists them)
+        self.phases: Dict[str, List[float]] = {}
+        self._spans: Dict[str, annotate] = {}
+        self.graphs = StepGraphs(self.device, config.cuda_graphs,
+                                 phases=self.phases)
         self.steps = 0
         self.generated_tokens = 0
         self.preemptions = 0
-        # decode steps run (a window of N counts N), and the host seconds
-        # their plans took
+        # decode steps run (a window of N counts N)
         self.decode_steps = 0
-        self.plan_seconds = 0.0
+        # request-steps spent pending: each step a request is left in the
+        # queue adds one, under "slots" when no slot was free, under
+        # "pages" when a slot was but the pool could not hold its context
+        self.deferred = dict(slots=0, pages=0)
         # speculative decoding: verify steps, the sequences they ran, the
         # drafts proposed and emitted, the tokens emitted
         self.spec_stats = dict(steps=0, seqs=0, drafts=0, accepted=0,
                                emitted=0)
 
     # ------------------------------------------------------------------ API
+
+    @property
+    def plan_seconds(self) -> float:
+        """Host seconds the decode and verify steps' plans took (prefill
+        planning is ``phases["prefill.plan"]``)."""
+        return sum(self.phases.get(k, (0.0,))[0]
+                   for k in ("decode.plan", "verify.plan"))
+
+    def _span(self, key: str) -> annotate:
+        """The span ``engine.<key>`` that counts into ``phases[key]``."""
+        span = self._spans.get(key)
+        if span is None:
+            span = self._spans[key] = annotate("engine." + key, self.phases,
+                                               key)
+        return span
 
     def add_request(self, prompt, max_new_tokens: int) -> GenerationRequest:
         total = len(prompt) + max_new_tokens
@@ -384,6 +443,7 @@ class LlamaServingEngine(_LayerStack):
                 f"prompt_len + max_new_tokens = {total} exceeds "
                 f"max_seq_len={self.cfg.max_seq_len}")
         req = GenerationRequest(list(map(int, prompt)), max_new_tokens)
+        req.queued_at = time.perf_counter()
         req.request_id = self._next_id
         self._next_id += 1
         self._pending.append(req)
@@ -415,9 +475,12 @@ class LlamaServingEngine(_LayerStack):
         try:
             key, row = self._prefill_inputs(
                 "score", [list(prompt)], *self._batch_tables([seq]))
-            _upload(self.graphs.inputs(key, len(row)), row)
-            logits = self.graphs.run(key, self._score_body)
-            return logits[:P].cpu().numpy()
+            with self._span("score.upload"):
+                _upload(self.graphs.inputs(key, len(row)), row)
+            with self._span("score.replay"):
+                logits = self.graphs.run(key, self._score_body)
+            with self._span("score.readback"):
+                return logits[:P].cpu().numpy()
         finally:
             self.pool.release(seq)
 
@@ -442,28 +505,40 @@ class LlamaServingEngine(_LayerStack):
     def _admit(self, emitted: List[Tuple[int, int]]) -> None:
         """Move pending requests into free slots and prefill them as one
         batch. A request resuming after preemption re-prefills its whole
-        context (prompt + output), so its KV is as if never evicted."""
+        context (prompt + output), so its KV is as if never evicted. A
+        first admission stamps the request's queue wait up to now, the
+        start of the step (admission is its first phase)."""
+        if not self._pending:
+            return
+        t_step = time.perf_counter()
         admitted: List[GenerationRequest] = []
-        for slot in range(self.cfg.max_batch):
-            if not self._pending or self._slots[slot] is not None:
-                continue
-            req = self._pending[0]
-            ctx_len = len(req.prompt) + len(req.output)
-            need_pages = cdiv(ctx_len, self.cfg.page_size)
-            if need_pages > self.pool.num_pages:
-                raise ValueError(
-                    f"request {req.request_id} needs {need_pages} pages but "
-                    f"the pool only has {self.pool.num_pages}: it can never "
-                    "be admitted")
-            if need_pages > self.pool.free_pages:
-                break
-            seq = self.pool.create()
-            if not self.pool.extend(seq, ctx_len):
-                raise RuntimeError("page pool refused a checked extension")
-            req._seq, req._slot = seq, slot
-            self._slots[slot] = req
-            self._pending.pop(0)
-            admitted.append(req)
+        with self._span("prefill.admit"):
+            short = "slots"  # why requests are left pending
+            for slot in range(self.cfg.max_batch):
+                if not self._pending or self._slots[slot] is not None:
+                    continue
+                req = self._pending[0]
+                ctx_len = len(req.prompt) + len(req.output)
+                need_pages = cdiv(ctx_len, self.cfg.page_size)
+                if need_pages > self.pool.num_pages:
+                    raise ValueError(
+                        f"request {req.request_id} needs {need_pages} pages "
+                        f"but the pool only has {self.pool.num_pages}: it "
+                        "can never be admitted")
+                if need_pages > self.pool.free_pages:
+                    short = "pages"
+                    break
+                seq = self.pool.create()
+                if not self.pool.extend(seq, ctx_len):
+                    raise RuntimeError(
+                        "page pool refused a checked extension")
+                req._seq, req._slot = seq, slot
+                if req.queue_wait is None:
+                    req.queue_wait = t_step - req.queued_at
+                self._slots[slot] = req
+                self._pending.pop(0)
+                admitted.append(req)
+            self.deferred[short] += len(self._pending)
         if admitted:
             self._prefill(admitted, emitted)
 
@@ -518,13 +593,19 @@ class LlamaServingEngine(_LayerStack):
         """Prefill the admitted requests as one step of fixed shape (JAX's
         ``_prefill_step``), replayed from a CUDA graph per ``("prefill",
         PlanMeta)`` on the card; each request's first token."""
-        tables = self._batch_tables([r._seq for r in reqs])
-        prompts = [r.prompt + r.output for r in reqs]
+        with self._span("prefill.inputs"):
+            tables = self._batch_tables([r._seq for r in reqs])
+            prompts = [r.prompt + r.output for r in reqs]
         key, row = self._prefill_inputs("prefill", prompts, *tables)
-        _upload(self.graphs.inputs(key, len(row)), row)
-        toks = self.graphs.run(key, self._prefill_body).cpu().numpy()
-        for r, t in zip(reqs, toks):
-            self._emit(r, int(t), emitted)
+        with self._span("prefill.upload"):
+            _upload(self.graphs.inputs(key, len(row)), row)
+        with self._span("prefill.replay"):
+            out = self.graphs.run(key, self._prefill_body)
+        with self._span("prefill.readback"):
+            toks = out.cpu().numpy()
+        with self._span("prefill.emit"):
+            for r, t in zip(reqs, toks):
+                self._emit(r, int(t), emitted)
 
     def _prefill_pins(self, bucket: int, requests: int) -> dict:
         """The plan floors that give every prefill of ``bucket`` rows over
@@ -560,33 +641,36 @@ class LlamaServingEngine(_LayerStack):
         prompt's last row (the padding entries repeat row 0) with a fresh
         seed; "score" samples nothing."""
         mc, B = self.cfg.model, self.cfg.max_batch
-        lens = np.asarray([len(p) for p in prompts])
-        nnz = int(lens.sum())
-        bucket = next_power_of_2(max(nnz, 8))
-        self._prefill_wrapper.plan(
-            np.concatenate([[0], np.cumsum(lens), [bucket]]),
-            np.concatenate([indptr, [indptr[-1]]]), indices,
-            np.concatenate([last, [0]]),
-            mc.num_qo_heads, mc.num_kv_heads, mc.head_dim, self.cfg.page_size,
-            causal=True, kv_chunk_size=self._kv_chunk(), force_kv_major=True,
-            defer_upload=True,
-            **self._prefill_pins(bucket, B if kind == "prefill" else 1))
-        dplan = self._prefill_wrapper.device_plan
-        step = np.zeros((4, bucket), np.int64)
-        tokens, positions, page_ids, valid = step
-        tokens[:nnz] = np.concatenate(prompts)
-        positions[:nnz] = np.concatenate([np.arange(n) for n in lens])
-        batch_idx = np.repeat(np.arange(len(prompts)), lens)
-        page_ids[:nnz] = indices[indptr[batch_idx]
-                                 + positions[:nnz] // self.cfg.page_size]
-        valid[:nnz] = 1
-        sel = np.zeros(B if kind == "prefill" else 0, np.int64)
-        if kind == "prefill":
-            sel[: len(prompts)] = np.cumsum(lens) - 1
-        seed = self._draw_seed() if kind == "prefill" else 0
-        row = np.concatenate([dplan.blob.numpy(), step.ravel(), sel,
-                              [seed]]).astype(np.int32)
-        return (kind, dplan.meta), row
+        with self._span(kind + ".plan"):
+            lens = np.asarray([len(p) for p in prompts])
+            nnz = int(lens.sum())
+            bucket = next_power_of_2(max(nnz, 8))
+            self._prefill_wrapper.plan(
+                np.concatenate([[0], np.cumsum(lens), [bucket]]),
+                np.concatenate([indptr, [indptr[-1]]]), indices,
+                np.concatenate([last, [0]]),
+                mc.num_qo_heads, mc.num_kv_heads, mc.head_dim,
+                self.cfg.page_size, causal=True,
+                kv_chunk_size=self._kv_chunk(), force_kv_major=True,
+                defer_upload=True,
+                **self._prefill_pins(bucket, B if kind == "prefill" else 1))
+        with self._span(kind + ".inputs"):
+            dplan = self._prefill_wrapper.device_plan
+            step = np.zeros((4, bucket), np.int64)
+            tokens, positions, page_ids, valid = step
+            tokens[:nnz] = np.concatenate(prompts)
+            positions[:nnz] = np.concatenate([np.arange(n) for n in lens])
+            batch_idx = np.repeat(np.arange(len(prompts)), lens)
+            page_ids[:nnz] = indices[indptr[batch_idx]
+                                     + positions[:nnz] // self.cfg.page_size]
+            valid[:nnz] = 1
+            sel = np.zeros(B if kind == "prefill" else 0, np.int64)
+            if kind == "prefill":
+                sel[: len(prompts)] = np.cumsum(lens) - 1
+            seed = self._draw_seed() if kind == "prefill" else 0
+            row = np.concatenate([dplan.blob.numpy(), step.ravel(), sel,
+                                  [seed]]).astype(np.int32)
+            return (kind, dplan.meta), row
 
     def _prefill_rows(self, buf: torch.Tensor, key):
         """The padded rows of a prefill input buffer: (tokens, positions,
@@ -655,13 +739,12 @@ class LlamaServingEngine(_LayerStack):
     def _plan_decode(self, tables, kv_lens, **kw) -> DevicePlan:
         full_indptr, slot_indices, full_last, _ = tables
         mc = self.cfg.model
-        t0 = time.perf_counter()
-        self._decode_wrapper.plan(
-            full_indptr, slot_indices, full_last,
-            mc.num_qo_heads, mc.num_kv_heads, mc.head_dim, self.cfg.page_size,
-            kv_len_arr=kv_lens, kv_chunk_size=self._kv_chunk(),
-            defer_upload=True, **kw)
-        self.plan_seconds += time.perf_counter() - t0
+        with self._span("decode.plan"):
+            self._decode_wrapper.plan(
+                full_indptr, slot_indices, full_last,
+                mc.num_qo_heads, mc.num_kv_heads, mc.head_dim,
+                self.cfg.page_size, kv_len_arr=kv_lens,
+                kv_chunk_size=self._kv_chunk(), defer_upload=True, **kw)
         return self._decode_wrapper.device_plan
 
     def _step_row(self, dplan: DevicePlan, tokens, positions, valid, tables,
@@ -678,22 +761,26 @@ class LlamaServingEngine(_LayerStack):
         return 0 if self.cfg.greedy else draw_seed(self.generator)
 
     def _decode(self) -> List[Tuple[int, int]]:
-        reqs = [r for r in self._slots if r is not None]
-        reqs = self._reserve(reqs, 1)  # room for this step's token
+        with self._span("decode.reserve"):
+            reqs = [r for r in self._slots if r is not None]
+            reqs = self._reserve(reqs, 1)  # room for this step's token
         if not reqs:
             return []
-        tables = self._slot_tables(reqs)
-        kv_lens = tables[3]
-        tokens, valid = self._step_tokens(reqs)
-        positions = np.maximum(kv_lens - 1, 0)
-        dplan = self._plan_decode(tables, kv_lens,
-                                  work_capacity=self._decode_capacity(kv_lens))
-        row = self._step_row(dplan, tokens, positions, valid, tables,
-                             self._draw_seed())
+        with self._span("decode.inputs"):
+            tables = self._slot_tables(reqs)
+            kv_lens = tables[3]
+            tokens, valid = self._step_tokens(reqs)
+            positions = np.maximum(kv_lens - 1, 0)
+            cap = self._decode_capacity(kv_lens)
+        dplan = self._plan_decode(tables, kv_lens, work_capacity=cap)
+        with self._span("decode.inputs"):
+            row = self._step_row(dplan, tokens, positions, valid, tables,
+                                 self._draw_seed())
         toks = self._run_steps(dplan.meta, row[None])[0]
         out: List[Tuple[int, int]] = []
-        for r in reqs:
-            self._emit(r, int(toks[r._slot]), out)
+        with self._span("decode.emit"):
+            for r in reqs:
+                self._emit(r, int(toks[r._slot]), out)
         return out
 
     def _decode_window(self) -> List[Tuple[int, int]]:
@@ -709,41 +796,46 @@ class LlamaServingEngine(_LayerStack):
                      min(r.max_new_tokens - len(r.output) for r in reqs))
         if window <= 1:
             return self._decode()
-        reqs = self._reserve(reqs, window)
+        with self._span("decode.reserve"):
+            reqs = self._reserve(reqs, window)
         if not reqs:
             return []
-        tables = self._slot_tables(reqs)
-        kv_end = tables[3]
-        active = kv_end > 0
-        base = np.where(active, kv_end - window, 0)
-        cap = self._decode_capacity(kv_end)
-        min_splits = next_power_of_2(
-            max(1, int(np.max(-(-kv_end // self._kv_chunk()), initial=1))))
-        tokens, valid = self._step_tokens(reqs)
+        with self._span("decode.inputs"):
+            tables = self._slot_tables(reqs)
+            kv_end = tables[3]
+            active = kv_end > 0
+            base = np.where(active, kv_end - window, 0)
+            cap = self._decode_capacity(kv_end)
+            min_splits = next_power_of_2(max(
+                1, int(np.max(-(-kv_end // self._kv_chunk()), initial=1))))
+            tokens, valid = self._step_tokens(reqs)
         rows, metas = [], []
         for i in range(window):
             dplan = self._plan_decode(
                 tables, np.where(active, base + i + 1, 0),
                 work_capacity=cap, min_max_splits=min_splits)
-            metas.append(dplan.meta)
-            rows.append(self._step_row(dplan, tokens, base + i, valid,
-                                       tables, self._draw_seed()))
+            with self._span("decode.inputs"):
+                metas.append(dplan.meta)
+                rows.append(self._step_row(dplan, tokens, base + i, valid,
+                                           tables, self._draw_seed()))
         if any(m != metas[0] for m in metas[1:]):
             raise AssertionError("window plans must share one PlanMeta")
         toks = self._run_steps(metas[0], np.stack(rows))  # [window, B]
         out: List[Tuple[int, int]] = []
-        for r in reqs:
-            accepted: List[int] = []
-            for t in toks[:, r._slot]:
-                accepted.append(int(t))
-                if self.cfg.eos_token >= 0 and t == self.cfg.eos_token:
-                    break
-            if len(accepted) < window:
-                # keep the KV of the accepted tokens but the last (whose KV
-                # the next step appends)
-                self.pool.truncate(r._seq, int(base[r._slot]) + len(accepted))
-            for t in accepted:
-                self._emit(r, t, out)
+        with self._span("decode.emit"):
+            for r in reqs:
+                accepted: List[int] = []
+                for t in toks[:, r._slot]:
+                    accepted.append(int(t))
+                    if self.cfg.eos_token >= 0 and t == self.cfg.eos_token:
+                        break
+                if len(accepted) < window:
+                    # keep the KV of the accepted tokens but the last (whose
+                    # KV the next step appends)
+                    self.pool.truncate(r._seq,
+                                       int(base[r._slot]) + len(accepted))
+                for t in accepted:
+                    self._emit(r, t, out)
         return out
 
     def _run_steps(self, meta: PlanMeta, rows: np.ndarray) -> np.ndarray:
@@ -753,25 +845,32 @@ class LlamaServingEngine(_LayerStack):
         [steps, max_batch]."""
         B = self.cfg.max_batch
         n, width = rows.shape
-        buf = self.graphs.inputs(meta, width)
         if n == 1:
-            _upload(buf, rows[0])
-            toks = self.graphs.run(meta, self._decode_body)[None]
+            with self._span("decode.upload"):
+                buf = self.graphs.inputs(meta, width)
+                _upload(buf, rows[0])
+            with self._span("decode.replay"):
+                toks = self.graphs.run(meta, self._decode_body)[None]
         else:
-            host = torch.from_numpy(rows)
-            if buf.is_cuda:
-                host = host.pin_memory()
-            stacked = host.to(self.device, non_blocking=True)
-            toks = torch.empty(n, B, dtype=torch.int32, device=self.device)
-            off = _blob_size(meta)
-            tok_in = buf[off: off + B]
-            for i in range(n):
-                buf.copy_(stacked[i])
-                if i:
-                    tok_in.copy_(toks[i - 1])
-                toks[i].copy_(self.graphs.run(meta, self._decode_body))
+            with self._span("decode.upload"):
+                buf = self.graphs.inputs(meta, width)
+                host = torch.from_numpy(rows)
+                if buf.is_cuda:
+                    host = host.pin_memory()
+                stacked = host.to(self.device, non_blocking=True)
+                toks = torch.empty(n, B, dtype=torch.int32,
+                                   device=self.device)
+            with self._span("decode.replay"):
+                off = _blob_size(meta)
+                tok_in = buf[off: off + B]
+                for i in range(n):
+                    buf.copy_(stacked[i])
+                    if i:
+                        tok_in.copy_(toks[i - 1])
+                    toks[i].copy_(self.graphs.run(meta, self._decode_body))
         self.decode_steps += n
-        return toks.cpu().numpy()
+        with self._span("decode.readback"):
+            return toks.cpu().numpy()
 
     def _decode_body(self, buf: torch.Tensor, meta: PlanMeta) -> torch.Tensor:
         """The fixed-shape decode step on its input buffer (``_step_row``'s
@@ -799,75 +898,85 @@ class LlamaServingEngine(_LayerStack):
         mc, B = self.cfg.model, self.cfg.max_batch
         G = self.cfg.spec_tokens
         rows = G + 1
-        reqs = [r for r in self._slots if r is not None]
-        reqs = self._reserve(reqs, rows)
+        with self._span("verify.reserve"):
+            reqs = [r for r in self._slots if r is not None]
+            reqs = self._reserve(reqs, rows)
         if not reqs:
             return []
-        kv0 = np.zeros(B, np.int64)
-        drafts = np.zeros((B, G), np.int64)
-        for r in reqs:
-            s = r._slot
-            kv0[s] = self.pool.seq_len(r._seq) - rows  # before the reserve
-            drafts[s] = propose_ngram(r.prompt + r.output, G,
-                                      self.cfg.spec_ngram)
-        tables = self._slot_tables(reqs)
-        full_indptr, slot_indices, full_last, kv_lens = tables
-        bucket = next_power_of_2(max(B * rows, 8))
-        tokens = np.zeros(bucket, np.int64)
-        positions = np.zeros(bucket, np.int64)
-        batch_idx = np.zeros(bucket, np.int64)
-        valid = np.zeros(bucket, np.int64)
-        for r in reqs:
-            s, o = r._slot, r._slot * rows
-            tokens[o] = r.output[-1] if r.output else r.prompt[-1]
-            tokens[o + 1: o + rows] = drafts[s]
-            positions[o: o + rows] = kv0[s] + np.arange(rows)
-            batch_idx[o: o + rows] = s
-            valid[o: o + rows] = 1
-        # every slot has G + 1 query rows (an idle slot's have no keys and
-        # no work items); a trailing dummy request takes the pad rows
-        plan_indptr = np.concatenate([full_indptr, [full_indptr[-1]]])
-        plan_last = np.concatenate([full_last, [0]])
-        t0 = time.perf_counter()
-        self._spec_wrapper.plan(
-            np.concatenate([np.arange(B + 1) * rows, [bucket]]),
-            plan_indptr, slot_indices, plan_last,
-            mc.num_qo_heads, mc.num_kv_heads, mc.head_dim, self.cfg.page_size,
-            causal=True, kv_chunk_size=self._kv_chunk(),
-            kv_len_arr=np.concatenate([kv_lens, [0]]),
-            work_capacity=self._work_capacity(), defer_upload=True)
-        self.plan_seconds += time.perf_counter() - t0
-        dplan = self._spec_wrapper.device_plan
-        # [plan blob | JAX's spec blob | seed]
-        row = np.concatenate([
-            dplan.blob.numpy(), tokens, positions, batch_idx, valid,
-            drafts.ravel(), slot_indices, plan_indptr, plan_last,
-            [self._draw_seed()]]).astype(np.int32)
-        key = ("verify", dplan.meta)
-        _upload(self.graphs.inputs(key, len(row)), row)
-        out_toks = self.graphs.run(key, self._verify_body).cpu().numpy()
-        st = self.spec_stats
-        st["steps"] += 1
+        with self._span("verify.inputs"):
+            kv0 = np.zeros(B, np.int64)
+            drafts = np.zeros((B, G), np.int64)
+            for r in reqs:
+                s = r._slot
+                kv0[s] = self.pool.seq_len(r._seq) - rows  # before the reserve
+                drafts[s] = propose_ngram(r.prompt + r.output, G,
+                                          self.cfg.spec_ngram)
+            tables = self._slot_tables(reqs)
+            full_indptr, slot_indices, full_last, kv_lens = tables
+            bucket = next_power_of_2(max(B * rows, 8))
+            tokens = np.zeros(bucket, np.int64)
+            positions = np.zeros(bucket, np.int64)
+            batch_idx = np.zeros(bucket, np.int64)
+            valid = np.zeros(bucket, np.int64)
+            for r in reqs:
+                s, o = r._slot, r._slot * rows
+                tokens[o] = r.output[-1] if r.output else r.prompt[-1]
+                tokens[o + 1: o + rows] = drafts[s]
+                positions[o: o + rows] = kv0[s] + np.arange(rows)
+                batch_idx[o: o + rows] = s
+                valid[o: o + rows] = 1
+            # every slot has G + 1 query rows (an idle slot's have no keys
+            # and no work items); a trailing dummy request takes the pad rows
+            plan_indptr = np.concatenate([full_indptr, [full_indptr[-1]]])
+            plan_last = np.concatenate([full_last, [0]])
+        with self._span("verify.plan"):
+            self._spec_wrapper.plan(
+                np.concatenate([np.arange(B + 1) * rows, [bucket]]),
+                plan_indptr, slot_indices, plan_last,
+                mc.num_qo_heads, mc.num_kv_heads, mc.head_dim,
+                self.cfg.page_size, causal=True,
+                kv_chunk_size=self._kv_chunk(),
+                kv_len_arr=np.concatenate([kv_lens, [0]]),
+                work_capacity=self._work_capacity(), defer_upload=True)
+        with self._span("verify.inputs"):
+            dplan = self._spec_wrapper.device_plan
+            # [plan blob | JAX's spec blob | seed]
+            row = np.concatenate([
+                dplan.blob.numpy(), tokens, positions, batch_idx, valid,
+                drafts.ravel(), slot_indices, plan_indptr, plan_last,
+                [self._draw_seed()]]).astype(np.int32)
+            key = ("verify", dplan.meta)
+        with self._span("verify.upload"):
+            _upload(self.graphs.inputs(key, len(row)), row)
+        with self._span("verify.replay"):
+            res = self.graphs.run(key, self._verify_body)
+        with self._span("verify.readback"):
+            out_toks = res.cpu().numpy()
         out: List[Tuple[int, int]] = []
-        for r in reqs:
-            s = r._slot
-            toks: List[int] = []
-            for t in out_toks[s]:
-                if t < 0:
-                    break
-                toks.append(int(t))
-                if self.cfg.eos_token >= 0 and t == self.cfg.eos_token:
-                    break
-            toks = toks[: r.max_new_tokens - len(r.output)]
-            st["seqs"] += 1
-            st["drafts"] += G
-            st["accepted"] += min(len(toks), int((out_toks[s] >= 0).sum()) - 1)
-            st["emitted"] += len(toks)
-            # the KV of the current token and the accepted drafts stays;
-            # the last emitted token's KV enters with the next step
-            self.pool.truncate(r._seq, int(kv0[s]) + len(toks))
-            for t in toks:
-                self._emit(r, t, out)
+        with self._span("verify.emit"):
+            st = self.spec_stats
+            st["steps"] += 1
+            for r in reqs:
+                s = r._slot
+                toks: List[int] = []
+                for t in out_toks[s]:
+                    if t < 0:
+                        break
+                    toks.append(int(t))
+                    if self.cfg.eos_token >= 0 and t == self.cfg.eos_token:
+                        break
+                toks = toks[: r.max_new_tokens - len(r.output)]
+                st["seqs"] += 1
+                st["drafts"] += G
+                st["accepted"] += min(len(toks),
+                                      int((out_toks[s] >= 0).sum()) - 1)
+                st["emitted"] += len(toks)
+                # the KV of the current token and the accepted drafts
+                # stays; the last emitted token's KV enters with the next
+                # step
+                self.pool.truncate(r._seq, int(kv0[s]) + len(toks))
+                for t in toks:
+                    self._emit(r, t, out)
         return out
 
     def _verify_body(self, buf: torch.Tensor, key) -> torch.Tensor:

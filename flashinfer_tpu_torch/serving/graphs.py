@@ -27,7 +27,9 @@ replay runs them all. So a capture takes back the counts its wrappers added,
 and every replay adds them again (``batch_paged_attention_run.launches``, its
 ``gather_launches`` and the other wrappers' counts then say how many
 kernels ran). ``stats`` keeps, for each kind, the captures, their seconds
-and the replays.
+and the replays. Each capture is also a span ``engine.<kind>.capture``
+(``flashinfer_tpu_torch.profiler.annotate``) that counts into ``phases``
+(the caller's dict, as the Llama engine's ``phases``).
 
 A step may run collectives of ``torch.distributed`` (NCCL captures them
 on the capturing stream); its communicator must exist before the
@@ -38,7 +40,7 @@ from __future__ import annotations
 
 import gc
 import time
-from typing import Callable, Dict, Hashable, List, Tuple
+from typing import Callable, Dict, Hashable, List, Optional, Tuple
 
 import torch
 
@@ -52,6 +54,7 @@ from flashinfer_tpu_torch.ops.attention.mla import mla_paged_run
 from flashinfer_tpu_torch.ops.gemm_grouped import grouped_gemm_padded
 from flashinfer_tpu_torch.ops.norm import rmsnorm
 from flashinfer_tpu_torch.ops.sampling import family_call
+from flashinfer_tpu_torch.profiler import annotate
 
 __all__ = ["StepGraphs", "kind_of"]
 
@@ -90,7 +93,8 @@ class StepGraphs:
     device), ``run`` calls the step eagerly on the same buffer.
     """
 
-    def __init__(self, device: torch.device, enabled: bool):
+    def __init__(self, device: torch.device, enabled: bool,
+                 phases: Optional[dict] = None):
         self.device = device
         self.enabled = enabled and device.type == "cuda"
         self._bufs: Dict[Hashable, torch.Tensor] = {}
@@ -104,6 +108,8 @@ class StepGraphs:
         self.last_key = None  # the key of the last step run
         # kind -> captures, capture seconds, replays
         self.stats: Dict[str, Dict[str, float]] = {}
+        # "<kind>.capture" -> [seconds, captures] of the capture spans
+        self.phases = {} if phases is None else phases
 
     @property
     def captures(self) -> int:
@@ -146,37 +152,40 @@ class StepGraphs:
         return out
 
     def _capture(self, buf, key, step: Step):
-        t0 = time.perf_counter()
-        stream = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(stream)
-        with torch.cuda.stream(side):
-            # warm-up: builds the kernels, sets up cuBLAS and the
-            # communicators; the step rewrites the same cache entries when
-            # the graph replays
-            res = step(buf, key)
-            spec = (tuple(res.shape), res.dtype)
-            if spec not in self._outs:
-                self._outs[spec] = res.clone()
-            out = self._outs[spec]
-            del res
-        stream.wait_stream(side)
-        torch.cuda.synchronize(self.device)
-        gc.collect()  # before the reading: the capture empties the cache
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(self.device)
-        before = _counts()
-        graph = torch.cuda.CUDAGraph()
-        gc.disable()
-        try:
-            with torch.cuda.graph(graph, pool=self._pool):
-                out.copy_(step(buf, key))
-        finally:
-            gc.enable()
-        launched = [a - b for a, b in zip(_counts(), before)]
-        _add(launched, -1)  # recorded, not run
-        self.pool_bytes += torch.cuda.memory_reserved(self.device) - reserved
-        stat = self._stat(key)
-        stat["captures"] += 1
-        stat["capture_s"] += time.perf_counter() - t0
-        return graph, out, launched
+        span = kind_of(key) + ".capture"
+        with annotate("engine." + span, self.phases, span):
+            t0 = time.perf_counter()
+            stream = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(stream)
+            with torch.cuda.stream(side):
+                # warm-up: builds the kernels, sets up cuBLAS and the
+                # communicators; the step rewrites the same cache entries
+                # when the graph replays
+                res = step(buf, key)
+                spec = (tuple(res.shape), res.dtype)
+                if spec not in self._outs:
+                    self._outs[spec] = res.clone()
+                out = self._outs[spec]
+                del res
+            stream.wait_stream(side)
+            torch.cuda.synchronize(self.device)
+            gc.collect()  # before the reading: the capture empties the cache
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(self.device)
+            before = _counts()
+            graph = torch.cuda.CUDAGraph()
+            gc.disable()
+            try:
+                with torch.cuda.graph(graph, pool=self._pool):
+                    out.copy_(step(buf, key))
+            finally:
+                gc.enable()
+            launched = [a - b for a, b in zip(_counts(), before)]
+            _add(launched, -1)  # recorded, not run
+            self.pool_bytes += (torch.cuda.memory_reserved(self.device)
+                                - reserved)
+            stat = self._stat(key)
+            stat["captures"] += 1
+            stat["capture_s"] += time.perf_counter() - t0
+            return graph, out, launched
