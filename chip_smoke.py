@@ -23,7 +23,10 @@ Run from the root of a checkout. Phases, in order:
    where one PyTorch call computes the same function, that call's time:
    paged attention, the sampler and RMSNorm at the shapes the Llama-3-8B
    engine gives them (paged attention also at the speculative verify plan,
-   at head_dim 256 and on POD's combined plan; the sampler also in renorm
+   at head_dim 256 and on POD's combined plan; the split merge,
+   ``paged_merge``, at Mistral-7B heads on a long-context decode of 32
+   splits and a 2048-token prefill of 4, against the plain composition in
+   a CUDA graph and eagerly; the sampler also in renorm
    mode at the verify step's 32 rows and its draw, and at the DeepSeek and
    Mixtral paths' vocabularies); MLA attention at
    DeepSeek-V2-Lite shapes (decode and causal prefill, bf16/e4m3/int8
@@ -653,6 +656,106 @@ def _paged_rows(torch, cases, ps, label):
     bad = [r for r in rows if not r["ok"]]
     if bad:
         raise AssertionError(f"{label} disagrees with its plain version: "
+                             f"{bad}")
+    return rows
+
+
+def _merge_plans(np):
+    """The split merge's two shapes at Mistral-7B heads (32 / 8, head_dim
+    128), pages of 16, chunk 512: a long-context decode (32 requests of
+    3072-9216 keys, uniform quantiles: 6-18 chunks, 32 splits) and one
+    2048-token causal prefill (4 splits), as (name, device plan)."""
+    from flashinfer_tpu_torch.ops.attention.batch import (
+        BatchDecodeWithPagedKVCacheWrapper,
+        BatchPrefillWithPagedKVCacheWrapper,
+    )
+
+    hq, hkv, d, ps, chunk = 32, 8, 128, 16, 512
+    out = []
+    for name, qo, kv in (
+            ("longctx_decode", np.ones(32, np.int64),
+             np.linspace(3072, 9216, 32).astype(np.int64)),
+            ("prefill_2048", np.array([2048]), np.array([2048]))):
+        indptr, indices = _page_table(np, kv, ps)
+        last = ((kv - 1) % ps) + 1
+        if name == "longctx_decode":
+            w = BatchDecodeWithPagedKVCacheWrapper(kv_layout="NHD",
+                                                   device=DEVICE)
+            w.plan(indptr, indices, last, hq, hkv, d, ps,
+                   kv_chunk_size=chunk)
+        else:
+            w = BatchPrefillWithPagedKVCacheWrapper(kv_layout="NHD",
+                                                    device=DEVICE)
+            w.plan(np.concatenate([[0], np.cumsum(qo)]), indptr, indices,
+                   last, hq, hkv, d, ps, causal=True, kv_chunk_size=chunk)
+        out.append((name, w.device_plan))
+    return out
+
+
+def _bf16_ulps(torch, a, b):
+    """Largest |a - b| in units in the last place of bf16."""
+    def key(x):
+        v = x.contiguous().view(torch.int16).int()
+        return torch.where(v < 0, -(v + 32768), v)
+    return int((key(a) - key(b)).abs().max())
+
+
+def check_paged_merge(torch, np):
+    """The split merge (``paged_merge``: one launch) against its plain
+    version (``gather_merge_states``, the out_map gather, the GQA permute:
+    ~26 + 4 S launches) at ``_merge_plans``' shapes, on random bf16 partials
+    of the plan's shape: bf16 ulps apart (0 at one split), timed in a CUDA
+    graph (the kernel and the plain version, as the engine replays them)
+    and the plain version as eager calls, beside the bytes bound (each valid
+    partial read once, the output written once)."""
+    from flashinfer_tpu_torch.ops.attention.kernels.paged_merge import (
+        paged_merge,
+        paged_merge_plain,
+    )
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    rows = []
+    for name, dp in _merge_plans(np):
+        m = dp.meta
+        group = m.num_qo_heads // m.num_kv_heads
+        po = torch.randn(m.num_work_items, m.num_kv_heads, m.tile_q,
+                         m.head_dim_vo, device=dev, generator=gen,
+                         dtype=torch.bfloat16)
+        pl = torch.randn(po.shape[:3], device=dev, generator=gen) * 3
+        src, om = dp.segment("merge_src"), dp.segment("out_map")
+        kw = dict(tile_q=m.tile_q, group=group, nnz=m.nnz,
+                  head_dim_vo=m.head_dim_vo)
+        got, _ = paged_merge(po, pl, src, om, **kw)
+        want, _ = paged_merge_plain(po, pl, src, om, **kw)
+        torch.cuda.synchronize()
+        ulps = _bf16_ulps(torch, got, want)
+        ms = cuda_ms(torch, lambda: paged_merge(po, pl, src, om, **kw), 50,
+                     graph=True)
+        plain_ms = cuda_ms(torch, lambda: paged_merge_plain(
+            po, pl, src, om, **kw), 20, graph=True)
+        plain_call_ms = cuda_ms(torch, lambda: paged_merge_plain(
+            po, pl, src, om, **kw), 20)
+        used = src.long()[om.long()]
+        valid = int((used >= 0).sum())
+        nbytes = (valid * m.num_kv_heads * (m.head_dim_vo * 2 + 4)
+                  + got.numel() * 2 + used.numel() * 4 + om.numel() * 4)
+        b_ms, b_by = bound_ms(nbytes, 0)
+        ok = ulps <= (0 if m.max_splits == 1 else 1)
+        rows.append(dict(case=name, nnz=m.nnz, splits=m.max_splits,
+                         T=m.num_work_items, tile_q=m.tile_q,
+                         valid_partials=valid, ulps=ulps, ms=ms,
+                         plain_ms=plain_ms, plain_call_ms=plain_call_ms,
+                         bound_bytes=nbytes, bound_ms=b_ms, bound_by=b_by,
+                         ok=ok))
+        log(f"paged_merge {name}: nnz={m.nnz} splits={m.max_splits} "
+            f"T={m.num_work_items} tile_q={m.tile_q} valid={valid} "
+            f"ulps={ulps} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"plain_call_ms={plain_call_ms:.4f} bound_ms={b_ms:.5f} "
+            f"({b_by}) {'ok' if ok else 'MISMATCH'}")
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"paged_merge disagrees with its plain version: "
                              f"{bad}")
     return rows
 
@@ -1992,6 +2095,9 @@ def _reset_counts():
     from flashinfer_tpu_torch.ops.attention.kernels.paged import (
         batch_paged_attention_run,
     )
+    from flashinfer_tpu_torch.ops.attention.kernels.paged_merge import (
+        paged_merge,
+    )
     from flashinfer_tpu_torch.ops.attention.mla import mla_paged_run
     from flashinfer_tpu_torch.ops.gemm_grouped import grouped_gemm_padded
     from flashinfer_tpu_torch.ops.norm import rmsnorm
@@ -1999,6 +2105,7 @@ def _reset_counts():
 
     fns = {"paged_attention": batch_paged_attention_run,
            "paged_attention_gather": _GatherLaunches(),
+           "paged_merge": paged_merge,
            "sampler_family": family_call, "rmsnorm": rmsnorm,
            "mla_attention": mla_paged_run,
            "grouped_gemm": grouped_gemm_padded,
@@ -2030,13 +2137,13 @@ class _GatherLaunches:
         batch_paged_attention_run.gather_launches = n
 
 
-LLAMA_PATH = ("paged_attention", "sampler_family", "rmsnorm")
+LLAMA_PATH = ("paged_attention", "paged_merge", "sampler_family", "rmsnorm")
 # Llama with 8-bit weights: every matmul is a grouped-GEMM launch
 LLAMA_W8_PATH = LLAMA_PATH + ("grouped_gemm",)
 SPEC_TOKENS = 3  # drafts a sequence in the spec modes
 DEEPSEEK_PATH = ("mla_attention", "grouped_gemm", "rmsnorm",
                  "sampler_family")
-MIXTRAL_PATH = ("paged_attention", "grouped_gemm", "rmsnorm",
+MIXTRAL_PATH = ("paged_attention", "paged_merge", "grouped_gemm", "rmsnorm",
                 "sampler_family")
 SINGLE_PATH = ("flash_attention",)
 POD_PATH = ("flash_attention", "paged_attention")
@@ -2483,7 +2590,8 @@ def _score_modes(torch, np, mc, params, prompt, card):
 ODD_PAGES = (12, 20)
 PAGES_REQUESTS = 8  # of the engine phase's prompts (64-512 tokens)
 PAGES_NEW = 16
-PAGES_PATH = ("paged_attention", "paged_attention_gather", "rmsnorm")
+PAGES_PATH = ("paged_attention", "paged_attention_gather", "paged_merge",
+              "rmsnorm")
 
 
 def _repack_flat(np, lens, ps):
@@ -4931,7 +5039,7 @@ DIST_ROWS = 512  # max_tokens_per_step: the longest prompt fits one step
 # of 8 rows against 256), and on random weights their greedy paths part a
 # few tokens in (0.672 on the H100 in bf16, 1.000 in f32: PERF.md)
 DIST_MIN_AGREEMENT = 0.9
-DIST_PATH = ("paged_attention", "sampler_family", "rmsnorm")
+DIST_PATH = ("paged_attention", "paged_merge", "sampler_family", "rmsnorm")
 # the dp x tp step eager, then replayed from a CUDA graph per PlanMeta
 DIST_MODES = (("eager", False), ("graphed", True))
 RING_TOKENS = 8192  # the single-request phase's prompt
@@ -5624,6 +5732,7 @@ def main() -> int:
                     lens_decode, lens_prefill)
     attn = ph.run("kernel check: paged attention", check_paged_attention,
                   torch, np, lens_decode, lens_prefill)
+    merge = ph.run("kernel check: paged merge", check_paged_merge, torch, np)
     samp = ph.run("kernel check: sampler", check_sampler, torch)
     pipes = ph.run("logits pipe", phase_logits_pipe, torch, card)
     norm = ph.run("kernel check: rmsnorm", check_rmsnorm, torch)
@@ -5714,6 +5823,15 @@ def main() -> int:
             ms=main_row["ms"], plain_ms=main_row["plain_ms"],
             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
             library_ms=None))
+    if merge:
+        r = merge[0]  # the long-context decode
+        kernels.append(dict(
+            name="paged_merge", route="cuda",
+            source="flashinfer_tpu_torch/csrc/paged_merge.cu",
+            replaces="none (JAX's gather_merge_states is XLA ops)",
+            launches=launches("paged_merge"),
+            max_abs_err=None, ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None))
     if samp:
         kernels.append(dict(
             name="sampler_family", route="cuda",
@@ -5788,7 +5906,8 @@ def main() -> int:
         with open(args.out, "w") as f:
             json.dump(dict(card=card, native=native, pipes=pipes,
                            moe_api=moe_api, tooling=tools,
-                           attention=attn, sampler=samp,
+                           attention=attn, paged_merge=merge,
+                           sampler=samp,
                            rmsnorm=norm, mla=mla, grouped_gemm=gg,
                            w8_matmul=w8,
                            flash=flash, single=single, pod=pod,

@@ -63,8 +63,9 @@ __all__ = [
     "get_native_runtime",
 ]
 
-KERNEL_SOURCES = ("paged_attention", "paged_attention_gather", "sampling",
-                  "mla_attention", "grouped_gemm", "flash_attention", "norm")
+KERNEL_SOURCES = ("paged_attention", "paged_attention_gather", "paged_merge",
+                  "sampling", "mla_attention", "grouped_gemm",
+                  "flash_attention", "norm")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

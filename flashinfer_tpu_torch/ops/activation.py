@@ -20,9 +20,14 @@ __all__ = ["silu_and_mul", "gelu_and_mul", "gelu_tanh_and_mul",
 
 
 def silu_and_mul(x: torch.Tensor, *, enable_pdl: bool = None) -> torch.Tensor:
+    """The products in place, so at most two f32 temporaries of [..., d]
+    are live (four, as one expression: 8 GiB at a 16384-token Mistral-Small-24B
+    prefill); the values are the expression's."""
     d = x.shape[-1] // 2
     g32 = x[..., :d].float()
-    return (g32 * torch.sigmoid(g32) * x[..., d:].float()).to(x.dtype)
+    act = torch.sigmoid(g32).mul_(g32)
+    del g32
+    return act.mul_(x[..., d:].float()).to(x.dtype)
 
 
 def gelu_and_mul(x: torch.Tensor, *, enable_pdl: bool = None) -> torch.Tensor:

@@ -5,8 +5,9 @@ the host (NumPy): it turns a batch's indptrs into a padded, static-shape
 work list (``scheduler.plan``) plus gather maps, and packs them into one
 int32 ``DevicePlan`` blob with the reference's ``PlanMeta.blob_layout``, so
 one blob drives both packages. ``run()`` gathers q into the GQA-packed
-layout, launches the paged kernel (``kernels/paged.py``) and merges split-KV
-partials (``state.gather_merge_states``).
+layout, launches the paged kernel (``kernels/paged.py``), and merges its
+split-KV partials into the caller's layout (``kernels/paged_merge.py``: one
+launch on the card, JAX's ``gather_merge_states`` composition on the CPU).
 
 What a plan carries, as JAX's does:
 
@@ -59,11 +60,11 @@ from flashinfer_tpu_torch.ops.attention.kernels.paged import (
     batch_paged_attention_run,
     paged_tile_map,
 )
-from flashinfer_tpu_torch.ops.attention.reference import attention_reference
-from flashinfer_tpu_torch.ops.attention.state import (
-    gather_merge_states,
-    merge_state,
+from flashinfer_tpu_torch.ops.attention.kernels.paged_merge import (
+    paged_merge,
 )
+from flashinfer_tpu_torch.ops.attention.reference import attention_reference
+from flashinfer_tpu_torch.ops.attention.state import merge_state
 from flashinfer_tpu_torch.ops.attention.variants import (
     AttentionVariant,
     make_default_variant,
@@ -89,6 +90,7 @@ __all__ = [
     "BatchPrefillWithPagedKVCacheWrapper",
     "BatchPrefillWithRaggedKVCacheWrapper",
     "DevicePlan",
+    "PartialsWorkspace",
     "PlanMeta",
     "kernel_caches",
     "pack_queries",
@@ -378,6 +380,7 @@ def run_device_plan(
     kv_indices_offset: int = 0,
     return_lse: bool = False,
     kv_dtype: Optional[str] = None,
+    workspace: Optional[PartialsWorkspace] = None,
 ):
     """Execute a DevicePlan. q [nnz, hq, d]; k/v paged caches in
     ``kv_layout``. ``kv_indices_offset`` is added to every page id, so a
@@ -387,16 +390,19 @@ def run_device_plan(
     (the JAX package's container; viewed as ``float8_e4m3fn``, no copy),
     as JAX reads them. ``variant`` None is the default softmax (the
     wrappers pass their planned variant, soft cap included). A plan on
-    repacked pages gathers its cache first (``kernel_caches``)."""
+    repacked pages gathers its cache first (``kernel_caches``). The split-KV
+    partials go to new tensors, or on the card to ``workspace``
+    (``PartialsWorkspace``), and merge into the output's layout in one more
+    launch (``paged_merge``), whatever the plan's splits."""
     if kv_dtype == "e4m3" and k.dtype == torch.int8:
         k, v = k.view(torch.float8_e4m3fn), v.view(torch.float8_e4m3fn)
     m = dplan.meta
     group = m.num_qo_heads // m.num_kv_heads
-    nnz, hq, d = q.shape
-    kvh = m.num_kv_heads
     k, v, kv_layout, kv_indices_offset = kernel_caches(
         dplan, k, v, kv_layout, kv_indices_offset)
 
+    partials = (None if workspace is None
+                else workspace.partials(m, q.dtype, v.shape[3]))
     partial_o, partial_lse = batch_paged_attention_run(
         pack_queries(dplan, q), k, v, dplan.segment("kv_indices"),
         dplan.segment("plan"), tile_q=m.tile_q, group=m.gqa_group,
@@ -405,29 +411,48 @@ def run_device_plan(
         kv_indices_offset=kv_indices_offset,
         row_valid=dplan.segment("row_valid"), work_mask=dplan.work_mask,
         variant=variant, variant_params=variant_params,
-        tile_map=dplan.tile_map,
+        tile_map=dplan.tile_map, out=partials,
     )
-    dv = partial_o.shape[3]
-    out_map = dplan.segment("out_map").long()
-    merge_src = dplan.segment("merge_src")
-    if m.max_splits == 1:
-        # no split-KV: the merge is a permutation, so one gather goes
-        # straight from the partials to the output rows
-        comb = merge_src[:, 0].long()[out_map].clamp(min=0)
-        w_idx, j_idx = comb // m.tile_q, comb % m.tile_q
-        out = partial_o[w_idx, :, j_idx, :]  # [nnz * group, kvh, dv]
-        lse = partial_lse[w_idx, :, j_idx] if return_lse else None
-    else:
-        merged_o, merged_lse = gather_merge_states(
-            partial_o, partial_lse, merge_src, m.tile_q)
-        out = merged_o[out_map]
-        lse = merged_lse[out_map] if return_lse else None
-    out = (out.reshape(nnz, group, kvh, dv).permute(0, 2, 1, 3)
-           .reshape(nnz, hq, dv)[:, :, : m.head_dim_vo])
-    if return_lse:
-        lse = lse.reshape(nnz, group, kvh).permute(0, 2, 1).reshape(nnz, hq)
-        return out, lse
-    return out
+    out, lse = paged_merge(
+        partial_o, partial_lse, dplan.segment("merge_src"),
+        dplan.segment("out_map"), tile_q=m.tile_q, group=group,
+        nnz=q.shape[0], head_dim_vo=m.head_dim_vo, return_lse=return_lse)
+    return (out, lse) if return_lse else out
+
+
+class PartialsWorkspace:
+    """Device memory for the paged kernel's split-KV partials (FlashInfer's
+    float workspace buffer), handed to ``run_device_plan``: every call given
+    it writes its partials ([T, kvh, tile_q, dv] in q's dtype, then [T, kvh,
+    tile_q] f32) into the front of one buffer, so the layers of a step, and
+    its eager run and CUDA graph, reuse the same bytes whatever else they
+    allocate. Partials larger than the buffer take a new one; a buffer it
+    has handed out stays allocated for the workspace's life, since a CUDA
+    graph captured over it writes it at every replay. Calls that share a
+    workspace run on one stream, one at a time."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self._bufs = []
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of every buffer it holds."""
+        return sum(b.numel() for b in self._bufs)
+
+    def partials(self, meta: PlanMeta, dtype: torch.dtype, dv: int):
+        """(o, lse) views for a plan of ``meta`` whose V has ``dv``
+        columns."""
+        shape = (meta.num_work_items, meta.num_kv_heads, meta.tile_q)
+        n = math.prod(shape)
+        o_bytes = n * dv * torch.finfo(dtype).bits // 8
+        lse_at = -(-o_bytes // 256) * 256
+        if not self._bufs or self._bufs[-1].numel() < lse_at + 4 * n:
+            self._bufs.append(torch.empty(lse_at + 4 * n, dtype=torch.uint8,
+                                          device=self.device))
+        buf = self._bufs[-1]
+        return (buf[:o_bytes].view(dtype).view(*shape, dv),
+                buf[lse_at: lse_at + 4 * n].view(torch.float32).view(shape))
 
 
 def _chained(q: torch.Tensor, out) -> torch.Tensor:

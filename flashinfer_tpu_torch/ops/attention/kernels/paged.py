@@ -360,6 +360,7 @@ def batch_paged_attention_run(
     variant: Optional[AttentionVariant] = None,
     variant_params: Any = None,
     tile_map: Any = None,
+    out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run the planned work list. q_packed [kvh, rows, d] (GQA-packed, per
     request tile_q-aligned); k caches NHD [P, ps, kvh, d] or HND
@@ -371,7 +372,10 @@ def batch_paged_attention_run(
     where given. ``tile_map``: the work mask's map (the plan's
     ``DevicePlan.tile_map``); None derives it on the mask's device
     (``paged_tile_map``); False runs without one (every tile of a masked
-    plan tested key by key: the kernels' path before the map).
+    plan tested key by key: the kernels' path before the map). ``out``:
+    CUDA tensors (o, lse) of the partials' shapes and dtypes to write them
+    into and return, in place of new ones (``run_device_plan``'s
+    ``PartialsWorkspace``).
 
     A CUDA tensor launches the kernel (or raises); a CPU tensor takes
     ``paged_attention_plain``. bf16 numerics (bf16 q, or an e4m3 cache) run
@@ -408,6 +412,9 @@ def batch_paged_attention_run(
     cap, alibi, hooks = _resolve_variant(variant, variant_params,
                                          logits_soft_cap)
     if not q_packed.is_cuda:
+        if out is not None:
+            raise ValueError("out takes CUDA tensors: the plain version "
+                             "returns new ones")
         return paged_attention_plain(q_packed, k_cache, v_cache, kv_indices,
                                      plan, **kw)
     fmt = _kv_format(k_cache)
@@ -463,10 +470,24 @@ def batch_paged_attention_run(
         alibi = _device_arg(alibi.reshape(-1), "alibi_slopes", torch.float32,
                             kvh * group)
     q_packed = q_packed.contiguous()
-    o = torch.empty(T, kvh, tile_q, dv, dtype=q_packed.dtype,
-                    device=q_packed.device)
-    lse = torch.empty(T, kvh, tile_q, dtype=torch.float32,
-                      device=q_packed.device)
+    if out is None:
+        o = torch.empty(T, kvh, tile_q, dv, dtype=q_packed.dtype,
+                        device=q_packed.device)
+        lse = torch.empty(T, kvh, tile_q, dtype=torch.float32,
+                          device=q_packed.device)
+    else:
+        o, lse = out
+        if (tuple(o.shape) != (T, kvh, tile_q, dv)
+                or o.dtype != q_packed.dtype
+                or tuple(lse.shape) != (T, kvh, tile_q)
+                or lse.dtype != torch.float32):
+            raise ValueError(
+                f"out {o.dtype} {tuple(o.shape)}, {lse.dtype} "
+                f"{tuple(lse.shape)} is not the partials' {q_packed.dtype} "
+                f"[{T}, {kvh}, {tile_q}, {dv}] and f32 [{T}, {kvh}, "
+                f"{tile_q}]")
+        for t in (o, lse):
+            _device_arg(t, "out", t.dtype, t.numel())
     kv_code = {"model": _Q_CODES[q_packed.dtype], "e4m3": _KV_E4M3,
                "int8": _KV_I8}[fmt]
     user = (None if hooks is None else

@@ -75,6 +75,7 @@ from flashinfer_tpu_torch.serving.engine import (
     _layer_keys,
     _LayerStack,
     _norm_kv_scale,
+    _partials_workspace,
     _upload,
     fuse_qkv_weights,
 )
@@ -234,6 +235,7 @@ class DistributedServingEngine(_LayerStack):
             self._rows * group + (B + 2) * self._tile_q)
         self._min_splits = next_power_of_2(chunks)
         self.graphs = StepGraphs(self.device, config.cuda_graphs)
+        self._partials = _partials_workspace(self.device)
         self.steps = 0
         self.generated_tokens = 0
         self.plan_seconds = 0.0

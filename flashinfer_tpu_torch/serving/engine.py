@@ -102,6 +102,7 @@ from flashinfer_tpu_torch.ops.attention.batch import (
     BatchDecodeWithPagedKVCacheWrapper,
     BatchPrefillWithPagedKVCacheWrapper,
     DevicePlan,
+    PartialsWorkspace,
     PlanMeta,
     run_device_plan,
 )
@@ -227,12 +228,24 @@ def _norm_kv_scale(s) -> Tuple[float, float]:
     return float(s), float(s)
 
 
+def _partials_workspace(device: torch.device
+                        ) -> Optional[PartialsWorkspace]:
+    """The split-KV partials' workspace of an engine's layers: one on the
+    card, held outside the CUDA graphs' pool, so each layer of a step
+    writes the bytes the one before wrote (allocated layer by layer in a
+    graph's capture, a freed partial could be split by the next layer's
+    smaller tensors and the pool grow by a partial a layer: 8 GiB at a
+    16384-token Mistral-7B prefill). None on the CPU."""
+    return PartialsWorkspace(device) if device.type == "cuda" else None
+
+
 class _LayerStack:
     """The layer loop of both engines: this module's, and the distributed
     engine's on its tp shard. It reads ``cfg``, ``params``,
     ``_layer_keys``, ``_hq`` / ``_hkv`` (the heads this process computes),
     ``_kv_quant``, ``_kv_scale``, ``_hnd`` (the caches' layout is HND),
-    ``_k_rows`` / ``_v_rows`` and ``k_cache`` / ``v_cache``. The two hooks are where tensor parallelism reduces the
+    ``_k_rows`` / ``_v_rows``, ``k_cache`` / ``v_cache`` and ``_partials``
+    (the paged attention's ``PartialsWorkspace``, None on the CPU). The two hooks are where tensor parallelism reduces the
     row-parallel partials; on one card they round into the residual's
     dtype."""
 
@@ -293,6 +306,7 @@ class _LayerStack:
                 kv_layout=TensorLayout.HND if hnd else TensorLayout.NHD,
                 k_scale=k_scale, v_scale=v_scale,
                 kv_indices_offset=layer * num_pages,
+                workspace=self._partials,
             )[:n]
             xn, x = self._attn_out_norm(
                 _wmm(attn.reshape(n, hq * d), lp, "wo"), x, lp["mlp_norm"])
@@ -405,6 +419,7 @@ class LlamaServingEngine(_LayerStack):
         self._spans: Dict[str, annotate] = {}
         self.graphs = StepGraphs(self.device, config.cuda_graphs,
                                  phases=self.phases)
+        self._partials = _partials_workspace(self.device)
         self.steps = 0
         self.generated_tokens = 0
         self.preemptions = 0
@@ -618,7 +633,8 @@ class LlamaServingEngine(_LayerStack):
         batch (a power of two, at most ``bucket`` / the key chunk): pinned
         to that most, every admission runs the split merge, which made a
         2048-row Llama-3-8B prefill 115.4 ms of device time against 75.4
-        on an H100 (``tools/prefill_profile.py``)."""
+        on an H100 while the merge was plain PyTorch
+        (``tools/prefill_profile.py``)."""
         mc = self.cfg.model
         group = mc.num_qo_heads // mc.num_kv_heads
         tile_q = max(_PREFILL_TILE_Q, next_power_of_2(group), 8)

@@ -50,6 +50,9 @@ from flashinfer_tpu_torch.ops.attention.kernels.flash import (
 from flashinfer_tpu_torch.ops.attention.kernels.paged import (
     batch_paged_attention_run,
 )
+from flashinfer_tpu_torch.ops.attention.kernels.paged_merge import (
+    paged_merge,
+)
 from flashinfer_tpu_torch.ops.attention.mla import mla_paged_run
 from flashinfer_tpu_torch.ops.gemm_grouped import grouped_gemm_padded
 from flashinfer_tpu_torch.ops.norm import rmsnorm
@@ -60,8 +63,8 @@ __all__ = ["StepGraphs", "kind_of"]
 
 # every launch count of the kernel wrappers: (wrapper, attribute)
 _COUNTED = tuple((f, "launches") for f in (
-    batch_paged_attention_run, family_call, rmsnorm, mla_paged_run,
-    grouped_gemm_padded, flash_attention_dense)) + (
+    batch_paged_attention_run, paged_merge, family_call, rmsnorm,
+    mla_paged_run, grouped_gemm_padded, flash_attention_dense)) + (
     (batch_paged_attention_run, "gather_launches"),)
 
 

@@ -18,6 +18,10 @@ from flashinfer_tpu.ops.attention import reference as jax_reference
 from flashinfer_tpu.ops.attention import state as jax_state
 from flashinfer_tpu.utils import TensorLayout as JaxLayout
 from flashinfer_tpu_torch.ops.attention import batch as torch_batch
+from flashinfer_tpu_torch.ops.attention.kernels.paged_merge import (
+    paged_merge,
+    paged_merge_plain,
+)
 from flashinfer_tpu_torch.ops.attention.reference import attention_reference
 from flashinfer_tpu_torch.ops.attention.state import gather_merge_states
 from flashinfer_tpu_torch.utils import TensorLayout
@@ -159,6 +163,113 @@ def test_gather_merge_states_matches_jax():
         torch.from_numpy(o), torch.from_numpy(lse), torch.from_numpy(src), tq)
     np.testing.assert_allclose(got_o.numpy(), np.asarray(want_o), atol=2e-5)
     np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), atol=2e-5)
+
+
+def _merge_inputs(rng, splits, group, nnz=5, T=6, kvh=2, tq=8, dv=16):
+    """Partials, lse (some -inf), merge_src filled from the left (a row with
+    no source, a row with every split, other rows in between) and an out_map
+    that reads some of the rows, as numpy arrays."""
+    o = rng.standard_normal((T, kvh, tq, dv)).astype(np.float32)
+    lse = (rng.standard_normal((T, kvh, tq)) * 3).astype(np.float32)
+    lse[0, :, :3] = -np.inf  # partials that saw no key
+    rows = nnz * group + 3
+    counts = rng.integers(0, splits + 1, rows)
+    counts[0], counts[1] = 0, splits
+    src = np.full((rows, splits), -1, np.int32)
+    for r, n in enumerate(counts):
+        src[r, :n] = rng.integers(0, T * tq, n)
+    out_map = rng.permutation(rows)[: nnz * group].astype(np.int32)
+    out_map[0] = 0  # the row with no source is read
+    return o, lse, src, out_map
+
+
+@pytest.mark.parametrize("group", [1, 4, 8])
+@pytest.mark.parametrize("splits", [1, 2, 8, 32])
+def test_paged_merge_plain_matches_composition_and_jax(splits, group):
+    """``paged_merge_plain`` (what ``run_device_plan`` runs on CPU tensors)
+    against the composition ``run_device_plan`` ran before it (the plain
+    merge, the ``out_map`` gather and the GQA permute) and against JAX's
+    ``run_device_plan`` tail on the same arrays; head_dim_vo < dv."""
+    rng = np.random.default_rng(30 + splits + group)
+    o, lse, src, out_map = _merge_inputs(rng, splits, group)
+    T, kvh, tq, dv = o.shape
+    nnz, hdv, hq = len(out_map) // group, dv - 4, kvh * group
+    kw = dict(tile_q=tq, group=group, nnz=nnz, head_dim_vo=hdv,
+              return_lse=True)
+    args = [torch.from_numpy(x) for x in (o, lse, src, out_map)]
+    got_o, got_s = paged_merge_plain(*args, **kw)
+    cpu_o, cpu_s = paged_merge(*args, **kw)  # a CPU tensor: the plain path
+    assert torch.equal(cpu_o, got_o) and torch.equal(cpu_s, got_s)
+
+    # the composition run_device_plan held before (no split: one gather)
+    po, pl, ms, om = args[0], args[1], args[2], args[3].long()
+    if splits == 1:
+        comb = ms[:, 0].long()[om].clamp(min=0)
+        old_o = po[comb // tq, :, comb % tq, :]
+        old_s = pl[comb // tq, :, comb % tq]
+    else:
+        mo, mls = gather_merge_states(po, pl, ms, tq)
+        old_o, old_s = mo[om], mls[om]
+    old_o = (old_o.reshape(nnz, group, kvh, dv).permute(0, 2, 1, 3)
+             .reshape(nnz, hq, dv)[:, :, :hdv])
+    old_s = old_s.reshape(nnz, group, kvh).permute(0, 2, 1).reshape(nnz, hq)
+    assert torch.equal(got_o, old_o) and torch.equal(got_s, old_s)
+
+    # JAX's run_device_plan tail
+    if splits == 1:
+        comb = np.maximum(src[:, 0][out_map], 0)
+        want_o = jnp.asarray(o)[comb // tq, :, comb % tq, :]
+        want_s = jnp.asarray(lse)[comb // tq, :, comb % tq]
+    else:
+        mv, mls = jax_state.gather_merge_states(
+            jnp.asarray(o), jnp.asarray(lse), jnp.asarray(src), tq)
+        want_o = jnp.take(mv, jnp.asarray(out_map), axis=0)
+        want_s = jnp.take(mls, jnp.asarray(out_map), axis=0)
+    want_o = (np.asarray(want_o).reshape(nnz, group, kvh, dv)
+              .transpose(0, 2, 1, 3).reshape(nnz, hq, dv)[:, :, :hdv])
+    want_s = (np.asarray(want_s).reshape(nnz, group, kvh)
+              .transpose(0, 2, 1).reshape(nnz, hq))
+    np.testing.assert_allclose(got_o.numpy(), want_o, atol=2e-5)
+    np.testing.assert_allclose(got_s.numpy(), want_s, atol=2e-5)
+    assert got_o.shape == (nnz, hq, hdv)
+
+
+@pytest.mark.parametrize("dtype,dv", [(torch.bfloat16, 128),
+                                      (torch.float32, 72)])
+def test_partials_workspace_reuses_its_buffer(dtype, dv):
+    """``PartialsWorkspace``: plans that fit take views of one buffer's
+    front (o, then lse at a 256-byte boundary); a larger plan takes a new
+    buffer and the old one stays held; the CPU kernel path refuses it."""
+    from types import SimpleNamespace as NS
+
+    from flashinfer_tpu_torch.ops.attention.kernels.paged import (
+        batch_paged_attention_run,
+    )
+
+    ws = torch_batch.PartialsWorkspace("cpu")
+    small = NS(num_work_items=3, num_kv_heads=2, tile_q=8)
+    big = NS(num_work_items=16, num_kv_heads=2, tile_q=16)
+    o, lse = ws.partials(small, dtype, dv)
+    assert o.shape == (3, 2, 8, dv) and o.dtype == dtype
+    assert lse.shape == (3, 2, 8) and lse.dtype == torch.float32
+    assert o.is_contiguous() and lse.is_contiguous()
+    base = o.data_ptr()
+    assert (lse.data_ptr() - base) % 256 == 0
+    assert lse.data_ptr() - base >= o.numel() * o.element_size()
+    held = ws.nbytes
+    o2, _ = ws.partials(small, dtype, dv)
+    assert o2.data_ptr() == base and ws.nbytes == held
+    ob, lb = ws.partials(big, dtype, dv)
+    assert ob.data_ptr() != base and ws.nbytes > 2 * held
+    assert lb.data_ptr() + lb.numel() * 4 <= ob.data_ptr() + ws.nbytes - held
+    o3, _ = ws.partials(small, dtype, dv)
+    assert o3.data_ptr() == ob.data_ptr()
+    with pytest.raises(ValueError, match="CUDA"):
+        batch_paged_attention_run(
+            torch.zeros(2, 8, 16), torch.zeros(1, 4, 2, 16),
+            torch.zeros(1, 4, 2, 16), torch.zeros(1, dtype=torch.int32),
+            torch.zeros(8, dtype=torch.int32), tile_q=8, group=1,
+            causal=False, sm_scale=1.0, out=(o, lse))
 
 
 def test_wrapper_run_matches_dense_reference():

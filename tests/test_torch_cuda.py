@@ -23,9 +23,16 @@ import pytest
 import torch
 
 from flashinfer_tpu_torch.ops.attention import batch as attn_batch
+from flashinfer_tpu_torch.ops.attention.kernels import (
+    paged_merge as merge_mod,
+)
 from flashinfer_tpu_torch.ops.attention.kernels.paged import (
     batch_paged_attention_run,
     paged_attention_plain,
+)
+from flashinfer_tpu_torch.ops.attention.kernels.paged_merge import (
+    paged_merge,
+    paged_merge_plain,
 )
 from flashinfer_tpu_torch.ops.norm import (
     fused_add_rmsnorm,
@@ -1780,6 +1787,177 @@ def test_graphed_decode_matches_eager(dev, greedy, kv_dtype, layout):
     layers = eng.cfg.model.num_layers
     assert paged_g == paged_e + layers * eng.graphs.captures
     assert norm_g == norm_e + (2 * layers + 1) * eng.graphs.captures
+
+
+def _bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """|a - b| in units in the last place of bf16 (int32; +0 and -0 are
+    the same value)."""
+    def key(x):
+        v = x.contiguous().view(torch.int16).int()
+        return torch.where(v < 0, -(v + 32768), v)
+    return (key(a) - key(b)).abs()
+
+
+def _merge_inputs(dev, gen, rng, splits, group, dtype, dv, nnz=37, T=24,
+                  kvh=4, tq=16):
+    """Partials as the paged kernel leaves them (o 0 where lse is -inf),
+    merge_src filled from the left (a row with no source, a row with every
+    split, sources that stop early in between) and an out_map that reads a
+    share of the rows, the row with no source among them."""
+    po = torch.randn(T, kvh, tq, dv, device=dev, generator=gen).to(dtype)
+    pl = torch.randn(T, kvh, tq, device=dev, generator=gen) * 4
+    pl[0, :, :5] = float("-inf")
+    po[0, :, :5] = 0
+    rows = nnz * group + 9
+    counts = rng.integers(0, splits + 1, rows)
+    counts[0], counts[1] = 0, splits
+    src = np.full((rows, splits), -1, np.int32)
+    for r, n in enumerate(counts):
+        src[r, :n] = rng.integers(0, T * tq, n)
+    out_map = rng.permutation(rows)[: nnz * group].astype(np.int32)
+    out_map[0] = 0
+    return (po, pl, torch.from_numpy(src).to(dev),
+            torch.from_numpy(out_map).to(dev))
+
+
+def _check_merge(got, want, splits):
+    """The kernel's (out, lse) against the plain version's: the same bits
+    at one split; at more, the same -inf lse, out within one bf16 ulp (f32:
+    1e-6 relative) and lse within 1e-6 (only the weights' sum is taken in
+    another order)."""
+    (o, s), (ro, rs) = got, want
+    assert o.shape == ro.shape and o.dtype == ro.dtype
+    if splits == 1:
+        assert torch.equal(o, ro) and torch.equal(s, rs)
+        return
+    fin = torch.isfinite(rs)
+    assert torch.equal(torch.isfinite(s), fin)
+    if o.dtype == torch.bfloat16:
+        assert int(_bf16_ulps(o, ro).max()) <= 1
+    else:
+        torch.testing.assert_close(o, ro, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(s[fin], rs[fin], rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("group,dv,hdv", [(1, 256, 256), (4, 128, 128),
+                                          (8, 64, 36)])
+@pytest.mark.parametrize("splits", [1, 2, 8, 32])
+def test_paged_merge_matches_plain(dev, splits, group, dv, hdv, dtype):
+    """The merge kernel against its plain version (``gather_merge_states``,
+    the out_map gather, the GQA permute), one launch a call; head_dim_vo
+    under dv (36: bf16 stores a value at a time), and without the lse."""
+    rng = np.random.default_rng(40 + splits + group)
+    gen = torch.Generator(device=dev).manual_seed(40 + splits + group)
+    po, pl, src, om = _merge_inputs(dev, gen, rng, splits, group, dtype, dv)
+    kw = dict(tile_q=po.shape[2], group=group, nnz=om.numel() // group,
+              head_dim_vo=hdv, return_lse=True)
+    before = paged_merge.launches
+    got = paged_merge(po, pl, src, om, **kw)
+    assert paged_merge.launches == before + 1
+    want = paged_merge_plain(po, pl, src, om, **kw)
+    torch.cuda.synchronize()
+    _check_merge(got, (want[0].contiguous(), want[1]), splits)
+    o, lse = paged_merge(po, pl, src, om, **{**kw, "return_lse": False})
+    assert lse is None and torch.equal(o, got[0])
+
+
+def test_paged_kernel_writes_a_callers_buffers(dev):
+    """``out`` (a ``PartialsWorkspace``'s views): the kernel writes the
+    partials into the caller's buffers and returns them, equal to a launch
+    into new tensors; buffers of another shape raise. ``run_device_plan``
+    with a workspace gives the output it gives without, layer after layer
+    in one buffer."""
+    rng = np.random.default_rng(45)
+    ps, hq, hkv, d = 16, 8, 2, 64
+    dp, pages, _ = _plan("decode", ps, hq, hkv, d, rng)
+    kc, vc = (torch.randn(pages, ps, hkv, d, device=dev,
+                          dtype=torch.bfloat16) for _ in "kv")
+    q = torch.randn(hkv, dp.meta.bucket_rows, d, device=dev,
+                    dtype=torch.bfloat16)
+    args = (q, kc, vc, dp.segment("kv_indices"), dp.segment("plan"))
+    kw = dict(tile_q=dp.meta.tile_q, group=hq // hkv, causal=dp.meta.causal,
+              sm_scale=d ** -0.5, row_valid=dp.segment("row_valid"))
+    want = batch_paged_attention_run(*args, **kw)
+    ws = (torch.empty_like(want[0]), torch.empty_like(want[1]))
+    got = batch_paged_attention_run(*args, out=ws, **kw)
+    assert got[0] is ws[0] and got[1] is ws[1]
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    with pytest.raises(ValueError, match="partials"):
+        batch_paged_attention_run(*args, out=(ws[0][1:], ws[1]), **kw)
+    workspace = attn_batch.PartialsWorkspace(dev)
+    qt = torch.randn(dp.meta.nnz, hq, d, device=dev, dtype=torch.bfloat16)
+    run = dict(kv_layout=TensorLayout.NHD, return_lse=True)
+    want = attn_batch.run_device_plan(dp, qt, kc, vc, **run)
+    for _ in range(2):
+        got = attn_batch.run_device_plan(dp, qt, kc, vc, workspace=workspace,
+                                         **run)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    held = workspace.nbytes
+    assert held >= ws[0].nbytes + ws[1].nbytes
+    o, lse = workspace.partials(dp.meta, torch.bfloat16, d)
+    assert o.shape == ws[0].shape and lse.shape == ws[1].shape
+    assert workspace.nbytes == held
+
+
+def test_paged_merge_replays_in_a_cuda_graph(dev):
+    """Captured once, the merge replays over new partials and a new
+    out_map, as the engine's graphs replay it each step."""
+    rng = np.random.default_rng(44)
+    gen = torch.Generator(device=dev).manual_seed(44)
+    po, pl, src, om = _merge_inputs(dev, gen, rng, 8, 4, torch.bfloat16,
+                                    128)
+    kw = dict(tile_q=po.shape[2], group=4, nnz=om.numel() // 4,
+              head_dim_vo=128, return_lse=True)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # builds the kernel outside the capture
+        paged_merge(po, pl, src, om, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = paged_merge(po, pl, src, om, **kw)
+    for _ in range(2):
+        po.copy_(torch.randn(po.shape, device=dev, generator=gen))
+        pl.copy_(torch.randn(pl.shape, device=dev, generator=gen) * 4)
+        om.copy_(om[torch.randperm(om.numel(), device=dev, generator=gen)])
+        g.replay()
+        torch.cuda.synchronize()
+        _check_merge(out, paged_merge_plain(po, pl, src, om, **kw), 8)
+
+
+def test_engine_step_merges_in_one_launch_a_layer(dev, monkeypatch):
+    """The tiny bf16 engine with a prompt over the 512-key chunk (its
+    prefill and decodes merge 2 splits): a decode step replayed from its
+    CUDA graph launches the merge kernel once a layer, as many as the paged
+    kernel, and the plain merge never runs on the card."""
+    from flashinfer_tpu_torch import EngineConfig, LlamaConfig, \
+        LlamaServingEngine
+
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain merge ran on the card")
+
+    monkeypatch.setattr(merge_mod, "gather_merge_states", plain)
+    monkeypatch.setattr(merge_mod, "paged_merge_plain", plain)
+    cfg = EngineConfig(model=LlamaConfig.tiny(torch.bfloat16), page_size=8,
+                       max_batch=4, num_pages=256, max_seq_len=1024)
+    eng = LlamaServingEngine(cfg, seed=0)
+    rng = np.random.default_rng(23)
+    reqs = [eng.add_request(rng.integers(0, 256, n).tolist(), 8)
+            for n in (600, 30)]
+    eng.step()  # the prefill, then the first decode (its graph captured)
+    eng.step()
+    captures, held = eng.graphs.captures, eng._partials.nbytes
+    paged0, merge0 = batch_paged_attention_run.launches, paged_merge.launches
+    eng.step()
+    assert eng.graphs.captures == captures
+    assert held > 0 and eng._partials.nbytes == held
+    assert eng.graphs.last_key.max_splits == 2
+    layers = cfg.model.num_layers
+    assert paged_merge.launches - merge0 == layers
+    assert batch_paged_attention_run.launches - paged0 == layers
+    eng.run_to_completion(max_steps=50)
+    assert all(r.done for r in reqs)
 
 
 def test_graph_recaptured_when_the_plan_meta_changes(dev):
